@@ -1,0 +1,376 @@
+"""Corpus packing: ragged strings -> length-bucketed byte matrices, and the
+device layout the column-stream kernel streams.
+
+Counterpart of ``frizbee_tpu/corpus.py`` for byte-unit (ASCII) corpora.
+Packing is vectorized NumPy into one int8 byte matrix per bucket; the
+per-unit context arrays of the generic pipelines are not built. A packed
+``Corpus`` is query-independent: build once, serve many batches — the
+production serving pattern. Its tensors live on the corpus device, which
+is the card unless the caller asks for the CPU.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .ops.presence import PLANES
+
+# Unit-width buckets. Rows wider than the last form the XL set, served
+# by the host path (reference: src/smith_waterman/algo/mod.rs:18).
+DEFAULT_BUCKETS: Tuple[int, ...] = (16, 32, 64, 128, 256, 512, 1024)
+LANE_BUCKETS: Tuple[int, ...] = DEFAULT_BUCKETS
+
+# Colstream row groups: 1024 rows, viewed as (SUBL, 128) tiles so the
+# block layout matches frizbee_tpu's element for element.
+SUBL = 8
+GROUP_ROWS = SUBL * 128
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the card unless the caller
+    names another. Never drifts to the CPU on a host without a card."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run "
+                "the plain PyTorch versions on the CPU"
+            )
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def max_bucket_rows(width: int) -> int:
+    """Row cap per packed bucket: row ids and unit counts must co-pack
+    into one 31-bit sort key on the compacted serving tiers. Oversized
+    buckets split into chained buckets of the same width."""
+    return min(1 << 20, 1 << (30 - (width).bit_length()))
+
+
+def _size_class(b: int) -> int:
+    """Smallest {2^k * m/4 : m in 4..7} >= b (min 256): coarse row-count
+    classes bound padding waste at 25% while collapsing bucket shapes."""
+    c = 256
+    while True:
+        for m in (4, 5, 6, 7):
+            cand = (c * m) // 4
+            if cand >= b:
+                return cand
+        c *= 2
+
+
+def _cluster_order(counts: np.ndarray, nu: np.ndarray, leaf: int,
+                   unicode: bool) -> np.ndarray:
+    """Row order clustering rows with similar fold-bit presence into
+    ``leaf``-sized groups, so group-OR presence planes reject whole
+    groups for most queries: a 16-key lexsort over presence bits (unit
+    count innermost). Byte corpora rank the lowest-supported bits
+    (>= 2%) first; codepoint corpora the most balanced ones."""
+    b = counts.shape[0]
+    if b <= leaf:
+        return np.argsort(nu, kind="stable").astype(np.int64)
+    masks = counts > 0
+    freq = masks.mean(axis=0)
+    if unicode:
+        rank = np.argsort(np.abs(freq - 0.5), kind="stable")
+    else:
+        cand = np.where(freq >= 0.02)[0]
+        if len(cand) == 0:
+            cand = np.arange(counts.shape[1])
+        rank = cand[np.argsort(freq[cand], kind="stable")]
+    keys = [masks[:, rank[c]] for c in range(min(16, len(rank)))]
+    return np.lexsort([nu] + keys[::-1])
+
+
+@dataclass
+class PackedBucket:
+    """One length bucket of the corpus, padded to ``width`` units."""
+
+    width: int
+    # Original corpus indices of the rows, (B,); size-class padding is -1
+    indices: np.ndarray
+    # Byte values, (B, W) int8, zero-padded
+    cp: np.ndarray
+    # Units (== bytes) per haystack, (B,) int32
+    n_units: np.ndarray
+    # Bytes per haystack, (B,) int32
+    n_bytes: np.ndarray
+    device: torch.device
+
+    @property
+    def size(self) -> int:
+        return int(self.indices.shape[0])
+
+    def presence_counts(self) -> np.ndarray:
+        """(B, 128) uint8 per-row fold-bit occurrence counts capped at
+        PLANES, in bucket row order (cached). Padding columns land in a
+        sentinel bin 128; 64k-row chunks keep the bincount cache-friendly."""
+        if not hasattr(self, "_counts"):
+            b, w = self.cp.shape
+            cp32 = self.cp.astype(np.int32) & 0xFF
+            nu = self.n_units.astype(np.int32)
+            upper = (cp32 >= 0x41) & (cp32 <= 0x5A)
+            fold = np.where(upper, cp32 + 0x20, cp32) & 127
+            fold = np.where(
+                np.arange(w, dtype=np.int32)[None, :] < nu[:, None],
+                fold, 128,
+            )
+            counts = np.empty((b, 128), np.uint8)
+            step = 65536
+            for s in range(0, b, step):
+                e = min(s + step, b)
+                rows_c = e - s
+                row_of = np.repeat(np.arange(rows_c, dtype=np.int64), w)
+                c = np.bincount(
+                    row_of * 129 + fold[s:e].ravel(),
+                    minlength=rows_c * 129,
+                ).reshape(rows_c, 129)[:, :128]
+                counts[s:e] = np.minimum(c, PLANES)
+            self._counts = counts
+        return self._counts
+
+    def device_presence_bits(self) -> torch.Tensor:
+        """(B, PLANES*128) int8 per-row presence planes on the corpus
+        device, in bucket row order (cached): plane k column c is 1 when
+        fold-bit c occurs more than k times — the ``bits8`` operand of
+        the stage-1 survivor matmul (frizbee_tpu's
+        ``device_arrays_ascii()[4]``)."""
+        if not hasattr(self, "_device_bits"):
+            counts = self.presence_counts()
+            bits8 = np.concatenate(
+                [(counts > k) for k in range(PLANES)], axis=1
+            ).astype(np.int8)
+            self._device_bits = torch.from_numpy(bits8).to(self.device)
+        return self._device_bits
+
+    def device_arrays_colstream(self):
+        """Column-stream blocks (cached): (cpT (nG*W, SUBL, 128) int8,
+        nuT (nG*SUBL, 128) int32, idxT (nG*1024,) int32, blk_bits
+        (nG, PLANES*128) int8).
+
+        Rows are content-clustered (``_cluster_order``), padded to whole
+        1024-row groups, and laid out unit-major: row r of group g at unit
+        column j is byte ``(g*W + j)*1024 + r`` of cpT, so the threads of
+        a warp, one per row, read one column contiguously. The same bytes
+        view as ``(nG, W, 1024)``. idxT maps colstream slot -> corpus
+        index (-1 on padding). blk_bits are the group-max capped presence
+        planes: a group failing ``hits >= tot - typos`` holds no stage-1
+        survivor, so the kernel skips it."""
+        if hasattr(self, "_device_colstream"):
+            return self._device_colstream
+        b, w = self.cp.shape
+        nu = self.n_units.astype(np.int32)
+        counts = self.presence_counts()
+        order = _cluster_order(counts, nu, GROUP_ROWS, unicode=False)
+        cp8 = self.cp[order]
+        nup = nu[order]
+        idxt = self.indices.astype(np.int32)[order]
+        counts = counts[order]
+        pad = (-b) % GROUP_ROWS
+        if pad:
+            cp8 = np.pad(cp8, ((0, pad), (0, 0)))
+            nup = np.pad(nup, (0, pad))
+            counts = np.pad(counts, ((0, pad), (0, 0)))
+            idxt = np.pad(idxt, (0, pad), constant_values=-1)
+        ng = cp8.shape[0] // GROUP_ROWS
+        cpt = np.ascontiguousarray(
+            cp8.reshape(ng, GROUP_ROWS, w).transpose(0, 2, 1)
+        ).reshape(ng * w, SUBL, 128)
+        blk_counts = counts.reshape(ng, GROUP_ROWS, 128).max(axis=1)
+        blk_bits = np.concatenate(
+            [(blk_counts > k) for k in range(PLANES)], axis=1
+        ).astype(np.int8)
+        dev = self.device
+        self._device_colstream = (
+            torch.from_numpy(cpt).to(dev),
+            torch.from_numpy(nup.reshape(ng * SUBL, 128)).to(dev),
+            torch.from_numpy(idxt).to(dev),
+            torch.from_numpy(blk_bits).to(dev),
+        )
+        # host copy: the dispatcher picks the static result-sort capacity
+        # from per-group alive counts before the batch runs
+        self._blk_bits_np = blk_bits
+        return self._device_colstream
+
+    def host_blk_bits(self) -> np.ndarray:
+        """NumPy copy of the colstream group presence planes."""
+        if not hasattr(self, "_blk_bits_np"):
+            self.device_arrays_colstream()
+        return self._blk_bits_np
+
+
+@dataclass
+class Corpus:
+    """A packed corpus resident on ``device``."""
+
+    haystacks: List[str]
+    unicode: bool
+    buckets: List[PackedBucket]
+    # Indices of haystacks longer than the largest bucket (host path)
+    xl_indices: np.ndarray
+    device: torch.device
+
+    def __len__(self) -> int:
+        return len(self.haystacks)
+
+    def greedy_risk(self) -> bool:
+        """True when any bucketed row could take the greedy path (more
+        bytes than the 1024-byte DP cap)."""
+        return any(
+            b.size and int(b.n_bytes.max()) > 1024 for b in self.buckets
+        )
+
+    _SAVE_VERSION = 1
+
+    @classmethod
+    def from_numpy(cls, haystacks: Sequence[str], buckets, xl_indices,
+                   unicode: bool = False, device=None) -> "Corpus":
+        """A corpus from packed bucket arrays, e.g. those of a
+        ``frizbee_tpu`` corpus: ``buckets`` holds one (width, indices, cp,
+        n_units, n_bytes) tuple per bucket; ``cp`` may be int8 bytes or
+        int32 byte values."""
+        if unicode:
+            raise NotImplementedError(
+                "unicode corpora come with the unicode colstream slice"
+            )
+        dev = resolve_device(device)
+        out = []
+        for width, indices, cp, n_units, n_bytes in buckets:
+            cp = np.asarray(cp)
+            if cp.dtype != np.int8:
+                cp = (cp.astype(np.int32) & 0xFF).astype(np.uint8).view(
+                    np.int8
+                )
+            out.append(PackedBucket(
+                width=int(width),
+                indices=np.asarray(indices, np.int64),
+                cp=np.ascontiguousarray(cp),
+                n_units=np.asarray(n_units, np.int32),
+                n_bytes=np.asarray(n_bytes, np.int32),
+                device=dev,
+            ))
+        return cls(list(haystacks), False, out,
+                   np.asarray(xl_indices, np.int64), dev)
+
+    @classmethod
+    def load(cls, path: str, device=None) -> "Corpus":
+        """Read a corpus written by ``frizbee_tpu``'s ``Corpus.save``
+        (npz, format version 1). The per-unit context arrays some
+        versions store are not needed here and are skipped."""
+        with np.load(path) as z:
+            version = int(z["version"])
+            if version != cls._SAVE_VERSION:
+                raise ValueError(
+                    f"unsupported corpus file version {version}"
+                )
+            blob = z["hay_blob"].tobytes()
+            lens = z["hay_lens"]
+            ends = np.cumsum(lens)
+            haystacks = [
+                blob[e - n: e].decode("utf-8")
+                for n, e in zip(lens.tolist(), ends.tolist())
+            ]
+            buckets = [
+                (
+                    int(z[f"b{i}_width"]), z[f"b{i}_indices"],
+                    z[f"b{i}_cp"], z[f"b{i}_n_units"], z[f"b{i}_n_bytes"],
+                )
+                for i in range(int(z["n_buckets"]))
+            ]
+            return cls.from_numpy(
+                haystacks, buckets, z["xl_indices"],
+                unicode=bool(int(z["unicode"])), device=device,
+            )
+
+
+def pack_corpus(
+    haystacks: Sequence[str],
+    unicode: bool = False,
+    bucket_widths: Optional[Sequence[int]] = None,
+    device=None,
+) -> Corpus:
+    """Pack haystacks into byte-unit buckets resident on ``device``
+    (default: the card). Bucket assignment, sparse-bucket consolidation,
+    chained splits and size-class padding follow frizbee_tpu's
+    ``pack_corpus`` exactly, so both packings hold the same rows."""
+    if unicode:
+        raise NotImplementedError(
+            "unicode corpora come with the unicode colstream slice"
+        )
+    dev = resolve_device(device)
+    if bucket_widths is None:
+        bucket_widths = LANE_BUCKETS
+    n = len(haystacks)
+    if n >= 1 << 31:
+        raise ValueError(
+            f"corpus has {n} haystacks; the maximum supported is 2^31 - 1"
+        )
+    if n == 0:
+        return Corpus(list(haystacks), False, [], np.zeros(0, np.int64), dev)
+
+    data = [h.encode("utf-8") for h in haystacks]
+    unit_counts = np.fromiter((len(d) for d in data), dtype=np.int64, count=n)
+    flat = np.frombuffer(b"".join(data), dtype=np.uint8)
+    del data
+    starts = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(unit_counts, out=starts[1:])
+
+    widths = sorted(set(int(w) for w in bucket_widths))
+    max_w = widths[-1]
+    assigned = np.full(n, -1, dtype=np.int64)
+    for bi, w in enumerate(widths):
+        lo = 0 if bi == 0 else widths[bi - 1]
+        sel = (unit_counts <= w) & (unit_counts > lo if bi else unit_counts >= 0)
+        assigned[sel] = bi
+    xl_mask = unit_counts > max_w
+    assigned[xl_mask] = -2
+
+    # Consolidate sparse buckets into the next non-empty larger one
+    min_rows = max(1024, n // 32)
+    counts_per = [int(np.sum(assigned == bi)) for bi in range(len(widths))]
+    for bi in range(len(widths) - 1):
+        if 0 < counts_per[bi] < min_rows:
+            nxt = next(
+                (j for j in range(bi + 1, len(widths)) if counts_per[j] > 0),
+                None,
+            )
+            if nxt is not None:
+                assigned[assigned == bi] = nxt
+                counts_per[nxt] += counts_per[bi]
+                counts_per[bi] = 0
+
+    buckets: List[PackedBucket] = []
+    for bi, w in enumerate(widths):
+        rows_all = np.nonzero(assigned == bi)[0]
+        cap = max_bucket_rows(w)
+        for s in range(0, rows_all.size, cap):
+            rows = rows_all[s : s + cap]
+            b = _size_class(rows.size)
+            if b > rows.size:
+                rows = np.concatenate(
+                    [rows, np.full(b - rows.size, -1, np.int64)]
+                )
+            counts = np.where(rows >= 0, unit_counts[np.maximum(rows, 0)], 0)
+            # flat gather of each row's bytes, fully vectorized
+            cp = np.zeros((b, w), np.uint8)
+            unit_rows = np.repeat(np.arange(b), counts)
+            cum = np.zeros(b + 1, dtype=np.int64)
+            np.cumsum(counts, out=cum[1:])
+            col_idx = np.arange(cum[-1], dtype=np.int64) - cum[:-1][unit_rows]
+            cp[unit_rows, col_idx] = flat[
+                starts[np.maximum(rows, 0)][unit_rows] + col_idx
+            ]
+            buckets.append(PackedBucket(
+                width=w,
+                indices=rows.astype(np.int64),
+                cp=cp.view(np.int8),
+                n_units=counts.astype(np.int32),
+                n_bytes=counts.astype(np.int32),
+                device=dev,
+            ))
+
+    xl = np.nonzero(xl_mask)[0].astype(np.int64)
+    return Corpus(list(haystacks), False, buckets, xl, dev)

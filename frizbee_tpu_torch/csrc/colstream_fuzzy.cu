@@ -1,0 +1,272 @@
+// Column-stream fused prefilter + Smith-Waterman, ASCII fuzzy mode, for
+// Hopper (sm_90a).
+//
+// Replaces the Pallas kernel frizbee_tpu/ops/colstream.py
+// match_units_colstream (mode="fuzzy", body _match_block, key packing
+// pack_keys, dead-group sentinels) for byte-unit corpora.
+//
+// Layout: rows come in 1024-row groups; row r of group g at unit column j
+// is byte (g*W + j)*1024 + r of cpT. One thread owns one row and walks
+// its columns, so the 32 threads of a warp read 32 consecutive bytes per
+// column and every DP dependency (greedy embedding, minimal-position DP,
+// the affine gap recurrence) is a plain loop-carried register. The
+// per-needle-unit state (h[k], n <= 16) and the T+1 prefilter states are
+// registers; the kernel is templated on n so those arrays unroll.
+// Blocks hold 128 rows of one group and one query (grid = groups*8 x Q),
+// so the stage-1 flag test is uniform per block: a dead group writes
+// sentinels and never runs the DP.
+//
+// A row's outputs depend only on its own columns [0, min(nu, W)): the
+// prefilter stops there, and the DP runs only over the matched window
+// [max(start-1, 0), end) — columns outside it are inactive in the Pallas
+// body and leave best/end untouched. The TPU kernel walks every row of a
+// group to the group maximum instead; the outputs are equal.
+//
+// Bound on this card: integer ALU work per DP cell (~6 int ops per
+// (column, needle unit) in the prefilter, ~14 in the DP), not bytes — the
+// 1M-row int8 corpus is ~95 MB per query pass. Left for later: 1-byte
+// loads per thread (no vector loads or shared-memory staging of column
+// tiles), and warps run to the longest of their 32 rows.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kGroupRows = 1024;
+constexpr int kBlockRows = 128;
+constexpr int kMaxNeedle = 64;  // scalars layout: [count, n, orig x 64, flip x 64]
+constexpr int kMaxHaystackLen = 1024;
+
+enum PrefilterMode { kPfNone = 0, kPfGreedy = 1, kPfDp = 2 };
+
+struct Scoring {
+  int match, mismatch, gap_open, gap_ext, prefix, cap, case_b, exact, delim;
+};
+
+__device__ __forceinline__ bool is_upper(int c) { return c >= 0x41 && c <= 0x5A; }
+__device__ __forceinline__ bool is_lower(int c) { return c >= 0x61 && c <= 0x7A; }
+__device__ __forceinline__ bool is_delim(int c) {
+  const bool letter = is_upper(c) || is_lower(c);
+  const bool digit = c >= 0x30 && c <= 0x39;
+  return c <= 127 && !letter && !digit;
+}
+
+template <int N>
+__global__ void __launch_bounds__(kBlockRows) colstream_fuzzy_kernel(
+    const int8_t* __restrict__ cpT, const int* __restrict__ nuT,
+    const int* __restrict__ scalars, const int* __restrict__ flags,
+    const int* __restrict__ idxT, int n_groups, int W, int T, int pf_mode,
+    Scoring sc, int idx_bits, long long* __restrict__ keys_out,
+    int* __restrict__ cols_out) {
+  const int q = blockIdx.y;
+  const int slot = blockIdx.x * kBlockRows + threadIdx.x;
+  const int g = slot / kGroupRows;
+  const int r = slot % kGroupRows;
+  const long long total = (long long)n_groups * kGroupRows;
+  const long long out_i = (long long)q * total + slot;
+  const int* scal = scalars + (long long)q * (2 + 2 * kMaxNeedle);
+
+  bool alive = (long long)g * kGroupRows < scal[0];
+  if (flags != nullptr) alive = alive && flags[(long long)q * n_groups + g] > 0;
+
+  int matched = 0, score = 0, exact = 0, end_col = 0, greedy = 0;
+  if (alive) {
+    int orig[N], flip[N];
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      orig[k] = scal[2 + k];
+      flip[k] = scal[2 + kMaxNeedle + k];
+    }
+    const int nu = nuT[slot];
+    const int len = min(nu, W);
+    const int8_t* col = cpT + (long long)g * W * kGroupRows + r;
+#define HAY(j) ((int)(uint8_t)col[(long long)(j) * kGroupRows])
+
+    // ---- pass 1: positional prefilter -> matched, window [start, end)
+    bool pf_matched = true;
+    int wstart_raw = 0, wend = len;
+    if (pf_mode == kPfGreedy) {
+      // greedy leftmost embedding; start = first hit of needle[0], end =
+      // last occurrence of the final unit at or after completion
+      int np = 0, sbyte = 0, ebyte = 0;
+      bool ffound = false, efound = false;
+      for (int j = 0; j < len; ++j) {
+        const int c = HAY(j);
+        bool occ_np = false, hit0 = false, occ_last = false;
+#pragma unroll
+        for (int k = 0; k < N; ++k) {
+          const bool o = (c == orig[k]) | (c == flip[k]);
+          occ_np |= (np == k) & o;
+          if (k == 0) hit0 = o;
+          if (k == N - 1) occ_last = o;
+        }
+        if (!ffound && hit0) { ffound = true; sbyte = j; }
+        np += occ_np ? 1 : 0;
+        if (occ_last && np >= N) { efound = true; ebyte = j + 1; }
+      }
+      pf_matched = np >= N;
+      wstart_raw = (pf_matched && ffound) ? sbyte : 0;
+      wend = (pf_matched && efound) ? ebyte : len;
+    } else if (pf_mode == kPfDp) {
+      // minimal-position DP: gs[t] = longest needle prefix embeddable with
+      // <= t deletions; start = first occurrence among needle[0..=T], end =
+      // last occurrence among the last T+1 units
+      int gs[4] = {0, 1, 2, 3};
+      int sbyte = 0, ebyte = 0;
+      bool ffound = false, efound = false;
+      for (int j = 0; j < len; ++j) {
+        const int c = HAY(j);
+        bool hits[4] = {false, false, false, false};
+        bool hit_low = false, hit_tail = false;
+#pragma unroll
+        for (int k = 0; k < N; ++k) {
+          const bool o = (c == orig[k]) | (c == flip[k]);
+#pragma unroll
+          for (int t = 0; t < 4; ++t) hits[t] |= (t <= T) & (gs[t] == k) & o;
+          hit_low |= (k <= T) & o;
+          hit_tail |= (k >= N - 1 - T) & o;
+        }
+#pragma unroll
+        for (int t = 0; t < 4; ++t) gs[t] += hits[t] ? 1 : 0;
+#pragma unroll
+        for (int t = 1; t < 4; ++t)
+          if (t <= T) gs[t] = max(gs[t], gs[t - 1] + 1);
+        if (!ffound && hit_low) { ffound = true; sbyte = j; }
+        if (hit_tail) { efound = true; ebyte = j + 1; }
+      }
+      const int g_last = T == 1 ? gs[1] : (T == 2 ? gs[2] : gs[3]);
+      pf_matched = g_last >= N;
+      wstart_raw = (pf_matched && ffound) ? sbyte : 0;
+      wend = (pf_matched && efound) ? ebyte : len;
+    }
+
+    if (pf_matched) {
+      // ---- pass 2: affine-gap SW over the start-1-trimmed window
+      const int wstart = max(wstart_raw - 1, 0);
+      const bool include_exact = wstart == 0 && wend == len;
+      const bool include_prefix = wstart == 0;
+      const int gop_extra = max(sc.gap_open - sc.gap_ext, 0);
+      int h[N];
+#pragma unroll
+      for (int k = 0; k < N; ++k) h[k] = 0;
+      unsigned mm = 0;  // previous column's per-unit match flags
+      int prev_c = 0, best = 0, end_b = 0;
+      for (int j = wstart; j < wend; ++j) {
+        const int c = HAY(j);
+        int bonus = 0;
+        if (j == wstart) {
+          if (include_prefix) bonus = sc.prefix;
+        } else {
+          if (is_upper(c) && is_lower(prev_c)) bonus += sc.cap;
+          if (is_delim(prev_c) && !is_delim(c)) bonus += sc.delim;
+        }
+        int diag_in = 0, up_src = 0;
+        bool mm_prev = false;
+        unsigned mm_new = 0;
+#pragma unroll
+        for (int k = 0; k < N; ++k) {
+          const bool occ = (c == orig[k]) | (c == flip[k]);
+          const int hit = sc.match + bonus + (c == orig[k] ? sc.case_b : 0);
+          const int left = h[k] - sc.gap_ext - (((mm >> k) & 1u) ? gop_extra : 0);
+          int cur;
+          if (k == 0) {
+            cur = max(occ ? hit : 0, left);
+          } else {
+            const int diag = occ ? diag_in + hit : max(diag_in - sc.mismatch, 0);
+            const int up = max(up_src - sc.gap_ext - (mm_prev ? gop_extra : 0), 0);
+            cur = max(max(diag, up), left);
+          }
+          diag_in = h[k];
+          up_src = cur;
+          mm_prev = occ;
+          h[k] = cur;
+          mm_new |= (occ ? 1u : 0u) << k;
+          if (k == N - 1 && cur > best) { best = cur; end_b = j; }
+        }
+        mm = mm_new;
+        prev_c = c;
+      }
+      // exact: the row equals the needle's original units
+      bool eq = nu == N;
+      if (eq) {
+#pragma unroll
+        for (int k = 0; k < N; ++k) eq = eq && (HAY(k) == orig[k]);
+      }
+      matched = 1;
+      score = best;
+      end_col = score > 0 ? end_b : wstart;
+      exact = (include_exact && eq) ? 1 : 0;
+      if (exact) score = min(score + sc.exact, 0xFFFF);
+      greedy = (wend - wstart) > kMaxHaystackLen ? 1 : 0;
+    }
+#undef HAY
+  }
+
+  if (keys_out != nullptr) {
+    const int idx = alive ? idxT[slot] : -1;
+    long long key = 0x7FFFFFFFFFFFFFFFLL;
+    if (matched && idx >= 0) {
+      const unsigned long long meta16 =
+          ((unsigned long long)exact << 15) | ((unsigned long long)greedy << 14) |
+          (unsigned long long)min(end_col, 0x3FFF);
+      const unsigned long long inv = (unsigned long long)(0xFFFF - score);
+      key = (long long)((inv << (16 + idx_bits)) |
+                        ((unsigned long long)(unsigned)idx << 16) | meta16);
+    }
+    keys_out[out_i] = key;
+  } else {
+    const long long plane = (long long)gridDim.y * total;
+    cols_out[out_i] = matched;
+    cols_out[out_i + plane] = score;
+    cols_out[out_i + 2 * plane] = exact;
+    cols_out[out_i + 3 * plane] = end_col;
+    cols_out[out_i + 4 * plane] = greedy;
+  }
+}
+
+template <int N>
+void launch(dim3 grid, cudaStream_t stream, const int8_t* cpT, const int* nuT,
+            const int* scalars, const int* flags, const int* idxT, int n_groups,
+            int W, int T, int pf_mode, Scoring sc, int idx_bits,
+            long long* keys_out, int* cols_out) {
+  colstream_fuzzy_kernel<N><<<grid, kBlockRows, 0, stream>>>(
+      cpT, nuT, scalars, flags, idxT, n_groups, W, T, pf_mode, sc, idx_bits,
+      keys_out, cols_out);
+}
+
+}  // namespace
+
+// C entry point (bound with ctypes). Shapes: cpT (n_groups*W*1024) int8,
+// nuT/idxT (n_groups*1024) int32, scalars (Q, 130) int32, flags
+// (Q, n_groups) int32 or null, scoring (9,) host int32. Writes keys_out
+// (Q, n_groups*1024) int64 when non-null (idxT required), else cols_out
+// (5, Q, n_groups*1024) int32 = matched, score, exact, end_col, greedy.
+// Returns cudaGetLastError() after the launch.
+extern "C" int colstream_fuzzy_launch(
+    const void* cpT, const void* nuT, const void* scalars, const void* flags,
+    const void* idxT, int Q, int n_groups, int W, int n, int T, int pf_mode,
+    const void* scoring, int idx_bits, void* keys_out, void* cols_out,
+    void* stream) {
+  const int* s = static_cast<const int*>(scoring);
+  const Scoring sc{s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8]};
+  const dim3 grid(n_groups * (kGroupRows / kBlockRows), Q);
+  if (n_groups == 0 || Q == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int8_t* a = static_cast<const int8_t*>(cpT);
+  const int* b = static_cast<const int*>(nuT);
+  const int* c = static_cast<const int*>(scalars);
+  const int* d = static_cast<const int*>(flags);
+  const int* e = static_cast<const int*>(idxT);
+  long long* ko = static_cast<long long*>(keys_out);
+  int* co = static_cast<int*>(cols_out);
+  switch (n) {
+#define CASE(NN) \
+    case NN: launch<NN>(grid, st, a, b, c, d, e, n_groups, W, T, pf_mode, sc, idx_bits, ko, co); break;
+    CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
+    CASE(9) CASE(10) CASE(11) CASE(12) CASE(13) CASE(14) CASE(15) CASE(16)
+#undef CASE
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}

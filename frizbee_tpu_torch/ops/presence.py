@@ -1,0 +1,86 @@
+"""Stage-1 presence prefilter: the needle side of the batched matmul.
+
+Each corpus row (and each 1024-row colstream group) carries capped
+fold-bit occurrence planes (``corpus.PackedBucket``): plane k holds
+"fold-bit c occurs more than k times". A query's need matrix counts its
+own fold-bits the same way, so ``bits @ need`` is
+``sum_c min(row_count_c, need_count_c, PLANES)`` and a row (or group)
+with fewer than ``tot - max_typos`` hits can never pass the positional
+prefilter. Fold: ASCII uppercase lowercases, everything else hashes to
+``v & 127``; hash collisions only add false positives.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+# Multiplicity planes: plane k holds "fold-bit appears >= k+1 times"
+PLANES = 3
+
+
+def _fold_bit(v: torch.Tensor) -> torch.Tensor:
+    upper = (v >= 0x41) & (v <= 0x5A)
+    return torch.where(upper, v + 0x20, v) & 127
+
+
+def needle_need_matrix(needles_q: torch.Tensor) -> tuple:
+    """(need (PLANES*128, Q) int8, tot (Q,) int32) for the stage-1 matmul.
+
+    ``needles_q`` is (Q, 2n) int32, orig then flip per query. A fold-bit
+    is needed when the unit's orig and flip fold to the same bit (ASCII
+    always does; unicode case pairs that fold apart are skipped — sound,
+    merely weaker)."""
+    Q, n2 = needles_q.shape
+    n = n2 // 2
+    ob = _fold_bit(needles_q[:, :n].to(torch.int32))
+    fb = _fold_bit(needles_q[:, n:].to(torch.int32))
+    eq = ob == fb  # (Q, n)
+    j = torch.arange(128, device=needles_q.device, dtype=torch.int32)
+    onehot = (j[None, None, :] == ob[:, :, None]) & eq[:, :, None]
+    counts = onehot.to(torch.int32).sum(dim=1)  # (Q, 128)
+    need_q = torch.cat(
+        [(counts > k).to(torch.int8) for k in range(PLANES)], dim=1
+    )  # (Q, PLANES*128)
+    tot = need_q.to(torch.int32).sum(dim=1, dtype=torch.int32)
+    return need_q.T.contiguous(), tot
+
+
+def needle_need_matrix_np(needles_q: np.ndarray) -> tuple:
+    """Host (NumPy) twin of :func:`needle_need_matrix` — same math. The
+    serving dispatcher uses it to choose the static result-sort capacity
+    from per-group alive counts before the batch runs."""
+    needles_q = np.asarray(needles_q)
+    Q, n2 = needles_q.shape
+    n = n2 // 2
+    ob = needles_q[:, :n].copy()
+    fb = needles_q[:, n:].copy()
+
+    def fold(v):
+        upper = (v >= 0x41) & (v <= 0x5A)
+        return np.where(upper, v + 0x20, v) & 127
+
+    ob, fb = fold(ob), fold(fb)
+    eq = ob == fb
+    counts = np.zeros((Q, 128), np.int32)
+    for q in range(Q):
+        vals = ob[q][eq[q]]
+        counts[q] = np.bincount(vals, minlength=128)[:128]
+    planes = [(counts > k).astype(np.int8) for k in range(PLANES)]
+    need_q = np.concatenate(planes, axis=1)  # (Q, PLANES*128)
+    tot = need_q.astype(np.int32).sum(axis=1)
+    return need_q.T, tot
+
+
+def presence_hits(bits: torch.Tensor, need: torch.Tensor) -> torch.Tensor:
+    """(rows, Q) int32 hit counts ``bits @ need`` for 0/1 int8 operands.
+
+    The product runs in float32 with float32 accumulation: every partial
+    sum is an integer <= 384, exact whatever the summation order, and the
+    0/1 operands are exact even where ``allow_tf32`` rounds inputs to
+    TF32. A bf16 accumulator would be exact only to 256. No CUDA integer
+    matmul covers these shapes, and an int8 @ int8 CPU matmul returns
+    int8, which overflows."""
+    return torch.matmul(bits.to(torch.float32), need.to(torch.float32)).to(
+        torch.int32
+    )

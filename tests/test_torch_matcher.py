@@ -1,0 +1,163 @@
+"""The port's serving API — ``match_topk_batch`` and its pipelined form —
+against frizbee_tpu's ``match_topk_batch`` and its host oracle
+(``Matcher(use_device=False)``) on small datagen corpora, plus the
+slice's refusals and the package's import boundary."""
+
+import ast
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from frizbee_tpu.config import Config as JConfig
+from frizbee_tpu.config import SortStrategy as JSortStrategy
+from frizbee_tpu.corpus import pack_corpus as j_pack
+from frizbee_tpu.matcher import Matcher as JMatcher
+from frizbee_tpu.matcher import match_topk_batch as j_topk
+from frizbee_tpu_torch import (
+    Config,
+    Matcher,
+    SortStrategy,
+    datagen,
+    match_topk_batch,
+    match_topk_batch_async,
+    pack_corpus,
+)
+from frizbee_tpu_torch.config import Matching
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+QUERIES = ["deadbeef", "feedbead", "dead", "DeadBeef", "bee", "fade"]
+
+
+@pytest.fixture(autouse=True)
+def _few_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _assert_topk_parity(hay, queries, k, **cfg):
+    corpus = pack_corpus(hay, device="cpu")
+    got = match_topk_batch(queries, corpus, Config(**cfg), k=k)
+    ref_corpus = j_pack(hay, unicode=False)
+    jcfg = JConfig(**{
+        key: JSortStrategy[v.name] if key == "sort" else v
+        for key, v in cfg.items()
+    })
+    want = j_topk(queries, ref_corpus, jcfg, k=k)
+    for q, g, w in zip(queries, got, want):
+        assert g[0] == w[0], q
+        for a, b in zip(g[1:], w[1:]):
+            np.testing.assert_array_equal(a, b)
+        oracle = JMatcher.from_query(
+            q, jcfg, use_device=False
+        ).match_arrays(ref_corpus)
+        assert g[0] == len(oracle[0])
+        for a, b in zip(g[1:], oracle):
+            np.testing.assert_array_equal(a, b[:k])
+    return got
+
+
+def test_topk_partial_corpus():
+    hay = datagen.partial_match_corpus(median_length=20, num_samples=3000,
+                                       seed=3)
+    got = _assert_topk_parity(hay, QUERIES, 30)
+    assert got[0][0] > 30 and len(got[0][1]) == 30
+
+
+def test_topk_multi_bucket_corpus_typos():
+    hay = datagen.partial_match_corpus(median_length=24, num_samples=1800,
+                                       seed=11)
+    hay += [h * 7 for h in datagen.partial_match_corpus(
+        median_length=12, num_samples=1500, seed=12)]
+    _assert_topk_parity(hay, ["deadbeef", "dbeef", "feed"], 25,
+                        max_typos=1)
+
+
+def test_topk_score_then_index_desc():
+    hay = datagen.all_match_corpus(median_length=16, num_samples=1200,
+                                   seed=4)
+    # k covers every match: the descending-index reorder is then the
+    # oracle's order too
+    _assert_topk_parity(hay, ["deadbeef", "dead"], 1500,
+                        sort=SortStrategy.SCORE_THEN_INDEX_DESC)
+
+
+def test_async_equals_blocking():
+    """Several futures in flight return what the blocking call returns,
+    and result() is idempotent."""
+    hay = datagen.partial_match_corpus(median_length=20, num_samples=2000,
+                                       seed=9)
+    corpus = pack_corpus(hay, device="cpu")
+    sync = match_topk_batch(QUERIES, corpus, Config(), k=40)
+    futs = [match_topk_batch_async(QUERIES, corpus, Config(), k=40)
+            for _ in range(3)]
+    for f in futs:
+        res = f.result()
+        assert res is f.result()
+        for a, b in zip(res, sync):
+            assert a[0] == b[0]
+            for x, y in zip(a[1:], b[1:]):
+                np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("query,cfg,match", [
+    ("^dead", {}, "literal"),
+    ("dead", {"matching": Matching.SUBSTRING}, "literal"),
+    ("dead beef", {}, "multi-pattern"),
+    ("!dead", {}, "multi-pattern"),
+    ("dé", {}, "unicode"),
+    ("deadbeefdeadbeef1", {}, "row-major"),
+    ("deadbeefdeadbeef", {"max_typos": 4}, "row-major"),
+    ("dead", {"sort": SortStrategy.INDEX_ASC}, "index sort"),
+    ("", {}, "empty"),
+])
+def test_unserved_queries_raise(query, cfg, match):
+    with pytest.raises(NotImplementedError, match=match):
+        Matcher.from_query(query, Config(**cfg))
+
+
+def test_unserved_corpora_raise():
+    with pytest.raises(NotImplementedError, match="widest bucket"):
+        match_topk_batch(["dead"], pack_corpus(["dead", "x" * 2000],
+                                               device="cpu"))
+    with pytest.raises(NotImplementedError, match="custom bucket"):
+        match_topk_batch(["dead"], pack_corpus(
+            ["dead", "deadbeef"] * 10, bucket_widths=(48,), device="cpu"))
+    # a typo budget beyond 3 is served when the needle clamps it to 3
+    Matcher.from_query("dea", Config(max_typos=9))
+    with pytest.raises(NotImplementedError, match="row-major"):
+        Matcher.from_query("dead", Config(max_typos=9))
+
+
+def _port_files():
+    pkg = os.path.join(ROOT, "frizbee_tpu_torch")
+    for base, _dirs, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(base, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def test_port_imports_no_jax_and_no_reference():
+    """The port runs where JAX is absent: no file of the package, and not
+    chip_smoke.py, imports jax or frizbee_tpu."""
+    files = list(_port_files())
+    assert len(files) > 10
+    for path in files:
+        with open(path) as fh:
+            tree = ast.parse(fh.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            for name in names:
+                root = name.split(".")[0]
+                assert root not in ("jax", "jaxlib", "frizbee_tpu"), (
+                    f"{path} imports {name}"
+                )
