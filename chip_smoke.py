@@ -7,23 +7,35 @@ Builds the package's CUDA kernels from ``frizbee_tpu_torch/csrc`` (one
 
 1. kernel phase: each kernel against its plain PyTorch version on the
    card, bit-equal, at the shapes of the 1M-row corpus — the column-stream
-   kernel on every bucket (w64, w128, w256) for the Q=32 serving queries
-   with T=0, T=1 and no prefilter, flags on and off, key-emit on and off;
-   the row gather at the capped finalize and broad tournament shapes;
-2. serving phase: bench.py's corpus (1M partial-match rows, median length
-   64) and its Q=32 queries with k=2048 through ``match_topk_batch``
+   fuzzy kernel on every bucket (w64, w128, w256) for the Q=32 serving
+   queries with T=0, T=1 and no prefilter, flags on and off, key-emit on
+   and off; the column-stream literal kernel on every bucket in all four
+   modes, flags and key-emit on and off, at Q=32; the row-major kernel on
+   every bucket at (n=8, T=4), (n=24, T=0) and (n=24, no prefilter), all
+   rows in five-column mode and a live count below B through a random
+   row order in key-emit mode; the row gather at the capped finalize and
+   broad tournament shapes;
+2. serving phase, four batches of Q=32 through ``match_topk_batch``
    (warm-up, blocking loop) and a depth-3 ``match_topk_batch_async``
-   pipeline, with every launch counter set to 0 just before and read just
-   after; both kernels must have launched;
-3. timing phase: each kernel's time (CUDA events, warmed up) at the
-   serving shapes beside its bound, its plain version and, for the row
-   gather, ``torch.index_select``; the column-stream kernel's keys at the
-   serving shapes are held bit-equal to the plain version's there too;
-4. profile phase: torch.profiler over blocking batches (wall time,
+   pipeline, each with every launch and route counter set to 0 just
+   before and read just after, each asserting that its kernels launched:
+   bench.py's fuzzy batch (1M partial-match rows, median length 64,
+   k=2048; colstream fuzzy), a literal batch of 2-4-byte pieces under ^,
+   $, ' and ^...$ (colstream literal), bench.py's queries at max_typos=4
+   (row-major), and 24-byte needles over a second 1M-row partial-match
+   corpus of that needle (row-major); each finalizes through the row
+   gather;
+3. timing phase: the launches of one more batch of each path, captured
+   (``_build.CAPTURE``) and replayed per kernel — held bit-equal to its
+   plain version on the same arguments, then timed (CUDA events, warmed
+   up) beside the bound this run's data needs, its plain version and, for
+   the row gather, ``torch.index_select``;
+4. profile phase: torch.profiler over blocking fuzzy batches (wall time,
    device busy time, top kernels and host operations) and cProfile over
    one batch;
-5. card-versus-CPU phase: at 20k rows, Q=8, T in {0, 1} the (Q, 1+k, 2)
-   serving arrays and the decoded top-k on the card equal the CPU's.
+5. card-versus-CPU phase: at 20k rows, Q=8, the (Q, 1+k, 2) serving
+   arrays and the decoded top-k on the card equal the CPU's for fuzzy
+   T=0 and T=1, literal, T=4 and long-needle batches.
 
 Prints the card's name and power limit first, one JSON ``kernels`` line
 before the last, and ``{"ok": true, "device": {...}}`` last. Exits
@@ -57,22 +69,59 @@ DEPTH, RUNS = 3, 10
 # lanes per SM are the float32 pipe) x 132 SMs x 1.98 GHz
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
+INT64_MAX = (1 << 63) - 1  # the key of an unmatched row
 # int32 operations per (column, needle unit) cell of the colstream
 # kernel: prefilter (2 compares, or, compare, and, or) and SW DP
 PF_OPS_PER_CELL = 6
 SW_OPS_PER_CELL = 14
+# colstream literal kernel: per (column, needle unit) cell (2 compares,
+# or, bit test, and, add, select, or-into-mask) and per column (bonus
+# context, completion score, mode test, best update)
+LIT_OPS_PER_CELL = 8
+LIT_OPS_PER_COLUMN = 12
+# row-major kernel, per column of a live row's prefilter: table load,
+# byte extract and the window tests, plus 3 per DP state (shift-test,
+# add, closure max) at T > 0; its SW cell costs SW_OPS_PER_CELL
+RM_PF_OPS_PER_COLUMN = 6
+RM_PF_OPS_PER_STATE = 3
+
+LITERAL_WRAP = (("'", ""), ("^", ""), ("", "$"), ("^", "$"))
+TYPO_BUDGET = 4
+LONG_NEEDLE = "deadbeefcafebabefacefeed"
 
 
-def _queries(q):
-    """bench.py's queries: distinct 8-char permutations of "deadbeef"."""
+def _queries(q, base="deadbeef"):
+    """bench.py's queries: distinct permutations of "deadbeef" (or of
+    ``base``), the base first."""
     rng = np.random.default_rng(99)
-    base = "deadbeef"
     out = [base]
     while len(out) < q:
         s = "".join(rng.permutation(list(base)))
         if s not in out:
             out.append(s)
     return out[:q]
+
+
+def _literal_queries(q):
+    """2-4-byte pieces of the bench permutations under ' (substring), ^
+    (prefix), $ (suffix) and ^...$ (exact), in turn."""
+    out = []
+    for i, perm in enumerate(_queries(q)):
+        pre, post = LITERAL_WRAP[i % 4]
+        out.append(pre + perm[i % 3:i % 3 + 2 + i % 3] + post)
+    return out
+
+
+def _long_corpus(num_samples, seed=42):
+    """The reference's Partial Match dataset (5% full, 20% partial,
+    median 64) generated for the 24-byte needle."""
+    from frizbee_tpu_torch import datagen
+
+    return datagen.generate_haystack(LONG_NEEDLE, datagen.HaystackGenerationOptions(
+        seed=seed, partial_match_percentage=0.20, match_percentage=0.05,
+        median_length=MEDIAN_LEN, std_dev_length=MEDIAN_LEN // 4,
+        num_samples=num_samples,
+    ))
 
 
 def _time_ms(fn, reps=5, warm=2):
@@ -120,6 +169,7 @@ def _flags(blk_bits, needles_q, T):
 
 def kernel_phase(corpus, detail):
     """Each kernel against its plain version on the card, bit-equal."""
+    from frizbee_tpu_torch.ops import _build
     from frizbee_tpu_torch.ops import colstream as cs
     from frizbee_tpu_torch.ops.kernels import DEFAULT_SCORING
     from frizbee_tpu_torch.ops.kernels import pack_needle_scalars
@@ -127,7 +177,7 @@ def kernel_phase(corpus, detail):
     dev = corpus.device
     idx_bits = max((len(corpus) - 1).bit_length(), 1)
     nq = torch.from_numpy(_needles(_queries(Q))).to(dev)
-    errs = {"colstream_fuzzy": 0.0, "row_gather": 0.0}
+    errs = {name: 0.0 for name in _build.LAUNCHES}
     checks = 0
     for b in corpus.buckets:
         cpT, nuT, idxT, blk = b.device_arrays_colstream()
@@ -172,12 +222,103 @@ def kernel_phase(corpus, detail):
         if err:
             raise AssertionError(f"row_gather != plain at {name}")
         checks += 1
+    lit = _literal_kernel_checks(corpus, errs)
+    rm = _rowmajor_kernel_checks(corpus, errs)
+    checks += lit + rm
     detail["kernel_checks"] = checks
     print(f"kernel phase: {checks} kernel-vs-plain checks bit-equal "
-          f"(colstream Q={Q} x {len(corpus.buckets)} buckets x "
-          f"T=0,1,none x flags x key-emit; "
-          f"row_gather {sorted(gather_shapes)})", flush=True)
+          f"(colstream fuzzy Q={Q} x {len(corpus.buckets)} buckets x "
+          f"T=0,1,none x flags x key-emit; colstream literal {lit}: "
+          f"buckets x 4 modes x flags x key-emit; match_units {rm}: "
+          f"buckets x (n=8,T=4),(n=24,T=0),(n=24,none) x all rows / "
+          f"random row order; row_gather {sorted(gather_shapes)})",
+          flush=True)
     return errs
+
+
+def _check_equal(errs, name, got, want, what):
+    pairs = [(got, want)] if torch.is_tensor(got) else list(zip(got, want))
+    for g, w in pairs:
+        err = _max_abs_err(g, w)
+        errs[name] = max(errs[name], err)
+        if err:
+            raise AssertionError(f"{name} kernel != plain: {what} err={err}")
+
+
+def _literal_kernel_checks(corpus, errs):
+    """The literal kernel on every bucket, 4 modes x flags x key-emit,
+    for Q=32 3-byte pieces of the bench permutations."""
+    from frizbee_tpu_torch.ops import colstream as cs
+    from frizbee_tpu_torch.ops.kernels import DEFAULT_SCORING
+    from frizbee_tpu_torch.ops.kernels import pack_needle_scalars
+    from frizbee_tpu_torch.ops.literal import LITERAL_MODES
+
+    dev = corpus.device
+    idx_bits = max((len(corpus) - 1).bit_length(), 1)
+    nq = torch.from_numpy(_needles([p[:3] for p in _queries(Q)])).to(dev)
+    checks = 0
+    for b in corpus.buckets:
+        cpT, nuT, idxT, blk = b.device_arrays_colstream()
+        scal = pack_needle_scalars(nq, b.size)
+        flags = _flags(blk, nq, 0)
+        for mode in LITERAL_MODES:
+            for fl in (flags, None):
+                for ix in (idxT, None):
+                    kw = dict(W=b.width, n=3, scoring=DEFAULT_SCORING,
+                              mode=mode, needle_byte_len=3,
+                              idx_bits=idx_bits)
+                    got = cs.match_units_colstream(cpT, nuT, scal, fl, ix,
+                                                   **kw)
+                    torch.cuda.synchronize()
+                    want = cs.match_units_colstream_literal_plain(
+                        cpT, nuT, scal, fl, ix, **kw)
+                    _check_equal(errs, "colstream_literal", got, want,
+                                 f"w{b.width} {mode} flags={fl is not None}"
+                                 f" keys={ix is not None}")
+                    checks += 1
+                    del got, want
+    return checks
+
+
+def _rowmajor_kernel_checks(corpus, errs):
+    """The row-major kernel on every bucket for Q=32 queries: every row
+    in five-column mode, and a third of the rows through a random row
+    order per query in key-emit mode."""
+    from frizbee_tpu_torch.ops import kernels as km
+
+    dev = corpus.device
+    idx_bits = max((len(corpus) - 1).bit_length(), 1)
+    cases = (
+        (_queries(Q), TYPO_BUDGET, False),
+        (_queries(Q, LONG_NEEDLE), 0, False),
+        (_queries(Q, LONG_NEEDLE), 0, True),
+    )
+    g = torch.Generator(device=dev).manual_seed(7)
+    checks = 0
+    for b in corpus.buckets:
+        cp, nu, idx = b.device_arrays_ascii()
+        order = torch.argsort(
+            torch.rand((Q, b.size), generator=g, device=dev), dim=1
+        ).to(torch.int32)
+        for queries, T, nopre in cases:
+            nq = torch.from_numpy(_needles(queries)).to(dev)
+            n = nq.shape[1] // 2
+            kw = dict(n=n, max_typos=T, scoring=km.DEFAULT_SCORING,
+                      no_prefilter=nopre, idx_bits=idx_bits)
+            for rows in (None, order):
+                scal = km.pack_needle_scalars(
+                    nq, b.size if rows is None else b.size // 3 + 17)
+                ix = None if rows is None else idx
+                got = km.match_units(cp, nu, scal, rows, ix, **kw)
+                torch.cuda.synchronize()
+                want = km.match_units_plain(cp, nu, scal, rows, ix, **kw)
+                _check_equal(errs, "match_units", got, want,
+                             f"w{b.width} n={n} T={T} no_prefilter={nopre}"
+                             f" order={rows is not None}")
+                checks += 1
+                del got, want
+        del order
+    return checks
 
 
 def _gather_shapes(corpus):
@@ -198,68 +339,108 @@ def _gather_shapes(corpus):
     }
 
 
-def serving_phase(corpus, detail):
-    """The main path: match_topk_batch and the async pipeline."""
-    from frizbee_tpu_torch import Config, match_topk_batch
-    from frizbee_tpu_torch import match_topk_batch_async
+def _serve(label, corpus, queries, cfg, kernels, detail):
+    """One serving path: match_topk_batch (warm-up, 3 blocking batches)
+    and a depth-3 match_topk_batch_async pipeline, with every launch and
+    route counter set to 0 just before and read just after; fails unless
+    each kernel of ``kernels`` launched."""
+    from frizbee_tpu_torch import match_topk_batch, match_topk_batch_async
+    from frizbee_tpu_torch.ops import _build
     from frizbee_tpu_torch.ops import batch as fb
-    from frizbee_tpu_torch.ops import colstream as cs
 
-    queries = _queries(Q)
-    for k in cs.LAUNCHES:
-        cs.LAUNCHES[k] = 0
-    for k in fb.FINALIZE_ROUTES:
-        fb.FINALIZE_ROUTES[k] = 0
+    for counter in (_build.LAUNCHES, fb.FINALIZE_ROUTES,
+                    fb.ROW_MAJOR_ROUTES):
+        for k in counter:
+            counter[k] = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    res = match_topk_batch(queries, corpus, Config(), k=TOP_K)
+    res = match_topk_batch(queries, corpus, cfg, k=TOP_K)
     warm_s = time.perf_counter() - t0
     times = []
     for _ in range(3):
         t0 = time.perf_counter()
-        res = match_topk_batch(queries, corpus, Config(), k=TOP_K)
+        res = match_topk_batch(queries, corpus, cfg, k=TOP_K)
         times.append(time.perf_counter() - t0)
     blocking_s = float(np.median(times))
     t0 = time.perf_counter()
-    futs = deque(match_topk_batch_async(queries, corpus, Config(), k=TOP_K)
+    futs = deque(match_topk_batch_async(queries, corpus, cfg, k=TOP_K)
                  for _ in range(DEPTH))
     done = 0
     for _ in range(RUNS):
         last = futs.popleft().result()
         done += 1
-        futs.append(match_topk_batch_async(queries, corpus, Config(),
-                                           k=TOP_K))
+        futs.append(match_topk_batch_async(queries, corpus, cfg, k=TOP_K))
     while futs:
         last = futs.popleft().result()
         done += 1
     pipe_s = (time.perf_counter() - t0) / done
     batches = 1 + 3 + done
-    launches = dict(cs.LAUNCHES)
-    routes = dict(fb.FINALIZE_ROUTES)
+    launches = dict(_build.LAUNCHES)
+    finalize_routes = dict(fb.FINALIZE_ROUTES)
+    row_major_routes = dict(fb.ROW_MAJOR_ROUTES)
     peak = torch.cuda.max_memory_allocated()
 
-    assert res[0][0] > 0, "no match for the headline needle"
     for r, p in zip(res, last):
-        assert len(r[1]) == min(TOP_K, r[0]), "result not k-capped"
+        assert len(r[1]) == min(TOP_K, r[0]), f"{label}: result not k-capped"
         assert r[0] == p[0] and np.array_equal(r[1], p[1]), (
-            "pipelined result differs from blocking")
-    for name, n in launches.items():
-        assert n > 0, f"kernel {name} never launched on the main path"
+            f"{label}: pipelined result differs from blocking")
+        assert np.all(np.diff(r[2]) <= 0), f"{label}: scores not sorted"
+    for name in kernels:
+        assert launches[name] > 0, (
+            f"kernel {name} never launched on the {label} path")
     out = {
-        "corpus_rows": len(corpus), "batch_queries": Q, "top_k": TOP_K,
+        "corpus_rows": len(corpus), "batch_queries": len(queries),
+        "top_k": TOP_K, "max_typos": cfg.max_typos,
         "warmup_batch_seconds": warm_s,
         "blocking_batch_seconds": blocking_s,
-        "blocking_haystacks_per_sec": Q * len(corpus) / blocking_s,
+        "blocking_haystacks_per_sec": len(queries) * len(corpus)
+        / blocking_s,
         "pipelined_batch_seconds": pipe_s,
-        "pipelined_haystacks_per_sec": Q * len(corpus) / pipe_s,
+        "pipelined_haystacks_per_sec": len(queries) * len(corpus) / pipe_s,
         "batches": batches, "launches": launches,
-        "finalize_routes": routes,
+        "finalize_routes": finalize_routes,
+        "row_major_routes": row_major_routes,
         "peak_device_memory_bytes": peak,
-        "first_query_count": int(res[0][0]),
+        "match_counts": [int(r[0]) for r in res],
     }
-    detail["serving"] = out
-    print("serving phase: " + json.dumps(out), flush=True)
+    detail.setdefault("serving", {})[label] = out
+    print(f"serving phase, {label}: " + json.dumps(
+        {k: v for k, v in out.items() if k != "match_counts"}), flush=True)
     return out
+
+
+def _paths(corpus, long_corpus):
+    """The four serving paths: label -> (corpus, queries, config, the
+    kernels the path must launch)."""
+    from frizbee_tpu_torch import Config
+
+    return {
+        "fuzzy": (corpus, _queries(Q), Config(),
+                  ("colstream_fuzzy", "row_gather")),
+        "literal": (corpus, _literal_queries(Q), Config(),
+                    ("colstream_literal", "row_gather")),
+        "typo": (corpus, _queries(Q), Config(max_typos=TYPO_BUDGET),
+                 ("match_units", "row_gather")),
+        "long_needle": (long_corpus, _queries(Q, LONG_NEEDLE), Config(),
+                        ("match_units", "row_gather")),
+    }
+
+
+def serving_phase(paths, detail):
+    """The four serving paths, each read on its own."""
+    serving = {
+        label: _serve(label, c, queries, cfg, kernels, detail)
+        for label, (c, queries, cfg, kernels) in paths.items()
+    }
+    main, typo = serving["fuzzy"], serving["typo"]
+    assert main["match_counts"][0] > 0, "no match for the headline needle"
+    assert sum(serving["literal"]["match_counts"]) > 0, (
+        "no literal query matched")
+    assert typo["row_major_routes"]["compacted"] == typo["batches"]
+    assert typo["match_counts"][0] >= main["match_counts"][0]
+    assert serving["long_needle"]["match_counts"][0] > 0, (
+        "no match for the long needle")
+    return serving
 
 
 def profile_phase(corpus, detail):
@@ -335,171 +516,260 @@ def profile_phase(corpus, detail):
         flush=True)
 
 
-def timing_phase(corpus, serving, errs, detail):
-    """Kernel times at the serving shapes beside bound, plain, library."""
+def _time_once_ms(fn):
+    """(device ms, result) of one call of fn(), CUDA events around it."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
+
+
+def _bound(in_bytes, out_bytes, ops):
+    """(bound ms, what bounds it): the larger of bytes over the memory
+    rate and int32 operations over the ALU rate."""
+    t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S
+    t_ops = ops / INT32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _colstream_work(args, kw, keys):
+    """(int32 operations, bytes read, bytes written) that one colstream
+    launch's data needs. A group runs for the queries whose live count
+    and stage-1 flag keep it alive; each of its rows walks its unit
+    columns (only the first n in exact and prefix mode). Bytes count each
+    needed corpus byte, and the unit count and index of each row of a
+    group some query reads, once."""
+    from frizbee_tpu_torch.corpus import GROUP_ROWS
+    from frizbee_tpu_torch.ops.kernels import PF_NONE, prefilter_mode
+    from frizbee_tpu_torch.ops.literal import EXACT, PREFIX
+
+    cpT, nuT, scal, flags, _idxT = args
+    W, n = kw["W"], kw["n"]
+    nG = cpT.shape[0] // W
+    g0 = torch.arange(nG, device=cpT.device) * GROUP_ROWS
+    alive = g0[None, :] < scal[:, :1]
+    if flags is not None:
+        alive = alive & (flags > 0)
+    alive = alive.to(torch.float64)
+    walk = torch.clamp(nuT.reshape(nG, GROUP_ROWS), max=W)
+    if kw.get("mode") in (EXACT, PREFIX):
+        walk = torch.clamp(walk, max=n)
+    group_cols = walk.sum(dim=1).to(torch.float64)
+    cols = float((alive * group_cols[None, :]).sum())
+    read = alive.amax(dim=0)
+    in_bytes = (float((read * group_cols).sum())
+                + float(read.sum()) * GROUP_ROWS * 8
+                + 4 * (scal.numel() + (flags.numel() if flags is not None
+                                       else 0)))
+    out_bytes = 8 * keys.numel()
+    if "mode" in kw:
+        return cols * (LIT_OPS_PER_CELL * n + LIT_OPS_PER_COLUMN), \
+            in_bytes, out_bytes
+    # fuzzy: the prefilter over every walked column; a matched row's DP
+    # covers >= n columns
+    T = min(int(kw["max_typos"]), n)
+    pf = prefilter_mode(n, T, kw["no_prefilter"]) != PF_NONE
+    matched = float((keys != INT64_MAX).sum())
+    ops = (cols * n * PF_OPS_PER_CELL if pf else 0.0) \
+        + matched * n * n * SW_OPS_PER_CELL
+    return ops, in_bytes, out_bytes
+
+
+def _match_units_work(args, kw, keys):
+    """(int32 operations, bytes read, bytes written) that one row-major
+    launch's data needs: each query's live rows (the first count of its
+    row order) run the prefilter to their length, and a matched row's DP
+    covers >= n - T columns. Bytes count each row some query reads (its
+    bytes, unit count and index) once, the order entries read, the
+    scalars and the keys."""
+    from frizbee_tpu_torch.ops.kernels import PF_NONE, prefilter_mode
+
+    cp, nu, scal, rows, _idx = args
+    B, W = cp.shape
+    n = kw["n"]
+    T = min(int(kw["max_typos"]), n)
+    cnt = torch.clamp(scal[:, 0], 0, B)
+    first = (torch.arange(B, device=cp.device)[None, :] < cnt[:, None])
+    live = first if rows is None else torch.zeros_like(first).scatter_(
+        1, rows.to(torch.int64), first)
+    lens = torch.clamp(nu.to(torch.float64), max=W)
+    live_cols = float((live.to(torch.float64) * lens[None, :]).sum())
+    read = live.any(dim=0).to(torch.float64)
+    in_bytes = (float((read * (lens + 8)).sum()) + 4 * scal.numel()
+                + (4 * float(cnt.sum()) if rows is not None else 0))
+    pf_mode = prefilter_mode(n, T, kw["no_prefilter"])
+    pf_per_col = 0 if pf_mode == PF_NONE else RM_PF_OPS_PER_COLUMN + (
+        RM_PF_OPS_PER_STATE * (T + 1) if T else 0)
+    matched = float((keys != INT64_MAX).sum())
+    ops = live_cols * pf_per_col + matched * max(n - T, 1) * n * \
+        SW_OPS_PER_CELL
+    return ops, in_bytes, 8 * keys.numel()
+
+
+def _gather_work(args, _kw, out):
+    data, rows = args
+    return 0.0, out.numel() * 4 + rows.numel() * 4, out.numel() * 4
+
+
+def _replay(name, calls, errs):
+    """Time the captured launches ``calls`` ((args, kwargs) of the
+    wrapper) of one serving batch on the kernel, on its plain version and
+    on the library call where there is one; the kernel's results are held
+    bit-equal to the plain version's. Returns the timing entry's numbers
+    and the work this run's data needs."""
     from frizbee_tpu_torch.ops import colstream as cs
-    from frizbee_tpu_torch.ops.kernels import DEFAULT_SCORING
-    from frizbee_tpu_torch.ops.kernels import pack_needle_scalars
+    from frizbee_tpu_torch.ops import kernels as km
 
-    dev = corpus.device
-    idx_bits = max((len(corpus) - 1).bit_length(), 1)
-    nq = torch.from_numpy(_needles(_queries(Q))).to(dev)
-    launches_per_batch = [
-        (b.device_arrays_colstream(), b.size, b.width) for b in corpus.buckets
-    ]
-    args = []
-    kernel_keys = []
-    ops = 0.0
-    in_bytes = out_bytes = 0
-    for (cpT, nuT, idxT, blk), size, W in launches_per_batch:
-        fl = _flags(blk, nq, 0)
-        scal = pack_needle_scalars(nq, size)
-        args.append((cpT, nuT, scal, fl, idxT, W))
-        keys = cs.match_units_colstream(
-            cpT, nuT, scal, fl, idxT, W=W, n=8, scoring=DEFAULT_SCORING,
-            idx_bits=idx_bits)
-        # work this run's data needs: every row of an alive group is
-        # scanned to its length; a matched row's DP covers >= n columns
-        nu = torch.clamp(nuT.reshape(-1), max=W).to(torch.float64)
-        alive = fl.repeat_interleave(1024, dim=1).to(torch.float64)
-        pf_cells = float((alive * nu[None, :]).sum()) * 8
-        matched = float((keys != cs.INT64_MAX).sum())
-        ops += pf_cells * PF_OPS_PER_CELL + matched * 8 * 8 * SW_OPS_PER_CELL
-        in_bytes += (cpT.numel() + 4 * (nuT.numel() + idxT.numel()
-                     + fl.numel() + scal.numel()))
-        out_bytes += 8 * keys.numel()
-        kernel_keys.append(keys)
+    kernel, plain, work, library = {
+        "colstream_fuzzy": (cs.match_units_colstream,
+                            cs.match_units_colstream_plain,
+                            _colstream_work, None),
+        "colstream_literal": (cs.match_units_colstream,
+                              cs.match_units_colstream_literal_plain,
+                              _colstream_work, None),
+        "match_units": (km.match_units, km.match_units_plain,
+                        _match_units_work, None),
+        "row_gather": (cs.row_gather, cs.row_gather_plain, _gather_work,
+                       lambda data, rows: torch.index_select(data, 0, rows)),
+    }[name]
 
-    def run_kernel():
-        for cpT, nuT, scal, fl, idxT, W in args:
-            cs.match_units_colstream(
-                cpT, nuT, scal, fl, idxT, W=W, n=8,
-                scoring=DEFAULT_SCORING, idx_bits=idx_bits)
+    def run(fn):
+        return [fn(*a, **kw) for a, kw in calls]
 
-    plain_keys = []
+    got = run(kernel)
+    plain_ms, want = _time_once_ms(lambda: run(plain))
+    for g, w in zip(got, want):
+        _check_equal(errs, name, g, w, "serving shapes")
+    ops = in_bytes = out_bytes = 0.0
+    for (a, kw), out in zip(calls, got):
+        o, i, w = work(a, kw, out)
+        ops, in_bytes, out_bytes = ops + o, in_bytes + i, out_bytes + w
+    del got, want
+    bound_ms, bound_by = _bound(in_bytes, out_bytes, ops)
+    return {
+        "ms": _time_ms(lambda: run(kernel)),
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": (None if library is None
+                       else _time_ms(lambda: run(library))),
+    }, {"launches": len(calls), "ops": ops, "bytes": in_bytes + out_bytes}
 
-    def run_plain():
-        plain_keys[:] = [
-            cs.match_units_colstream_plain(
-                cpT, nuT, scal, fl, idxT, W=W, n=8,
-                scoring=DEFAULT_SCORING, idx_bits=idx_bits)
-            for cpT, nuT, scal, fl, idxT, W in args
-        ]
 
-    cs_ms = _time_ms(run_kernel)
-    cs_plain_ms = _time_ms(run_plain, reps=1, warm=0)
-    # the kernel's keys at the serving shapes, bit for bit
-    for (_, _, _, _, _, W), got, want in zip(args, kernel_keys, plain_keys):
-        err = _max_abs_err(got, want)
-        errs["colstream_fuzzy"] = max(errs["colstream_fuzzy"], err)
-        if err:
-            raise AssertionError(
-                f"colstream kernel != plain at the serving shape w{W}: "
-                f"err={err}")
-    del kernel_keys, plain_keys
-    cs_bound_s = max((in_bytes + out_bytes) / HBM_BYTES_PER_S,
-                     ops / INT32_OPS_PER_S)
-    cs_bound_by = ("bytes" if (in_bytes + out_bytes) / HBM_BYTES_PER_S
-                   >= ops / INT32_OPS_PER_S else "operations")
-    batches = serving["batches"]
-    entries = [{
-        "name": "colstream_fuzzy",
-        "route": "cuda",
-        "source": "frizbee_tpu_torch/csrc/colstream_fuzzy.cu",
-        "replaces": "frizbee_tpu/ops/colstream.py:954",
-        "launches": serving["launches"]["colstream_fuzzy"],
-        "max_abs_err": errs["colstream_fuzzy"],
-        "ms": cs_ms,
-        "plain_ms": cs_plain_ms,
-        "bound_ms": cs_bound_s * 1e3,
-        "bound_by": cs_bound_by,
-        "library_ms": None,
-    }]
-    detail["colstream_timing"] = {
-        "per": f"one serving batch ({len(args)} launches, Q={Q}, T=0)",
-        "ops": ops, "bytes": in_bytes + out_bytes,
-        "launches_per_batch": serving["launches"]["colstream_fuzzy"]
-        / batches,
-    }
+KERNELS = (
+    # name, source, TPU kernel it replaces, serving paths it runs on
+    ("colstream_fuzzy", "frizbee_tpu_torch/csrc/colstream_fuzzy.cu",
+     "frizbee_tpu/ops/colstream.py:954", ("fuzzy",)),
+    ("colstream_literal", "frizbee_tpu_torch/csrc/colstream_literal.cu",
+     "frizbee_tpu/ops/colstream.py:954", ("literal",)),
+    ("row_gather", "frizbee_tpu_torch/csrc/row_gather.cu",
+     "frizbee_tpu/ops/colstream.py:749",
+     ("fuzzy", "literal", "typo", "long_needle")),
+    ("match_units", "frizbee_tpu_torch/csrc/match_units.cu",
+     "frizbee_tpu/ops/kernels.py:632", ("typo", "long_needle")),
+)
 
-    shapes = _gather_shapes(corpus)
-    routes = serving["finalize_routes"]
-    main = "capped" if routes["capped"] + routes["mixed"] else "broad"
-    g = torch.Generator(device=dev).manual_seed(6)
-    gather = {}
-    for name, (R, C, M) in shapes.items():
-        data = torch.randint(-(2**31), 2**31 - 1, (R, C), generator=g,
-                             dtype=torch.int32, device=dev)
-        rows = torch.randint(0, R, (M,), generator=g, dtype=torch.int32,
-                             device=dev)
-        gather[name] = {
-            "shape": [R, C, M],
-            "ms": _time_ms(lambda: cs.row_gather(data, rows)),
-            "plain_ms": _time_ms(lambda: cs.row_gather_plain(data, rows)),
-            "library_ms": _time_ms(
-                lambda: torch.index_select(data, 0, rows)),
-            "bound_ms": 2 * M * C * 4 / HBM_BYTES_PER_S * 1e3,
-        }
-        del data, rows
-    detail["row_gather_timing"] = gather
-    gm = gather[main]
-    entries.append({
-        "name": "row_gather",
-        "route": "cuda",
-        "source": "frizbee_tpu_torch/csrc/row_gather.cu",
-        "replaces": "frizbee_tpu/ops/colstream.py:749",
-        "launches": serving["launches"]["row_gather"],
-        "max_abs_err": errs["row_gather"],
-        "ms": gm["ms"],
-        "plain_ms": gm["plain_ms"],
-        "bound_ms": gm["bound_ms"],
-        "bound_by": "bytes",
-        "library_ms": gm["library_ms"],
-    })
-    print(f"timing phase: colstream per batch {cs_ms:.4f} ms "
-          f"(plain {cs_plain_ms:.1f} ms, bound {cs_bound_s * 1e3:.4f} ms "
-          f"by {cs_bound_by}); row_gather "
-          + json.dumps({k: {kk: vv for kk, vv in v.items()}
-                        for k, v in gather.items()}), flush=True)
+
+def _capture(corpus, queries, cfg):
+    """The launches, (kernel name, (args, kwargs) of its wrapper), of one
+    serving batch."""
+    from frizbee_tpu_torch import match_topk_batch
+    from frizbee_tpu_torch.ops import _build
+
+    _build.CAPTURE = []
+    match_topk_batch(queries, corpus, cfg, k=TOP_K)
+    calls, _build.CAPTURE = _build.CAPTURE, None
+    return calls
+
+
+def timing_phase(paths, serving, errs, detail):
+    """Each kernel's time at its serving shapes: the launches of one batch
+    of each path it runs on, captured and replayed, beside their bound,
+    their plain version and, for the row gather, ``torch.index_select``.
+    The captures run after the serving phase has read its counters."""
+    calls = {label: _capture(c, queries, cfg)
+             for label, (c, queries, cfg, _k) in paths.items()}
+    entries = []
+    detail["timing"] = {}
+    for name, source, replaces, paths in KERNELS:
+        per_path = {p: [c for k, c in calls[p] if k == name] for p in paths}
+        nums, work = _replay(name, sum(per_path.values(), []), errs)
+        if len(paths) > 1:
+            work["ms_per_path"] = {
+                p: _replay(name, c, errs)[0]["ms"]
+                for p, c in per_path.items()
+            }
+        work["per"] = f"one batch of each of {list(paths)} (Q={Q})"
+        detail["timing"][name] = {**nums, **work}
+        print(f"timing phase: {name} " + json.dumps(detail["timing"][name]),
+              flush=True)
+        entries.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": sum(serving[p]["launches"][name] for p in paths),
+            "max_abs_err": errs[name],
+            **nums,
+        })
     return entries
 
 
 def cpu_parity_phase(detail):
-    """Reduced size: the card's serving arrays equal the CPU's."""
+    """Reduced size: the card's serving arrays equal the CPU's, group by
+    group, and so do the decoded top-k results."""
     from frizbee_tpu_torch import Config, datagen, match_topk_batch
     from frizbee_tpu_torch import pack_corpus
     from frizbee_tpu_torch.matcher import Matcher, _dispatch_batch_groups
 
+    n_rows, q = 20_000, 8
     hay = datagen.partial_match_corpus(median_length=MEDIAN_LEN,
-                                       num_samples=20_000, seed=7)
-    on_card = pack_corpus(hay)
-    on_cpu = pack_corpus(hay, device="cpu")
-    queries = _queries(8)
-    compared = 0
-    for typos in (0, 1):
-        cfg = Config(max_typos=typos)
+                                       num_samples=n_rows, seed=7)
+    long_hay = _long_corpus(n_rows, seed=7)
+    cases = (
+        ("fuzzy T=0", hay, _queries(q), Config(max_typos=0)),
+        ("fuzzy T=1", hay, _queries(q), Config(max_typos=1)),
+        ("literal", hay, _literal_queries(q), Config()),
+        (f"typo T={TYPO_BUDGET}", hay, _queries(q),
+         Config(max_typos=TYPO_BUDGET)),
+        ("long needle", long_hay, _queries(q, LONG_NEEDLE), Config()),
+    )
+    packed = {}
+    compared = {}
+    for label, rows, queries, cfg in cases:
+        key = id(rows)
+        if key not in packed:
+            packed[key] = (pack_corpus(rows), pack_corpus(rows, device="cpu"))
+        on_card, on_cpu = packed[key]
         raw = []
         for corpus in (on_card, on_cpu):
-            ms = [Matcher.from_query(q, cfg) for q in queries]
-            pending = _dispatch_batch_groups(ms, corpus, cfg, TOP_K)
-            (rows, ready, members), = pending
-            if ready is not None:
-                ready.synchronize()
-            raw.append((rows.numpy().copy(), members))
-        assert raw[0][1] == raw[1][1]
-        assert np.array_equal(raw[0][0], raw[1][0]), (
-            f"card and CPU serving arrays differ at max_typos={typos}")
-        a = match_topk_batch(queries, on_card, cfg, k=TOP_K)
-        b = match_topk_batch(queries, on_cpu, cfg, k=TOP_K)
-        for x, y in zip(a, b):
+            ms = [Matcher.from_query(x, cfg) for x in queries]
+            arrays = []
+            for out, ready, members in _dispatch_batch_groups(
+                    ms, corpus, cfg, TOP_K):
+                if ready is not None:
+                    ready.synchronize()
+                arrays.append((out.numpy().copy(), members))
+            raw.append(arrays)
+        assert len(raw[0]) == len(raw[1])
+        for (a, ma), (b, mb) in zip(*raw):
+            assert ma == mb
+            assert np.array_equal(a, b), (
+                f"card and CPU serving arrays differ: {label}")
+        got = match_topk_batch(queries, on_card, cfg, k=TOP_K)
+        want = match_topk_batch(queries, on_cpu, cfg, k=TOP_K)
+        for x, y in zip(got, want):
             assert x[0] == y[0]
             for u, v in zip(x[1:], y[1:]):
                 assert np.array_equal(u, v)
-        assert a[0][0] > 0
-        compared += raw[0][0].size
+        assert sum(x[0] for x in got) > 0, f"{label}: nothing matched"
+        compared[label] = sum(a.size for a, _m in raw[0])
     detail["cpu_parity_elements"] = compared
-    print(f"card-vs-CPU phase: {compared} serving-array elements equal "
-          f"(20k rows, Q=8, T=0,1)", flush=True)
+    print(f"card-vs-CPU phase: serving-array elements equal "
+          f"({n_rows} rows, Q={q}): {json.dumps(compared)}", flush=True)
 
 
 def main():
@@ -533,27 +803,41 @@ def main():
     for b in corpus.buckets:
         b.device_arrays_colstream()
         b.device_presence_bits()
+        b.device_arrays_ascii()
     torch.cuda.synchronize()
     detail["pack_seconds"] = time.perf_counter() - t0
     detail["buckets"] = [(b.width, b.size) for b in corpus.buckets]
     print(f"corpus: {len(corpus)} rows, buckets {detail['buckets']}, "
           f"generated and packed in {detail['pack_seconds']:.1f} s",
           flush=True)
+    t0 = time.perf_counter()
+    long_hay = _long_corpus(N_ROWS)
+    long_corpus = pack_corpus(long_hay)
+    for b in long_corpus.buckets:
+        b.device_presence_bits()
+        b.device_arrays_ascii()
+    torch.cuda.synchronize()
+    detail["long_pack_seconds"] = time.perf_counter() - t0
+    detail["long_buckets"] = [(b.width, b.size) for b in long_corpus.buckets]
+    print(f"long-needle corpus: {len(long_corpus)} rows, buckets "
+          f"{detail['long_buckets']}, generated and packed in "
+          f"{detail['long_pack_seconds']:.1f} s", flush=True)
 
     phases = {}
     t0 = time.perf_counter()
     errs = kernel_phase(corpus, detail)
     phases["kernel"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    serving = serving_phase(corpus, detail)
+    paths = _paths(corpus, long_corpus)
+    serving = serving_phase(paths, detail)
     phases["serving"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    entries = timing_phase(corpus, serving, errs, detail)
+    entries = timing_phase(paths, serving, errs, detail)
     phases["timing"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     profile_phase(corpus, detail)
     phases["profile"] = time.perf_counter() - t0
-    del corpus, hay
+    del corpus, hay, long_corpus, long_hay, paths
     t0 = time.perf_counter()
     cpu_parity_phase(detail)
     phases["cpu_parity"] = time.perf_counter() - t0

@@ -146,6 +146,21 @@ class PackedBucket:
             self._device_bits = torch.from_numpy(bits8).to(self.device)
         return self._device_bits
 
+    def device_arrays_ascii(self):
+        """Row-major kernel arrays on the corpus device (cached): (cp
+        (B, W) int8, n_units (B,) int32, indices (B,) int32 with -1 on
+        size-class padding), in bucket row order — the operands of
+        ``ops/kernels.match_units`` (frizbee_tpu's
+        ``device_arrays_ascii()[:3]``)."""
+        if not hasattr(self, "_device_ascii"):
+            dev = self.device
+            self._device_ascii = (
+                torch.from_numpy(self.cp).to(dev),
+                torch.from_numpy(self.n_units.astype(np.int32)).to(dev),
+                torch.from_numpy(self.indices.astype(np.int32)).to(dev),
+            )
+        return self._device_ascii
+
     def device_arrays_colstream(self):
         """Column-stream blocks (cached): (cpT (nG*W, SUBL, 128) int8,
         nuT (nG*SUBL, 128) int32, idxT (nG*1024,) int32, blk_bits

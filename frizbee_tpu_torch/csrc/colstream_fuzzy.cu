@@ -28,29 +28,21 @@
 // loads per thread (no vector loads or shared-memory staging of column
 // tiles), and warps run to the longest of their 32 rows.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "kernel_common.cuh"
 
 namespace {
 
+using frizbee::is_delim;
+using frizbee::is_lower;
+using frizbee::is_upper;
+using frizbee::kMaxHaystackLen;
+using frizbee::kMaxNeedle;
+using frizbee::Scoring;
+
 constexpr int kGroupRows = 1024;
 constexpr int kBlockRows = 128;
-constexpr int kMaxNeedle = 64;  // scalars layout: [count, n, orig x 64, flip x 64]
-constexpr int kMaxHaystackLen = 1024;
 
 enum PrefilterMode { kPfNone = 0, kPfGreedy = 1, kPfDp = 2 };
-
-struct Scoring {
-  int match, mismatch, gap_open, gap_ext, prefix, cap, case_b, exact, delim;
-};
-
-__device__ __forceinline__ bool is_upper(int c) { return c >= 0x41 && c <= 0x5A; }
-__device__ __forceinline__ bool is_lower(int c) { return c >= 0x61 && c <= 0x7A; }
-__device__ __forceinline__ bool is_delim(int c) {
-  const bool letter = is_upper(c) || is_lower(c);
-  const bool digit = c >= 0x30 && c <= 0x39;
-  return c <= 127 && !letter && !digit;
-}
 
 template <int N>
 __global__ void __launch_bounds__(kBlockRows) colstream_fuzzy_kernel(
@@ -204,17 +196,8 @@ __global__ void __launch_bounds__(kBlockRows) colstream_fuzzy_kernel(
   }
 
   if (keys_out != nullptr) {
-    const int idx = alive ? idxT[slot] : -1;
-    long long key = 0x7FFFFFFFFFFFFFFFLL;
-    if (matched && idx >= 0) {
-      const unsigned long long meta16 =
-          ((unsigned long long)exact << 15) | ((unsigned long long)greedy << 14) |
-          (unsigned long long)min(end_col, 0x3FFF);
-      const unsigned long long inv = (unsigned long long)(0xFFFF - score);
-      key = (long long)((inv << (16 + idx_bits)) |
-                        ((unsigned long long)(unsigned)idx << 16) | meta16);
-    }
-    keys_out[out_i] = key;
+    keys_out[out_i] = frizbee::pack_key(matched, score, exact, end_col, greedy,
+                                        alive ? idxT[slot] : -1, idx_bits);
   } else {
     const long long plane = (long long)gridDim.y * total;
     cols_out[out_i] = matched;
@@ -248,8 +231,7 @@ extern "C" int colstream_fuzzy_launch(
     const void* idxT, int Q, int n_groups, int W, int n, int T, int pf_mode,
     const void* scoring, int idx_bits, void* keys_out, void* cols_out,
     void* stream) {
-  const int* s = static_cast<const int*>(scoring);
-  const Scoring sc{s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8]};
+  const Scoring sc = frizbee::scoring_from(scoring);
   const dim3 grid(n_groups * (kGroupRows / kBlockRows), Q);
   if (n_groups == 0 || Q == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

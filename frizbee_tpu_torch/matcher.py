@@ -6,9 +6,13 @@ batched device pass each (``ops/batch.fused_match_sorted_batch``), and
 the ``(Q, 1+k, 2)`` results decode on the host into per-query
 ``(total_count, index, score, exact, end_col)`` arrays.
 
-This slice serves single-pattern ASCII fuzzy queries with a score sort
-over byte-unit corpora of bucket width <= 1024. Queries and corpora
-outside that raise NotImplementedError naming the slice that ports them.
+This slice serves single-pattern ASCII queries with a score sort over
+byte-unit corpora of bucket width <= 1024: fuzzy needles of up to 64
+units with typo budgets of up to 8 (the column-stream kernel for up to
+16 units and budgets of up to 3, the row-major kernel beyond), and
+literal needles (exact, prefix, suffix, substring) of up to 16 bytes.
+Queries and corpora outside that raise NotImplementedError naming the
+slice that ports them.
 """
 
 from __future__ import annotations
@@ -21,7 +25,12 @@ import torch
 from .config import Config, SortStrategy
 from .corpus import GROUP_ROWS, Corpus, pack_corpus
 from .engine import make_engine
-from .ops.colstream import colstream_supported
+from .ops.batch import (
+    fused_match_sorted_batch,
+    unserved_reason,
+    uses_colstream,
+)
+from .ops.colstream import FUZZY_MODE
 from .ops.fuzzy import SCORING_FIELDS
 from .pattern import Pattern
 
@@ -96,13 +105,27 @@ class Matcher:
             raise NotImplementedError(
                 "unicode needles come with the unicode colstream slice"
             )
-        n = len(cp.engine.units.orig)
-        mt = cp.config.max_typos
-        if not colstream_supported(n, min(mt or 0, n), mt is None):
-            raise NotImplementedError(
-                f"a needle of {n} units with max_typos={mt} needs the "
-                "row-major route (kernel #4), a later slice"
+        reason = unserved_reason(self._statics()[0],
+                                 len(cp.engine.units.orig))
+        if reason is not None:
+            raise NotImplementedError(reason)
+
+    def _statics(self) -> tuple:
+        """Per pattern (typos, no_prefilter, negated, scoring, mode,
+        needle bytes): what a batch group shares."""
+        return tuple(
+            (
+                0 if cp.config.max_typos is None else int(cp.config.max_typos),
+                cp.config.max_typos is None,
+                cp.negated,
+                tuple(
+                    int(getattr(cp.config.scoring, f)) for f in SCORING_FIELDS
+                ),
+                cp.config.matching.value,
+                len(cp.engine.needle_bytes),
             )
+            for cp in self._compiled
+        )
 
     def _fused_device_args(self, corpus: Corpus):
         """(bits8, statics, use_kernel) for the batch: per-bucket presence
@@ -114,20 +137,7 @@ class Matcher:
             for b in corpus.buckets
         )
         bits8 = tuple(b.device_presence_bits() for b in corpus.buckets)
-        statics = tuple(
-            (
-                0 if cp.config.max_typos is None else int(cp.config.max_typos),
-                cp.config.max_typos is None,
-                cp.negated,
-                tuple(
-                    int(getattr(cp.config.scoring, f)) for f in SCORING_FIELDS
-                ),
-                "fuzzy",
-                len(cp.engine.needle_bytes),
-            )
-            for cp in self._compiled
-        )
-        return bits8, statics, use_kernel
+        return bits8, self._statics(), use_kernel
 
     @staticmethod
     def _decode_rows(rows: np.ndarray) -> tuple:
@@ -159,21 +169,25 @@ class Matcher:
         return index, score, exact, end_col
 
 
-def _colstream_blocks_and_cap(corpus, statics, lens, needles_np, fetch_rows):
-    """(buckets_T, finalize_cap, perm) for a single-pattern fuzzy group:
-    the corpus colstream blocks plus the host-chosen capped-sort budget
-    (see :func:`_colstream_finalize_cap`). perm (None = identity) is the
-    selective-first query order the caller applies before stacking."""
-    buckets_T = tuple(b.device_arrays_colstream() for b in corpus.buckets)
-    typos, nopre = statics[0][0], statics[0][1]
-    T = min(typos, lens[0])
-    if nopre or lens[0] <= T:  # no stage-1 flags: no capped tier
-        return buckets_T, None, None
+def _colstream_cap(corpus, statics, lens, needles_np, fetch_rows):
+    """(finalize_cap, perm) for a single-pattern colstream group: the
+    host-chosen capped-sort budget (see :func:`_colstream_finalize_cap`).
+    perm (None = identity) is the selective-first query order the caller
+    applies before stacking."""
+    typos, nopre, _neg, _sc, mode, _nbl = statics[0]
+    if mode != FUZZY_MODE:
+        # literal stage 1 runs at T=0 whatever the budget, so its group
+        # flags always narrow (the reference's _pattern_s1_contributes)
+        T = 0
+    else:
+        T = min(typos, lens[0])
+        if nopre or lens[0] <= T:  # no stage-1 flags: no capped tier
+            return None, None
     res = _colstream_finalize_cap(corpus, [(needles_np[0], T)], fetch_rows)
     if res is None:
-        return buckets_T, None, None
+        return None, None
     cap, n_sel, perm = res
-    return buckets_T, (cap, n_sel), perm
+    return (cap, n_sel), perm
 
 
 def _colstream_finalize_cap(corpus, pattern_needles, fetch_rows):
@@ -244,8 +258,6 @@ def _dispatch_batch_groups(
     enqueue one batched device pass per group, with the device->host copy
     of each result started behind it. Returns one (host_rows,
     ready_event, members) entry per group."""
-    from .ops.batch import fused_match_sorted_batch
-
     _check_corpus(corpus)
     groups = {}
     prepared = {}
@@ -266,10 +278,13 @@ def _dispatch_batch_groups(
         needles_np = np.stack([
             np.concatenate(prepared[i][1][:2]) for i in members
         ])
-        buckets_T, fin_cap, perm = _colstream_blocks_and_cap(
-            corpus, statics, [nlen], [needles_np],
-            min(fetch_rows, len(corpus)),
-        )
+        fin_cap = perm = None
+        if uses_colstream(statics[0], nlen):
+            # the capped finalize of the column-stream flow
+            fin_cap, perm = _colstream_cap(
+                corpus, statics, [nlen], [needles_np],
+                min(fetch_rows, len(corpus)),
+            )
         if perm is not None:
             # mixed finalize: selective queries first; members follow
             members = [members[j] for j in perm]
@@ -285,7 +300,7 @@ def _dispatch_batch_groups(
             n=len(corpus),
             pattern_statics=statics,
             fetch_rows=min(fetch_rows, len(corpus)),
-            buckets_T=buckets_T,
+            buckets=corpus.buckets,
             finalize_cap=fin_cap,
         )
         if out.is_cuda:

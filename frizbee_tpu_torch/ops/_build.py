@@ -20,6 +20,8 @@ import threading
 import time
 from typing import Dict, Iterable, Optional
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -40,9 +42,17 @@ SIGNATURES = {
         "colstream_fuzzy_launch",
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P],
     ),
+    "colstream_literal": (
+        "colstream_literal_launch",
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P],
+    ),
     "row_gather": (
         "row_gather_launch",
         [_P, _P, _P, _I, _L, _P],
+    ),
+    "match_units": (
+        "match_units_launch",
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P],
     ),
 }
 
@@ -61,11 +71,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as fh:
-        digest = hashlib.sha1(
-            fh.read() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for f in [f"{name}.cu"] + headers:
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            h.update(fh.read())
+    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:12]}.so")
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
@@ -125,3 +136,57 @@ def library(name: str) -> ctypes.CDLL:
 def entry(name: str):
     """The C entry point of kernel ``name``, argtypes set."""
     return getattr(library(name), SIGNATURES[name][0])
+
+
+def ptr(t) -> ctypes.c_void_p:
+    """A tensor's device address for a C entry point (NULL for None)."""
+    return ctypes.c_void_p(0 if t is None else t.data_ptr())
+
+
+def stream(t) -> ctypes.c_void_p:
+    """The current CUDA stream of ``t``'s device, for a C entry point."""
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def check_operands(device, operands) -> None:
+    """Raise unless every given (name, tensor, dtype, shape) operand is a
+    contiguous tensor of that dtype and shape on ``device``."""
+    for name, t, dt, shp in operands:
+        if t is None:
+            continue
+        if (t.device != device or t.dtype != dt
+                or tuple(t.shape) != tuple(shp) or not t.is_contiguous()):
+            raise ValueError(
+                f"{name}: want contiguous {dt} {tuple(shp)} on {device}, got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+
+
+def scoring_arg(scoring):
+    """(keep-alive buffer, pointer) of the (9,) int32 scoring vector."""
+    sc = (ctypes.c_int * 9)(*(int(s) for s in scoring))
+    return sc, ctypes.cast(sc, ctypes.c_void_p)
+
+
+def launch(name: str, device, *args, call=None) -> None:
+    """Call kernel ``name``'s C entry point on ``device`` and count the
+    launch in ``LAUNCHES``; raises when the launch is refused. ``call`` is
+    the wrapper's (args, kwargs), kept in ``CAPTURE`` when that is a
+    list."""
+    with torch.cuda.device(device):
+        rc = entry(name)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
+    if CAPTURE is not None:
+        CAPTURE.append((name, call))
+
+
+# Kernel launches per kernel (plain-version calls never count): a run
+# sets them to 0, drives a path and reads which kernels it went through
+LAUNCHES = {name: 0 for name in SIGNATURES}
+
+# None, or a list to which every launch appends (kernel name, (args,
+# kwargs) of its wrapper call): a run can then replay exactly the
+# launches that a path made
+CAPTURE = None

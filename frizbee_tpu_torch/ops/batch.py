@@ -1,17 +1,26 @@
-"""Q-batched single-pattern fuzzy serving over the column-stream kernel:
-stage-1 presence, per-group flags, the in-place flow and the top-k
-finalize, in one pass of tensor ops on the corpus device.
+"""Q-batched single-pattern serving: stage-1 presence, then either the
+column-stream flow (fuzzy needles the colstream kernel holds, and every
+literal mode) with per-group flags, or the row-major flow (longer fuzzy
+needles and larger typo budgets) over per-query survivor orders, and the
+top-k finalize — one pass of tensor ops on the corpus device.
 
-Counterpart of the in-place flow of
-``frizbee_tpu/ops/batch._fused_match_batch_fast``. The result is the same
-``(Q, 1 + fetch_rows, 2)`` int32 array: row 0 is ``[match_count, 0]``,
-rows 1.. are ``[index, meta]`` with meta = score<<16 | exact<<15 |
-greedy<<14 | end_col, best first (score desc, index asc).
+Counterpart of ``frizbee_tpu/ops/batch._fused_match_batch_fast``. The
+result is the same ``(Q, 1 + fetch_rows, 2)`` int32 array: row 0 is
+``[match_count, 0]``, rows 1.. are ``[index, meta]`` with meta =
+score<<16 | exact<<15 | greedy<<14 | end_col, best first (score desc,
+index asc).
 
 Where JAX branches inside the program (``lax.cond``), this module either
 branches on host-known statics or selects on the device with
 ``torch.where``, so a batch never waits for the device before it is
-fully enqueued.
+fully enqueued. The reference's survivor-capacity tiers (1/16, 1/8, 1/4
+of a bucket, else every row) are such a device branch; here the kernel
+reads each query's survivors through a device-side order and stops at
+the device-side count, so one launch at capacity B does the work of
+whichever tier the reference takes. The matched rows and the count are
+the same on every tier; the rows past the count (sentinel decodes or
+zero padding, which no caller reads) are those of the reference's
+full-capacity flow.
 """
 
 from __future__ import annotations
@@ -22,15 +31,21 @@ import torch
 
 from ..corpus import GROUP_ROWS
 from .colstream import (
-    INT64_MAX,
+    FUZZY_MODE,
+    colstream_literal_supported,
     colstream_supported,
     match_units_colstream,
     row_gather,
 )
-from .kernels import pack_needle_scalars
+from .kernels import (
+    INT64_MAX,
+    MAX_KERNEL_NEEDLE,
+    MAX_KERNEL_TYPOS,
+    match_units,
+    pack_needle_scalars,
+)
+from .literal import LITERAL_MODES
 from .presence import needle_need_matrix, presence_hits
-
-FUZZY_MODE = "fuzzy"
 
 # Batched result sorts keep Q x total keys; past this total-element budget
 # (int64 keys count as two words) each query's keys sort and slice on
@@ -44,6 +59,11 @@ BROAD_TOPK_R = 128
 FINALIZE_ROUTES = {
     "capped": 0, "mixed": 0, "broad": 0, "full": 0, "presorted": 0,
 }
+
+# Row-major flows taken, per batch: in_place (no stage-1 reject, every
+# row runs) or compacted (each query's stage-1 survivors first; the
+# kernel reads only them)
+ROW_MAJOR_ROUTES = {"in_place": 0, "compacted": 0}
 
 
 def _to_int32(v: torch.Tensor) -> torch.Tensor:
@@ -158,6 +178,111 @@ def _finalize(keys, counts, *, presorted, flags_cat, Q, fetch_rows,
     return torch.cat([header[:, None, :], rows], dim=1)
 
 
+def unserved_reason(st, nlen: int):
+    """None when the batch path serves a single-pattern group of needle
+    length ``nlen`` and statics ``st``, else the NotImplementedError
+    message naming the slice that ports it. The reference's kernel gate:
+    longer needles and larger budgets (and literal needles the colstream
+    kernel cannot hold) take its generic pipelines."""
+    typos, _nopre, _neg, _sc, mode, _nbl = st
+    if nlen > MAX_KERNEL_NEEDLE or min(int(typos), nlen) > MAX_KERNEL_TYPOS:
+        return (f"a needle of {nlen} units with max_typos={typos} comes "
+                "with the generic pipelines slice")
+    if mode != FUZZY_MODE and not colstream_literal_supported(nlen):
+        return (f"literal needles of {nlen} bytes (over 16) come with the "
+                "generic pipelines slice")
+    return None
+
+
+def uses_colstream(st, nlen: int) -> bool:
+    """Whether a served single-pattern group takes the column-stream flow:
+    every literal mode, and fuzzy needles within the colstream kernel's
+    needle and typo budgets; the rest take the row-major flow."""
+    typos, nopre, _neg, _sc, mode, _nbl = st
+    if mode != FUZZY_MODE:
+        return True
+    return colstream_supported(nlen, min(int(typos), nlen), nopre)
+
+
+def _serve_keys(keys, *, flags_cat, Q, fetch_rows, finalize_cap, idx_bits,
+                idx_mask):
+    """(Q, total) int64 keys -> (Q, 1 + fetch_rows, 2) rows: the match
+    count, the per-query in-body sort past the batched-sort budget, then
+    :func:`_finalize`."""
+    counts = (keys != INT64_MAX).sum(dim=1, dtype=torch.int32)
+    # int64 keys count as two words against the batched-sort budget
+    sort_in_body = Q * keys.shape[1] * 2 > SORT_BODY_BUDGET
+    if sort_in_body:
+        keys = torch.stack([
+            torch.sort(keys[q]).values[:fetch_rows] for q in range(Q)
+        ])
+    return _finalize(
+        keys, counts, presorted=sort_in_body,
+        flags_cat=None if sort_in_body else flags_cat,
+        Q=Q, fetch_rows=fetch_rows, finalize_cap=finalize_cap,
+        idx_bits=idx_bits, idx_mask=idx_mask,
+    )
+
+
+def _survivor_order(s1, nu, W):
+    """(Q, B) int32 row order per query: stage-1 survivors first, each
+    part by (unit count, row) — one sort of packed [reject | n_units |
+    row] keys (``survivor_perms`` in the reference), so survivors of
+    similar length share warps."""
+    Q, B = s1.shape
+    bbits = max((B - 1).bit_length(), 1)
+    wbits = W.bit_length()
+    # holds for every bucket pack_corpus builds (corpus.max_bucket_rows)
+    assert bbits + wbits + 1 <= 31, (B, W)
+    iota = torch.arange(B, dtype=torch.int32, device=s1.device)
+    keyb = (nu << bbits) | iota
+    key = torch.where(s1, keyb, keyb | (1 << (bbits + wbits)))
+    # a transposed mask carries its strides through where and sort
+    return (torch.sort(key, dim=1).values & ((1 << bbits) - 1)).contiguous()
+
+
+def _row_major_flow(bits8, buckets_rm, needles_q, *, T, no_prefilter,
+                    scoring, use_stage1, fetch_rows, idx_bits, idx_mask):
+    """The row-major route: one ``match_units`` launch per bucket for all
+    Q queries, in key-emit mode. With stage 1, each query's live count is
+    its survivor count (written into the scalars on the device) and the
+    kernel reads rows through the survivor order; without, every row
+    runs in bucket order."""
+    Q, n2 = needles_q.shape
+    nlen = n2 // 2
+    scal = pack_needle_scalars(needles_q, 0)
+    if use_stage1:
+        need, tot = needle_need_matrix(needles_q)
+        thresh = tot - T
+        surv = torch.zeros((), dtype=torch.int64, device=needles_q.device)
+    keys = []
+    for bits, (cp, nu, idx) in zip(bits8, buckets_rm):
+        B, W = cp.shape
+        sc = scal.clone()
+        order = None
+        if use_stage1:
+            s1 = (presence_hits(bits, need) >= thresh[None, :]).T
+            cnt = s1.sum(dim=1, dtype=torch.int32)
+            sc[:, 0] = cnt
+            surv = surv + cnt.sum()
+            order = _survivor_order(s1, nu, W)
+        else:
+            sc[:, 0] = B
+        keys.append(match_units(
+            cp, nu, sc, order, idx, n=nlen, max_typos=T, scoring=scoring,
+            no_prefilter=no_prefilter, idx_bits=idx_bits,
+        ))
+    ROW_MAJOR_ROUTES["compacted" if use_stage1 else "in_place"] += 1
+    out = _serve_keys(
+        torch.cat(keys, dim=1), flags_cat=None, Q=Q, fetch_rows=fetch_rows,
+        finalize_cap=None, idx_bits=idx_bits, idx_mask=idx_mask,
+    )
+    if use_stage1:
+        # no query has a stage-1 survivor: the all-zero result
+        out = torch.where(surv == 0, torch.zeros_like(out), out)
+    return out
+
+
 def fused_match_sorted_batch(
     bits8,  # per bucket PackedBucket.device_presence_bits()
     stacked_patterns,  # one (orig (Q,n), flip (Q,n), sc (Q,9)) per pattern
@@ -165,34 +290,36 @@ def fused_match_sorted_batch(
     n: int,  # corpus rows (sets the key's index width)
     pattern_statics: Tuple,  # (typos, no_prefilter, negated, scoring, mode, nbl)
     fetch_rows: int,
-    buckets_T,  # per bucket device_arrays_colstream()
+    buckets,  # the corpus's PackedBuckets, each at most 1024 wide
     finalize_cap=None,  # host-chosen (cap_blocks, n_sel), or None
 ):
-    """Serve Q shape-uniform single-pattern fuzzy queries against one
-    resident corpus: (Q, 1 + fetch_rows, 2) int32 on the corpus device.
+    """Serve Q shape-uniform single-pattern queries against one resident
+    corpus: (Q, 1 + fetch_rows, 2) int32 on the corpus device.
 
-    The slice serves the in-place flow only: every bucket is at most
-    1024 wide and the needle fits the column-stream kernel. Other
-    routes raise NotImplementedError naming the slice that ports them."""
+    :func:`uses_colstream` picks the flow: the colstream flow reads each
+    bucket's ``device_arrays_colstream()`` (and takes ``finalize_cap``),
+    the row-major flow its ``device_arrays_ascii()``. Queries outside
+    :func:`unserved_reason` raise NotImplementedError naming the slice
+    that ports them."""
     if len(pattern_statics) != 1 or pattern_statics[0][2]:
         raise NotImplementedError(
             "multi-pattern and negated queries come with the "
             "multi-pattern serving slice"
         )
-    typos, no_prefilter, _neg, scoring, mode, _nbl = pattern_statics[0]
-    if mode != FUZZY_MODE:
-        raise NotImplementedError(
-            "literal modes come with the literal serving slice"
-        )
+    st = pattern_statics[0]
+    typos, no_prefilter, _neg, scoring, mode, nbl = st
+    literal = mode != FUZZY_MODE
+    if literal and mode not in LITERAL_MODES:
+        raise ValueError(f"unknown match mode {mode!r}")
     orig_q, flip_q, _sc = stacked_patterns[0]
     Q, nlen = orig_q.shape
-    T = min(int(typos), nlen)
-    if not colstream_supported(nlen, T, no_prefilter):
-        raise NotImplementedError(
-            f"needle of {nlen} units with typo budget {T} needs the "
-            "row-major route (kernel #4), a later slice"
-        )
-    use_stage1 = (not no_prefilter) and nlen > T
+    reason = unserved_reason(st, nlen)
+    if reason is not None:
+        raise NotImplementedError(reason)
+    # literal matching ignores the typo budget: its stage-1 presence
+    # reject runs at T=0, sound a fortiori for contiguous runs
+    T = 0 if literal else min(int(typos), nlen)
+    use_stage1 = nlen > 0 if literal else (not no_prefilter and nlen > T)
     idx_bits = max((n - 1).bit_length(), 1)
     idx_mask = (1 << idx_bits) - 1
     needles_q = torch.cat([orig_q, flip_q], dim=1).to(torch.int32)
@@ -201,10 +328,14 @@ def fused_match_sorted_batch(
     if not bits8:
         return torch.zeros((Q, 1 + fetch_rows, 2), dtype=torch.int32,
                            device=dev)
-
-    total = sum(bt[2].shape[0] for bt in buckets_T)
-    # int64 keys count as two words against the batched-sort budget
-    sort_in_body = Q * total * 2 > SORT_BODY_BUDGET
+    if not uses_colstream(st, nlen):
+        return _row_major_flow(
+            bits8, [b.device_arrays_ascii() for b in buckets], needles_q,
+            T=T, no_prefilter=no_prefilter, scoring=scoring,
+            use_stage1=use_stage1, fetch_rows=fetch_rows,
+            idx_bits=idx_bits, idx_mask=idx_mask,
+        )
+    buckets_T = [b.device_arrays_colstream() for b in buckets]
 
     flags_T = None
     empty = None
@@ -234,20 +365,13 @@ def fused_match_sorted_batch(
             cpT, nuT, pack_needle_scalars(needles_q, bits.shape[0]),
             flags_T[bi] if flags_T is not None else None, idxT,
             W=W, n=nlen, max_typos=T, scoring=scoring,
-            no_prefilter=no_prefilter, idx_bits=idx_bits,
+            no_prefilter=no_prefilter, idx_bits=idx_bits, mode=mode,
+            needle_byte_len=nbl,
         ))
-    keys = torch.cat(keys, dim=1)
-    counts = (keys != INT64_MAX).sum(dim=1, dtype=torch.int32)
-    if sort_in_body:
-        keys = torch.stack([
-            torch.sort(keys[q]).values[:fetch_rows] for q in range(Q)
-        ])
-    out = _finalize(
-        keys, counts, presorted=sort_in_body,
-        flags_cat=(
-            torch.cat(flags_T, dim=1)
-            if flags_T is not None and not sort_in_body else None
-        ),
+    out = _serve_keys(
+        torch.cat(keys, dim=1),
+        flags_cat=(torch.cat(flags_T, dim=1) if flags_T is not None
+                   else None),
         Q=Q, fetch_rows=fetch_rows, finalize_cap=finalize_cap,
         idx_bits=idx_bits, idx_mask=idx_mask,
     )

@@ -1,6 +1,6 @@
-"""Column-stream fused prefilter + Smith-Waterman (ASCII fuzzy mode) and
-the whole-row gather, each as a CUDA kernel beside its plain PyTorch
-version.
+"""Column-stream fused prefilter + Smith-Waterman (ASCII fuzzy mode), the
+column-stream literal match (exact, prefix, suffix, substring) and the
+whole-row gather, each as a CUDA kernel beside its plain PyTorch version.
 
 Counterpart of ``frizbee_tpu/ops/colstream.py``. Rows come in 1024-row
 groups laid out unit-major (``corpus.PackedBucket.device_arrays_colstream``):
@@ -10,20 +10,23 @@ loop-carried value.
 
 The wrappers dispatch on the tensor's device: a CPU tensor runs the plain
 version, a CUDA tensor launches the kernel (``csrc/colstream_fuzzy.cu``,
-``csrc/row_gather.cu``) or raises. ``LAUNCHES`` counts kernel launches,
-so a run can show that its path went through the kernels.
+``csrc/colstream_literal.cu``, ``csrc/row_gather.cu``) or raises.
+``ops/_build.LAUNCHES`` (one dict for every kernel of the package)
+counts kernel launches, so a run can show that its path went through the
+kernels.
 
 Semantics contract (pinned against frizbee_tpu in
-tests/test_torch_colstream.py): positional prefilter with typo budget
-(greedy embedding at T=0, minimal-position DP for T=1..3, none when
-``no_prefilter`` or the budget covers the needle), start-1 window trim,
-affine-gap Smith-Waterman with the full bonus schedule, exact-match
-bonus with u16 saturation, and the greedy flag.
+tests/test_torch_colstream.py and tests/test_torch_literal.py): fuzzy
+mode is the positional prefilter with typo budget (greedy embedding at
+T=0, minimal-position DP for T=1..3, none when ``no_prefilter`` or the
+budget covers the needle), start-1 window trim, affine-gap
+Smith-Waterman with the full bonus schedule, exact-match bonus with u16
+saturation, and the greedy flag; literal mode is the best contiguous run
+of the needle (earliest on ties) scored with the same bonus schedule.
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import Tuple
 
 import torch
@@ -31,20 +34,24 @@ import torch
 from ..config import MAX_HAYSTACK_LEN
 from ..corpus import GROUP_ROWS
 from . import _build
-from .kernels import MAX_KERNEL_NEEDLE
+from ._build import ptr, stream
+from .kernels import (
+    INT64_MAX,
+    MAX_KERNEL_NEEDLE,
+    is_delim,
+    is_lower,
+    is_upper,
+    pack_keys,
+    prefilter_mode,
+)
+from .literal import EXACT, LITERAL_MODES, PREFIX, SUBSTRING, SUFFIX
 
 # Per-needle-unit DP state lives in registers, so long needles and large
 # typo budgets take the row-major route instead
 MAX_COLSTREAM_NEEDLE = 16
 MAX_COLSTREAM_TYPOS = 3
 
-INT64_MAX = (1 << 63) - 1
-
-# Kernel launches per kernel (not counting plain-version calls)
-LAUNCHES = {"colstream_fuzzy": 0, "row_gather": 0}
-
-# Prefilter modes of the CUDA kernel
-_PF_NONE, _PF_GREEDY, _PF_DP = 0, 1, 2
+FUZZY_MODE = "fuzzy"
 
 
 def colstream_supported(n: int, max_typos, no_prefilter: bool) -> bool:
@@ -56,26 +63,11 @@ def colstream_supported(n: int, max_typos, no_prefilter: bool) -> bool:
     return int(max_typos) <= MAX_COLSTREAM_TYPOS
 
 
-def _stream(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
-
-
-def _ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(0 if t is None else t.data_ptr())
-
-
-def _is_upper(b):
-    return (b >= 0x41) & (b <= 0x5A)
-
-
-def _is_lower(b):
-    return (b >= 0x61) & (b <= 0x7A)
-
-
-def _is_delim(b):
-    letter = _is_upper(b) | _is_lower(b)
-    digit = (b >= 0x30) & (b <= 0x39)
-    return (b >= 0) & (b <= 127) & ~letter & ~digit
+def colstream_literal_supported(n: int) -> bool:
+    """Literal (exact/prefix/suffix/substring) support: the bitap
+    prefix-alive mask and the per-prefix score sums stay in registers,
+    the same budget as the fuzzy DP states."""
+    return 1 <= n <= MAX_COLSTREAM_NEEDLE
 
 
 def _alive_rows(scalars, flags, nG):
@@ -85,21 +77,6 @@ def _alive_rows(scalars, flags, nG):
     if flags is not None:
         alive = alive & (flags > 0)
     return alive.repeat_interleave(GROUP_ROWS, dim=1)
-
-
-def pack_keys(matched, score, exact, end_col, greedy, idx, idx_bits):
-    """63-bit sort keys [0xFFFF-score | idx | exact, greedy, end_col];
-    unmatched or padding rows carry INT64_MAX."""
-    ok = (matched > 0) & (idx >= 0)
-    meta16 = (
-        (exact.to(torch.int64) << 15) | (greedy.to(torch.int64) << 14)
-        | torch.clamp(end_col, max=0x3FFF).to(torch.int64)
-    )
-    key = (
-        ((0xFFFF - score).to(torch.int64) << (16 + idx_bits))
-        | (idx.to(torch.int64) << 16) | meta16
-    )
-    return torch.where(ok, key, torch.full_like(key, INT64_MAX))
 
 
 def match_units_colstream_plain(
@@ -217,8 +194,8 @@ def match_units_colstream_plain(
         active = valid & (j >= wstart) & (j + 1 <= wend)
         is_first = active & (seen_first == 0)
         seen_first = seen_first | active.to(torch.int32)
-        cap_mask = _is_upper(first) & ((pctx & 1) > 0) & ~is_first
-        delim_mask = ((pctx & 2) > 0) & ~_is_delim(first) & ~is_first
+        cap_mask = is_upper(first) & ((pctx & 1) > 0) & ~is_first
+        delim_mask = ((pctx & 2) > 0) & ~is_delim(first) & ~is_first
         bonus = (
             torch.where(cap_mask, cap_b, 0)
             + torch.where(delim_mask, delim_b, 0)
@@ -226,8 +203,8 @@ def match_units_colstream_plain(
         )
         pctx = torch.where(
             valid,
-            _is_lower(first).to(torch.int32)
-            | (_is_delim(first).to(torch.int32) << 1),
+            is_lower(first).to(torch.int32)
+            | (is_delim(first).to(torch.int32) << 1),
             0,
         )
         diag_in, up_src, mm_prev = z, z, fz
@@ -287,13 +264,123 @@ def match_units_colstream_plain(
     return tuple(torch.where(alive, c, 0) for c in cols)
 
 
+def match_units_colstream_literal_plain(
+    cpT, nuT, scalars, flags=None, idxT=None, *, W: int, n: int, mode: str,
+    needle_byte_len: int, scoring: Tuple[int, ...], idx_bits: int = 0,
+):
+    """Plain PyTorch version of the literal colstream kernel, line for
+    line after ``frizbee_tpu.ops.colstream._literal_block`` (ASCII): one
+    walk over the unit columns carrying a bitap prefix-alive mask ``D``
+    (bit k = a run of needle units 0..k ends at this column) and per-prefix
+    score sums ``S[k]``; a completed run scores n*match + its bonus/case
+    sum (+ the exact bonus when it covers the whole row, clamped to u16),
+    and a strict ``>`` keeps the earliest best run. EXACT and PREFIX runs
+    can only complete at column n-1, so those modes walk n columns.
+
+    Arguments and results as :func:`match_units_colstream_plain` (greedy
+    is always 0, end_col = run start + ``needle_byte_len`` - 1)."""
+    (match_score, _mm, _gop, _gex, prefix_b, cap_b, case_b, exact_b,
+     delim_b) = (int(s) for s in scoring)
+    nG = cpT.shape[0] // W
+    Q = scalars.shape[0]
+    hay_all = cpT.reshape(nG, W, GROUP_ROWS)
+    nu = nuT.reshape(-1)
+    shape = (Q, nu.shape[0])
+    dev = cpT.device
+    z = torch.zeros(shape, dtype=torch.int32, device=dev)
+    orig = scalars[:, 2:2 + n]
+    flip = scalars[:, 2 + MAX_KERNEL_NEEDLE:2 + MAX_KERNEL_NEEDLE + n]
+    jmaxu = min(int(nu.max()), W) if nu.numel() else 0
+    bound = min(jmaxu, n) if mode in (EXACT, PREFIX) else jmaxu
+    nu_row = nu[None, :]
+
+    D = z
+    S = [z] * n
+    best = torch.full(shape, -1, dtype=torch.int32, device=dev)
+    b_sb, b_p0, pctx = z, z, z
+    for j in range(bound):
+        hay = hay_all[:, j, :].reshape(1, -1).to(torch.int32) & 0xFF
+        valid = (nu > j)[None, :]
+        first = torch.where(valid, hay, 0)
+        # column 0 takes the prefix bonus; later columns the capitalization
+        # / delimiter context of the previous unit, carried in pctx
+        if j == 0:
+            bonus = torch.full(shape, prefix_b, dtype=torch.int32, device=dev)
+        else:
+            bonus = (
+                torch.where(is_upper(first) & ((pctx & 1) > 0), cap_b, 0)
+                + torch.where(((pctx & 2) > 0) & ~is_delim(first), delim_b,
+                              0)
+            )
+        pctx = torch.where(
+            valid,
+            is_lower(first).to(torch.int32)
+            | (is_delim(first).to(torch.int32) << 1),
+            0,
+        )
+        D_new = z
+        S_new = []
+        for k in range(n):
+            eq_o = valid & (hay == orig[:, k:k + 1])
+            occ = eq_o | (valid & (hay == flip[:, k:k + 1]))
+            s_k = bonus + torch.where(eq_o, case_b, 0)
+            if k == 0:
+                alive = occ
+            else:
+                alive = occ & (((D >> (k - 1)) & 1) > 0)
+                s_k = S[k - 1] + s_k
+            s_k = torch.where(alive, s_k, 0)
+            D_new = D_new | (alive.to(torch.int32) << k)
+            S_new.append(s_k)
+        done, s_done = alive, S_new[-1]
+        # completion: a run of n units ends at column j, so it starts at
+        # unit j-n+1 (at unit 0 iff j == n-1)
+        at_p0 = j == n - 1
+        cand = n * match_score + s_done
+        if at_p0:
+            cand = cand + torch.where(nu_row == n, exact_b, 0)
+        cand = torch.clamp(cand, max=0xFFFF)
+        if mode == EXACT:
+            sel = done & at_p0 & (nu_row == n)
+        elif mode == PREFIX:
+            sel = done & at_p0
+        elif mode == SUFFIX:
+            sel = done & (nu_row - 1 == j)
+        elif mode == SUBSTRING:
+            sel = done
+        else:
+            raise ValueError(f"unknown literal mode {mode!r}")
+        upd = sel & (cand > best)
+        best = torch.where(upd, cand, best)
+        b_sb = torch.where(upd, j - (n - 1), b_sb)
+        b_p0 = torch.where(upd, int(at_p0), b_p0)
+        D, S = D_new, S_new
+
+    nb = torch.clamp(nu_row, max=W)
+    matched = best >= 0
+    score = torch.where(matched, best, 0)
+    end_col = torch.where(
+        matched, torch.clamp(b_sb + needle_byte_len - 1, max=0xFFFF), 0
+    )
+    exact = matched & (b_p0 > 0) & (nb == needle_byte_len)
+    cols = (matched.to(torch.int32), score.to(torch.int32),
+            exact.to(torch.int32), end_col.to(torch.int32), z)
+    alive = _alive_rows(scalars, flags, nG)
+    if idxT is not None:
+        keys = pack_keys(*cols, idxT.reshape(1, -1), idx_bits)
+        return torch.where(alive, keys, torch.full_like(keys, INT64_MAX))
+    return tuple(torch.where(alive, c, 0) for c in cols)
+
+
 def match_units_colstream(
     cpT, nuT, scalars, flags=None, idxT=None, *, W: int, n: int,
     max_typos: int = 0, scoring: Tuple[int, ...], no_prefilter: bool = False,
-    idx_bits: int = 0,
+    idx_bits: int = 0, mode: str = FUZZY_MODE, needle_byte_len: int = 0,
 ):
-    """Fused ASCII fuzzy match over nG groups of 1024 rows for Q queries
-    in one launch (grid = groups x queries). Arguments and results as
+    """Fused ASCII match over nG groups of 1024 rows for Q queries in one
+    launch (grid = groups x queries): fuzzy mode (default) or a literal
+    ``mode`` (exact, prefix, suffix, substring; ``needle_byte_len`` sets
+    end_col, ``max_typos`` is ignored). Arguments and results as
     :func:`match_units_colstream_plain`.
 
     ``flags`` (Q, nG) carries the per-group stage-1 alive bits: a dead
@@ -301,56 +388,66 @@ def match_units_colstream(
     INT64_MAX keys) without running the DP. Key-emit mode (``idxT``
     given) writes the serving sort key directly: ascending order is
     (matched first, score desc, index asc)."""
-    kw = dict(W=W, n=n, max_typos=max_typos, scoring=scoring,
-              no_prefilter=no_prefilter, idx_bits=idx_bits)
+    literal = mode != FUZZY_MODE
+    if literal and mode not in LITERAL_MODES:
+        raise ValueError(f"unknown match mode {mode!r}")
     if cpT.device.type == "cpu":
-        return match_units_colstream_plain(cpT, nuT, scalars, flags, idxT,
-                                           **kw)
+        if literal:
+            return match_units_colstream_literal_plain(
+                cpT, nuT, scalars, flags, idxT, W=W, n=n, mode=mode,
+                needle_byte_len=needle_byte_len, scoring=scoring,
+                idx_bits=idx_bits,
+            )
+        return match_units_colstream_plain(
+            cpT, nuT, scalars, flags, idxT, W=W, n=n, max_typos=max_typos,
+            scoring=scoring, no_prefilter=no_prefilter, idx_bits=idx_bits,
+        )
     if cpT.device.type != "cuda":
         raise ValueError(f"unsupported device {cpT.device}")
     T = min(int(max_typos), n)
-    if not colstream_supported(n, T, no_prefilter):
+    if literal:
+        if not colstream_literal_supported(n):
+            raise ValueError(f"literal needle length {n} out of range")
+    elif not colstream_supported(n, T, no_prefilter):
         raise ValueError(f"needle length {n} / typo budget {T} out of range")
     nG = cpT.shape[0] // W
     Q = scalars.shape[0]
     total = nG * GROUP_ROWS
-    for name, t, dt, shp in (
+    _build.check_operands(cpT.device, (
         ("cpT", cpT, torch.int8, (nG * W, 8, 128)),
         ("nuT", nuT, torch.int32, (nG * 8, 128)),
         ("scalars", scalars, torch.int32, (Q, 2 + 2 * MAX_KERNEL_NEEDLE)),
         ("flags", flags, torch.int32, (Q, nG)),
         ("idxT", idxT, torch.int32, (total,)),
-    ):
-        if t is None:
-            continue
-        if (t.device != cpT.device or t.dtype != dt
-                or tuple(t.shape) != shp or not t.is_contiguous()):
-            raise ValueError(
-                f"{name}: want contiguous {dt} {shp} on {cpT.device}, got "
-                f"{t.dtype} {tuple(t.shape)} on {t.device}"
-            )
-    if no_prefilter or n <= T:
-        pf_mode = _PF_NONE
-    elif T == 0:
-        pf_mode = _PF_GREEDY
-    else:
-        pf_mode = _PF_DP
+    ))
     keys = cols = None
     if idxT is not None:
         keys = torch.empty((Q, total), dtype=torch.int64, device=cpT.device)
     else:
         cols = torch.empty((5, Q, total), dtype=torch.int32,
                            device=cpT.device)
-    sc = (ctypes.c_int * 9)(*(int(s) for s in scoring))
-    with torch.cuda.device(cpT.device):
-        rc = _build.entry("colstream_fuzzy")(
-            _ptr(cpT), _ptr(nuT), _ptr(scalars), _ptr(flags), _ptr(idxT),
-            Q, nG, W, n, T, pf_mode, ctypes.cast(sc, ctypes.c_void_p),
-            idx_bits, _ptr(keys), _ptr(cols), _stream(cpT),
+    _sc, sc_ptr = _build.scoring_arg(scoring)
+    call_args = (cpT, nuT, scalars, flags, idxT)
+    if literal:
+        _build.launch(
+            "colstream_literal", cpT.device,
+            ptr(cpT), ptr(nuT), ptr(scalars), ptr(flags), ptr(idxT),
+            Q, nG, W, n, LITERAL_MODES.index(mode), needle_byte_len, sc_ptr,
+            idx_bits, ptr(keys), ptr(cols), stream(cpT),
+            call=(call_args, dict(W=W, n=n, mode=mode,
+                                  needle_byte_len=needle_byte_len,
+                                  scoring=scoring, idx_bits=idx_bits)),
         )
-    if rc != 0:
-        raise RuntimeError(f"colstream_fuzzy launch failed: CUDA error {rc}")
-    LAUNCHES["colstream_fuzzy"] += 1
+    else:
+        _build.launch(
+            "colstream_fuzzy", cpT.device,
+            ptr(cpT), ptr(nuT), ptr(scalars), ptr(flags), ptr(idxT),
+            Q, nG, W, n, T, prefilter_mode(n, T, no_prefilter), sc_ptr,
+            idx_bits, ptr(keys), ptr(cols), stream(cpT),
+            call=(call_args, dict(W=W, n=n, max_typos=max_typos,
+                                  scoring=scoring, no_prefilter=no_prefilter,
+                                  idx_bits=idx_bits)),
+        )
     return keys if keys is not None else tuple(cols)
 
 
@@ -386,11 +483,6 @@ def row_gather(data: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     C = data.shape[1]
     M = rows.shape[0]
     out = torch.empty((M, C), dtype=data.dtype, device=data.device)
-    with torch.cuda.device(data.device):
-        rc = _build.entry("row_gather")(
-            _ptr(data), _ptr(rows), _ptr(out), C, M, _stream(data),
-        )
-    if rc != 0:
-        raise RuntimeError(f"row_gather launch failed: CUDA error {rc}")
-    LAUNCHES["row_gather"] += 1
+    _build.launch("row_gather", data.device, ptr(data), ptr(rows), ptr(out),
+                  C, M, stream(data), call=((data, rows), {}))
     return out

@@ -1,14 +1,45 @@
-"""Needle scalar packing shared by the match kernels (the subset of
-``frizbee_tpu/ops/kernels.py`` the column-stream path reads)."""
+"""The row-major fused prefilter + Smith-Waterman kernel (``match_units``,
+CUDA kernel ``csrc/match_units.cu`` beside its plain PyTorch version),
+the needle scalar layout and the serving sort key shared by every match
+kernel.
+
+Counterpart of ``frizbee_tpu/ops/kernels.py``. The row-major route serves
+what the column-stream kernels cannot hold in registers: fuzzy needles of
+17-64 units and typo budgets of 4-8. Rows stay in the bucket's (B, W)
+row-major layout, so the serving flow can hand the kernel a per-query
+survivor order and a live count instead of gathering rows: rows past the
+count are never read. The reference's narrow-bucket segment packing and
+int16 lanes exist only for the TPU's 128-lane vectors and are not ported;
+the results are the same per row (pinned in tests/test_torch_rowmajor.py).
+"""
 
 from __future__ import annotations
 
 import torch
 
+from ..config import MAX_HAYSTACK_LEN
+from . import _build
+
 # Longest needle the scalar layout holds (the orig/flip pad size)
 MAX_KERNEL_NEEDLE = 64
+# Largest typo budget the row-major kernel's DP states cover
+MAX_KERNEL_TYPOS = 8
 
 DEFAULT_SCORING = (12, 6, 5, 1, 12, 4, 4, 8, 4)
+
+INT64_MAX = (1 << 63) - 1
+
+# Prefilter modes of the CUDA kernels
+PF_NONE, PF_GREEDY, PF_DP = 0, 1, 2
+
+
+def prefilter_mode(n: int, T: int, no_prefilter: bool) -> int:
+    """The positional prefilter a (needle length, clamped budget) runs:
+    none (no prefilter, or the budget covers the needle), the greedy
+    embedding at T=0, else the minimal-position DP."""
+    if no_prefilter or n <= T:
+        return PF_NONE
+    return PF_GREEDY if T == 0 else PF_DP
 
 
 def pack_needle_scalars(needle_packed: torch.Tensor, count) -> torch.Tensor:
@@ -30,3 +61,274 @@ def pack_needle_scalars(needle_packed: torch.Tensor, count) -> torch.Tensor:
         needle_packed[..., n:].to(torch.int32)
     )
     return out
+
+
+def pack_keys(matched, score, exact, end_col, greedy, idx, idx_bits):
+    """63-bit sort keys [0xFFFF-score | idx | exact, greedy, end_col];
+    unmatched or padding rows carry INT64_MAX."""
+    ok = (matched > 0) & (idx >= 0)
+    meta16 = (
+        (exact.to(torch.int64) << 15) | (greedy.to(torch.int64) << 14)
+        | torch.clamp(end_col, max=0x3FFF).to(torch.int64)
+    )
+    key = (
+        ((0xFFFF - score).to(torch.int64) << (16 + idx_bits))
+        | (idx.to(torch.int64) << 16) | meta16
+    )
+    return torch.where(ok, key, torch.full_like(key, INT64_MAX))
+
+
+def is_upper(b):
+    return (b >= 0x41) & (b <= 0x5A)
+
+
+def is_lower(b):
+    return (b >= 0x61) & (b <= 0x7A)
+
+
+def is_delim(b):
+    letter = is_upper(b) | is_lower(b)
+    digit = (b >= 0x30) & (b <= 0x39)
+    return (b >= 0) & (b <= 127) & ~letter & ~digit
+
+
+def _shift_right(x, fill):
+    """Lanes one to the right (toward higher index), lane 0 = ``fill``."""
+    pad = torch.full_like(x[:, :1], fill)
+    return torch.cat([pad, x[:, :-1]], dim=1)
+
+
+def _match_rows_plain(hay8, nu, orig, flip, *, n, T, scoring, no_prefilter):
+    """Row-major fused match of R rows (R, W) int8 with unit counts nu
+    (R,) against one needle (``orig``/``flip`` lists of n ints), line for
+    line after ``frizbee_tpu.ops.kernels._match_tile`` with one row per
+    vector (lanes = unit columns): the minimal-position prefilter over
+    needle units, lane min/max reductions for the window, and the
+    left-to-right gap recurrence as an exact max-plus prefix scan
+    (``cummax(c + q) - q``). Returns (matched, score, exact, end_col,
+    greedy) int32, each (R,). As in the reference, rows the prefilter
+    rejects still carry the full-row DP's score, exact and end_col."""
+    (match_score, mismatch, gap_open, gap_ext, prefix_b, cap_b, case_b,
+     exact_b, delim_b) = (int(s) for s in scoring)
+    gop_extra = max(gap_open - gap_ext, 0)
+    R, W = hay8.shape
+    S = W
+    BIG = S + 1
+    i32 = torch.int32
+    dev = hay8.device
+    hay = hay8.to(i32) & 0xFF
+    col = torch.arange(W, dtype=i32, device=dev)[None, :]
+    valid = col < torch.clamp(nu, max=BIG)[:, None]
+    n_bytes = valid.sum(dim=1, dtype=i32)
+    boff = torch.where(valid, col, 0)
+    blen = valid.to(i32)
+    zero = torch.zeros(R, dtype=i32, device=dev)
+
+    def lane_min(x):
+        return x.amin(dim=1)
+
+    def lane_max(x):
+        return x.amax(dim=1)
+
+    def gather(x, idx):
+        return x.gather(1, idx[:, None].to(torch.int64))[:, 0]
+
+    def occ_of(k):
+        return valid & ((hay == orig[k]) | (hay == flip[k]))
+
+    # ---- positional prefilter: f[t] = position after needle units 0..k
+    # with <= t of them deleted (BIG = no embedding)
+    if no_prefilter:
+        matched = torch.ones(R, dtype=torch.bool, device=dev)
+        wstart_raw, wend = zero, n_bytes
+    else:
+        f = [zero] * (T + 1)
+        fos = torch.full((R,), BIG, dtype=i32, device=dev)
+        start0 = zero
+        tail = torch.zeros((R, W), dtype=torch.bool, device=dev)
+        for k in range(n):
+            occ = occ_of(k)
+            if k <= T:
+                fos = torch.minimum(fos, lane_min(torch.where(occ, col, BIG)))
+            nf = []
+            for t in range(T + 1):
+                nxt_occ = lane_min(
+                    torch.where(occ & (col >= f[t][:, None]), col, BIG)
+                )
+                nxt = torch.where(
+                    f[t] <= S, torch.clamp(nxt_occ + 1, max=BIG), BIG
+                )
+                if t > 0:
+                    nxt = torch.minimum(nxt, f[t - 1])
+                nf.append(nxt)
+            if k == 0:
+                start0 = torch.clamp(nf[0] - 1, max=S)
+            if k >= n - 1 - T:
+                tail = tail | occ
+            f = nf
+        matched = f[T] <= S
+        if T == 0:
+            last_pos = f[0] - 1
+            e = lane_max(torch.where(tail & (col >= last_pos[:, None]), col,
+                                     -1))
+            wstart_raw = gather(boff, torch.clamp(start0, 0, S - 1))
+        else:
+            e = lane_max(torch.where(tail, col, -1))
+            wstart_raw = torch.where(
+                fos <= S, gather(boff, torch.clamp(fos, 0, S - 1)), 0
+            )
+        e_c = torch.clamp(e, 0, S - 1)
+        wend = torch.where(e >= 0, gather(boff, e_c) + gather(blen, e_c),
+                           n_bytes)
+        wstart_raw = torch.where(matched, wstart_raw, 0)
+        wend = torch.where(matched, wend, n_bytes)
+        if n <= T:
+            # a needle no longer than the typo budget matches everything
+            matched = torch.ones(R, dtype=torch.bool, device=dev)
+            wstart_raw, wend = zero, n_bytes
+
+    # ---- windowed affine-gap Smith-Waterman, start-1 trim
+    wstart = torch.clamp(wstart_raw - 1, min=0)
+    include_exact = (wstart == 0) & (wend == n_bytes)
+    active = valid & (boff >= wstart[:, None]) & (boff + blen <= wend[:, None])
+    first_unit = lane_min(torch.where(active, col, BIG))
+    is_first = active & (col == first_unit[:, None])
+    prev_b = torch.where(valid, _shift_right(hay, -1), -1)
+    cap_mask = is_upper(hay) & is_lower(prev_b) & ~is_first
+    delim_mask = is_delim(prev_b) & ~is_delim(hay) & ~is_first
+    bonus = (
+        torch.where(cap_mask, cap_b, 0)
+        + torch.where(delim_mask, delim_b, 0)
+        + torch.where(is_first & (wstart == 0)[:, None], prefix_b, 0)
+    )
+    prev_row = torch.zeros((R, W), dtype=i32, device=dev)
+    prev_mm = torch.zeros((R, W), dtype=torch.bool, device=dev)
+    neq = torch.zeros(R, dtype=torch.bool, device=dev)
+    for k in range(n):
+        match = active & ((hay == orig[k]) | (hay == flip[k]))
+        exactc = active & (hay == orig[k])
+        diag_base = _shift_right(prev_row, 0)
+        diag = torch.where(
+            match,
+            diag_base + match_score + bonus + torch.where(exactc, case_b, 0),
+            torch.clamp(diag_base - mismatch, min=0),
+        )
+        up = torch.clamp(
+            prev_row - gap_ext - torch.where(prev_mm, gop_extra, 0), min=0
+        )
+        c = torch.maximum(diag, up)
+        p = gap_ext + torch.where(match, gop_extra, 0)
+        q = _shift_right(torch.cumsum(p, dim=1, dtype=i32), 0)
+        prev_row = torch.cummax(c + q, dim=1).values - q
+        # exact: haystack unit k against needle unit k, case-sensitive
+        hk = hay[:, k] if k < W else zero
+        neq = neq | (hk != orig[k])
+        prev_mm = match
+    prev_row = torch.where(active, prev_row, 0)
+    score = torch.clamp(lane_max(prev_row), min=0)
+    end_unit = lane_min(torch.where(prev_row == score[:, None], col, BIG))
+    end_b = gather(boff, torch.clamp(end_unit, max=S - 1))
+    end_col = torch.where(score > 0, end_b, wstart)
+    exact = include_exact & (nu == n) & ~neq
+    score = torch.where(exact, torch.clamp(score + exact_b, max=0xFFFF),
+                        score)
+    greedy = matched & ((wend - wstart) > MAX_HAYSTACK_LEN)
+    return (matched.to(i32), score.to(i32), exact.to(i32), end_col.to(i32),
+            greedy.to(i32))
+
+
+def match_units_plain(
+    cp, n_units, scalars, rows=None, idx=None, *, n: int, max_typos: int = 0,
+    scoring, no_prefilter: bool = False, idx_bits: int = 0,
+):
+    """Plain PyTorch version of :func:`match_units`: a loop over queries,
+    each running :func:`_match_rows_plain` on its live rows."""
+    B, _W = cp.shape
+    Q = scalars.shape[0]
+    nu = n_units.reshape(-1)
+    T = min(int(max_typos), n)
+    dev = cp.device
+    if idx is None:
+        out = torch.zeros((Q, B, 8), dtype=torch.int32, device=dev)
+    else:
+        out = torch.full((Q, B), INT64_MAX, dtype=torch.int64, device=dev)
+    sc = scalars.cpu()
+    for q in range(Q):
+        count = max(0, min(int(sc[q, 0]), B))
+        if count == 0:
+            continue
+        if rows is None:
+            sel = torch.arange(count, device=dev)
+        else:
+            sel = rows[q, :count].to(torch.int64)
+        orig = sc[q, 2:2 + n].tolist()
+        flip = sc[q, 2 + MAX_KERNEL_NEEDLE:2 + MAX_KERNEL_NEEDLE + n].tolist()
+        cols = _match_rows_plain(
+            cp[sel], nu[sel], orig, flip, n=n, T=T, scoring=scoring,
+            no_prefilter=no_prefilter,
+        )
+        if idx is None:
+            out[q, :count, :5] = torch.stack(cols, dim=1)
+        else:
+            out[q, :count] = pack_keys(*cols, idx[sel], idx_bits)
+    return out
+
+
+def match_units(
+    cp, n_units, scalars, rows=None, idx=None, *, n: int, max_typos: int = 0,
+    scoring, no_prefilter: bool = False, idx_bits: int = 0,
+):
+    """Row-major fused prefilter + Smith-Waterman for Q queries over one
+    bucket in one launch (grid = row blocks x queries).
+
+    cp (B, W) int8 bytes, n_units (B,) int32, scalars (Q, 130) int32
+    (:func:`pack_needle_scalars`; [q, 0] is query q's live count).
+    ``rows`` (Q, B) int32, when given, is each query's row order: logical
+    row i of query q is bucket row ``rows[q, i]`` (the serving flow puts
+    stage-1 survivors first); without it logical row i is row i. Only
+    logical rows below the live count are matched; the rest are zero.
+
+    Returns (Q, B, 8) int32 columns per logical row — matched, score,
+    exact, end_col, greedy, 0, 0, 0 (``frizbee_tpu``'s ``match_units``
+    layout) — or, when ``idx`` (B,) int32 corpus indices is given, (Q, B)
+    int64 serving keys (:func:`pack_keys`; INT64_MAX past the count)."""
+    if cp.device.type == "cpu":
+        return match_units_plain(
+            cp, n_units, scalars, rows, idx, n=n, max_typos=max_typos,
+            scoring=scoring, no_prefilter=no_prefilter, idx_bits=idx_bits,
+        )
+    if cp.device.type != "cuda":
+        raise ValueError(f"unsupported device {cp.device}")
+    T = min(int(max_typos), n)
+    if not 1 <= n <= MAX_KERNEL_NEEDLE or T > MAX_KERNEL_TYPOS:
+        raise ValueError(f"needle length {n} / typo budget {T} out of range")
+    B, W = cp.shape
+    Q = scalars.shape[0]
+    if W % 4 or W > MAX_HAYSTACK_LEN or cp.data_ptr() % 4:
+        raise ValueError(f"row-major kernel wants a 4-byte aligned width "
+                         f"<= {MAX_HAYSTACK_LEN}, got {W}")
+    n_units = n_units.reshape(-1)
+    _build.check_operands(cp.device, (
+        ("cp", cp, torch.int8, (B, W)),
+        ("n_units", n_units, torch.int32, (B,)),
+        ("scalars", scalars, torch.int32, (Q, 2 + 2 * MAX_KERNEL_NEEDLE)),
+        ("rows", rows, torch.int32, (Q, B)),
+        ("idx", idx, torch.int32, (B,)),
+    ))
+    keys = cols = None
+    if idx is not None:
+        keys = torch.empty((Q, B), dtype=torch.int64, device=cp.device)
+    else:
+        cols = torch.empty((Q, B, 8), dtype=torch.int32, device=cp.device)
+    _sc, sc_ptr = _build.scoring_arg(scoring)
+    _build.launch(
+        "match_units", cp.device,
+        _build.ptr(cp), _build.ptr(n_units), _build.ptr(scalars),
+        _build.ptr(rows), _build.ptr(idx), Q, B, W, n, T,
+        prefilter_mode(n, T, no_prefilter), sc_ptr, idx_bits,
+        _build.ptr(keys), _build.ptr(cols), _build.stream(cp),
+        call=((cp, n_units, scalars, rows, idx),
+              dict(n=n, max_typos=max_typos, scoring=scoring,
+                   no_prefilter=no_prefilter, idx_bits=idx_bits)),
+    )
+    return keys if keys is not None else cols

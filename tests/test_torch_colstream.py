@@ -15,6 +15,7 @@ import jax.numpy as jnp
 
 from frizbee_tpu.ops import colstream as jcs
 from frizbee_tpu.ops.kernels import pack_needle_scalars as j_pack_scalars
+from frizbee_tpu_torch.ops import _build
 from frizbee_tpu_torch.ops import colstream as tcs
 from frizbee_tpu_torch.ops.kernels import (
     DEFAULT_SCORING,
@@ -221,7 +222,7 @@ def test_row_gather_plain_equals_reference(C, M):
             np.asarray(jcs.block_gather(jnp.asarray(data),
                                         jnp.asarray(rows), interpret=True)),
         )
-    assert tcs.LAUNCHES["row_gather"] == 0  # the CPU never launches
+    assert _build.LAUNCHES["row_gather"] == 0  # the CPU never launches
 
 
 def test_wrappers_refuse_other_devices():

@@ -104,13 +104,14 @@ def test_async_equals_blocking():
 
 
 @pytest.mark.parametrize("query,cfg,match", [
-    ("^dead", {}, "literal"),
-    ("dead", {"matching": Matching.SUBSTRING}, "literal"),
+    ("^deadbeefdeadbeefa", {}, "literal"),
+    ("deadbeefdeadbeefa", {"matching": Matching.SUBSTRING}, "literal"),
     ("dead beef", {}, "multi-pattern"),
     ("!dead", {}, "multi-pattern"),
     ("dé", {}, "unicode"),
-    ("deadbeefdeadbeef1", {}, "row-major"),
-    ("deadbeefdeadbeef", {"max_typos": 4}, "row-major"),
+    ("deadbeef" * 8 + "a", {}, "generic pipelines"),
+    ("deadbeefdeadbeef", {"max_typos": 9}, "generic pipelines"),
+    ("^deadbeefd", {"max_typos": 9}, "generic pipelines"),
     ("dead", {"sort": SortStrategy.INDEX_ASC}, "index sort"),
     ("", {}, "empty"),
 ])
@@ -126,10 +127,10 @@ def test_unserved_corpora_raise():
     with pytest.raises(NotImplementedError, match="custom bucket"):
         match_topk_batch(["dead"], pack_corpus(
             ["dead", "deadbeef"] * 10, bucket_widths=(48,), device="cpu"))
-    # a typo budget beyond 3 is served when the needle clamps it to 3
-    Matcher.from_query("dea", Config(max_typos=9))
-    with pytest.raises(NotImplementedError, match="row-major"):
-        Matcher.from_query("dead", Config(max_typos=9))
+    # a typo budget beyond 8 is served when the needle clamps it to 8
+    Matcher.from_query("deadbeef", Config(max_typos=9))
+    with pytest.raises(NotImplementedError, match="generic pipelines"):
+        Matcher.from_query("deadbeefd", Config(max_typos=9))
 
 
 def _port_files():
@@ -146,6 +147,10 @@ def test_port_imports_no_jax_and_no_reference():
     chip_smoke.py, imports jax or frizbee_tpu."""
     files = list(_port_files())
     assert len(files) > 10
+    scanned = {os.path.relpath(p, ROOT) for p in files}
+    for rel in ("ops/literal.py", "ops/kernels.py", "ops/batch.py",
+                "engine.py", "corpus.py"):
+        assert os.path.join("frizbee_tpu_torch", rel) in scanned
     for path in files:
         with open(path) as fh:
             tree = ast.parse(fh.read(), path)
