@@ -14,7 +14,11 @@ Builds the package's CUDA kernels from ``frizbee_tpu_torch/csrc`` (one
    every bucket at (n=8, T=4), (n=24, T=0) and (n=24, no prefilter), all
    rows in five-column mode and a live count below B through a random
    row order in key-emit mode; the row gather at the capped finalize and
-   broad tournament shapes;
+   broad tournament shapes; and the unicode variant of each match kernel
+   on every bucket of a 1M-row Arabic codepoint corpus at Q=16 (the
+   colstream kernels with the ctx plane, the plain versions on a subset
+   of groups; the row-major kernel at (n=8, T=4) through a row order and
+   at (n=20, T=0)), and on a w512 block whose windows exceed 1024 bytes;
 2. serving phase, four batches of Q=32 through ``match_topk_batch``
    (warm-up, blocking loop) and a depth-3 ``match_topk_batch_async``
    pipeline, each with every launch and route counter set to 0 just
@@ -24,18 +28,23 @@ Builds the package's CUDA kernels from ``frizbee_tpu_torch/csrc`` (one
    $, ' and ^...$ (colstream literal), bench.py's queries at max_typos=4
    (row-major), and 24-byte needles over a second 1M-row partial-match
    corpus of that needle (row-major); each finalizes through the row
-   gather;
+   gather; then three unicode batches of Q=16 over the 1M-row Arabic
+   corpus, recording their finalize routes: the 16 two-letter variants
+   of "إن" (colstream fuzzy), the same under ', ^, $ and ^...$ (colstream
+   literal), and 16 eight-codepoint needles at max_typos=4 (row-major);
 3. timing phase: the launches of one more batch of each path, captured
    (``_build.CAPTURE``) and replayed per kernel — held bit-equal to its
    plain version on the same arguments, then timed (CUDA events, warmed
    up) beside the bound this run's data needs, its plain version and, for
    the row gather, ``torch.index_select``;
-4. profile phase: torch.profiler over blocking fuzzy batches (wall time,
-   device busy time, top kernels and host operations) and cProfile over
-   one batch;
+4. profile phase: torch.profiler over blocking fuzzy batches, ASCII and
+   unicode (wall time, device busy time, top kernels and host
+   operations) and cProfile over one ASCII batch;
 5. card-versus-CPU phase: at 20k rows, Q=8, the (Q, 1+k, 2) serving
    arrays and the decoded top-k on the card equal the CPU's for fuzzy
-   T=0 and T=1, literal, T=4 and long-needle batches.
+   T=0 and T=1, literal, T=4 and long-needle batches, for Arabic and
+   Korean codepoint corpora (fuzzy T=0, T=1, literal, T=4), and for ASCII
+   needles under UnicodeMatching.ALWAYS over a mixed-script corpus.
 
 Prints the card's name and power limit first, one JSON ``kernels`` line
 before the last, and ``{"ok": true, "device": {...}}`` last. Exits
@@ -79,6 +88,9 @@ SW_OPS_PER_CELL = 14
 # context, completion score, mode test, best update)
 LIT_OPS_PER_CELL = 8
 LIT_OPS_PER_COLUMN = 12
+# a matched codepoint row's byte-count walk past an exact or prefix run:
+# load, length extract, add
+LIT_OPS_PER_REST = 3
 # row-major kernel, per column of a live row's prefilter: table load,
 # byte extract and the window tests, plus 3 per DP state (shift-test,
 # add, closure max) at T > 0; its SW cell costs SW_OPS_PER_CELL
@@ -88,6 +100,22 @@ RM_PF_OPS_PER_STATE = 3
 LITERAL_WRAP = (("'", ""), ("^", ""), ("", "$"), ("^", "$"))
 TYPO_BUDGET = 4
 LONG_NEEDLE = "deadbeefcafebabefacefeed"
+
+# unicode batches: the reference's unicode_arabic_1m corpus (its
+# calibrated Arabic sentence generator at 1M rows) and its 16 two-letter
+# serving variants per script
+UQ = 16
+UNICODE_VARIANTS = {
+    "arabic": ["إن", "لا", "ما", "في", "من", "هل", "ان", "نم",
+               "إذ", "لم", "لن", "كي", "قد", "بل", "أو", "ثم"],
+    "korean": ["니다", "하다", "있다", "없다", "보다", "가다", "오다", "주다",
+               "사다", "살다", "쓰다", "자다", "차다", "타다", "크다", "따다"],
+}
+UNICODE_NEEDLE = {"arabic": "إن", "korean": "니다"}
+# colstream plain versions run on the first groups of each bucket
+PLAIN_GROUPS = 48
+# row-major plain versions run on at most this many live rows per query
+PLAIN_ROWS = 65536
 
 
 def _queries(q, base="deadbeef"):
@@ -110,6 +138,27 @@ def _literal_queries(q):
         pre, post = LITERAL_WRAP[i % 4]
         out.append(pre + perm[i % 3:i % 3 + 2 + i % 3] + post)
     return out
+
+
+def _unicode_queries(q, script="arabic", kind="fuzzy"):
+    """The script's two-letter variants; under ', ^, $ and ^...$ in turn
+    (literal); or each the concatenation of ``kind`` consecutive variants
+    (an int: 4 gives eight-codepoint needles)."""
+    base = UNICODE_VARIANTS[script]
+    if kind == "fuzzy":
+        return base[:q]
+    if kind == "literal":
+        return [LITERAL_WRAP[i % 4][0] + base[i] + LITERAL_WRAP[i % 4][1]
+                for i in range(q)]
+    return ["".join(base[(i + j) % len(base)] for j in range(kind))
+            for i in range(q)]
+
+
+def _unicode_corpus(num_samples, script="arabic", seed=42):
+    from frizbee_tpu_torch import datagen
+
+    return datagen.unicode_corpus(script, needle=UNICODE_NEEDLE[script],
+                                  num_samples=num_samples, seed=seed)
 
 
 def _long_corpus(num_samples, seed=42):
@@ -145,11 +194,11 @@ def _max_abs_err(a, b):
     return float((a.double() - b.double()).abs().max())
 
 
-def _needles(queries):
+def _needles(queries, cfg=None):
     from frizbee_tpu_torch.matcher import Matcher
 
     return np.stack([
-        np.concatenate(Matcher.from_query(q)._compiled[0].engine
+        np.concatenate(Matcher.from_query(q, cfg)._compiled[0].engine
                        ._host_needle()[:2])
         for q in queries
     ])
@@ -177,10 +226,10 @@ def kernel_phase(corpus, detail):
     dev = corpus.device
     idx_bits = max((len(corpus) - 1).bit_length(), 1)
     nq = torch.from_numpy(_needles(_queries(Q))).to(dev)
-    errs = {name: 0.0 for name in _build.LAUNCHES}
+    errs = {entry[0]: 0.0 for entry in KERNELS}
     checks = 0
     for b in corpus.buckets:
-        cpT, nuT, idxT, blk = b.device_arrays_colstream()
+        cpT, nuT, idxT, blk, _ctxT = b.device_arrays_colstream()
         scal = pack_needle_scalars(nq, b.size)
         for T, nopre in ((0, False), (1, False), (0, True)):
             flags = _flags(blk, nq, T)
@@ -236,6 +285,136 @@ def kernel_phase(corpus, detail):
     return errs
 
 
+def _group_slice(t, groups, per_group):
+    return None if t is None else t[:groups * per_group]
+
+
+def unicode_kernel_phase(ucorpus, errs, detail):
+    """The unicode variant of each match kernel against its plain version
+    on the card, bit-equal, on every bucket of the Arabic corpus at Q=16:
+    the colstream kernels with the ctx plane (fuzzy at T=0, T=1 and with
+    no prefilter, literal in all four modes; flags and key-emit on and
+    off), the plain versions on the first PLAIN_GROUPS groups; the
+    row-major kernel at (n=8, T=4) through a random row order in key-emit
+    mode and at (n=20, T=0) in five-column mode, on at most PLAIN_ROWS
+    live rows. Then the same kernels on a w512 block of 2-4-byte rows
+    whose windows exceed 1024 bytes, which must set the greedy bit."""
+    from frizbee_tpu_torch import Config, UnicodeMatching
+    from frizbee_tpu_torch import pack_corpus
+    from frizbee_tpu_torch.ops import colstream as cs
+    from frizbee_tpu_torch.ops import kernels as km
+    from frizbee_tpu_torch.ops.literal import LITERAL_MODES
+
+    dev = ucorpus.device
+    sc = km.DEFAULT_SCORING
+    nq = torch.from_numpy(_needles(_unicode_queries(UQ))).to(dev)
+    nbl = len(UNICODE_VARIANTS["arabic"][0].encode())
+    g = torch.Generator(device=dev).manual_seed(11)
+    counts = {"colstream_fuzzy_unicode": 0, "colstream_literal_unicode": 0,
+              "match_units_unicode": 0}
+
+    def colstream_checks(b, nq, n, idx_bits, fuzzy_cases, literal=True):
+        cpT, nuT, idxT, blk, ctxT = b.device_arrays_colstream()
+        W = b.width
+        ng = min(cpT.shape[0] // W, PLAIN_GROUPS)
+        sub = dict(cpT=_group_slice(cpT, ng, W), nuT=nuT[:ng * 8],
+                   ctxT=_group_slice(ctxT, ng, W))
+        scal = km.pack_needle_scalars(nq, b.size)
+        cases = [("colstream_fuzzy_unicode", dict(
+            W=W, n=n, max_typos=T, scoring=sc, no_prefilter=nopre,
+            idx_bits=idx_bits)) for T, nopre in fuzzy_cases]
+        if literal:
+            cases += [("colstream_literal_unicode", dict(
+                W=W, n=n, scoring=sc, mode=mode, needle_byte_len=nbl,
+                idx_bits=idx_bits)) for mode in LITERAL_MODES]
+        out = None
+        for name, kw in cases:
+            plain = (cs.match_units_colstream_plain if "fuzzy" in name
+                     else cs.match_units_colstream_literal_plain)
+            T = kw.get("max_typos", 0)
+            flags = _flags(blk, nq, T)
+            for fl in (flags, None):
+                for ix in (idxT, None):
+                    got = cs.match_units_colstream(cpT, nuT, scal, fl, ix,
+                                                   ctxT, **kw)
+                    torch.cuda.synchronize()
+                    want = plain(sub["cpT"], sub["nuT"], scal,
+                                 None if fl is None else fl[:, :ng],
+                                 None if ix is None else ix[:ng * 1024],
+                                 sub["ctxT"], **kw)
+                    if ix is not None:
+                        got_s = got[:, :ng * 1024]
+                    else:
+                        got_s = tuple(c[:, :ng * 1024] for c in got)
+                    _check_equal(errs, name, got_s, want,
+                                 f"w{W} {kw} flags={fl is not None} "
+                                 f"keys={ix is not None}")
+                    counts[name] += 1
+                    if (name == "colstream_fuzzy_unicode" and T == 0
+                            and not kw["no_prefilter"] and fl is None
+                            and ix is None):
+                        out = got  # five columns, T=0, no flags
+                    del got, want, got_s
+        return out
+
+    def rowmajor_checks(b, queries, T, idx_bits):
+        cp, nu, idx = b.device_arrays_units()
+        nqr = torch.from_numpy(_needles(queries)).to(dev)
+        n = nqr.shape[1] // 2
+        order = torch.argsort(torch.rand((nqr.shape[0], b.size),
+                                         generator=g, device=dev),
+                              dim=1).to(torch.int32)
+        kw = dict(n=n, max_typos=T, scoring=sc, idx_bits=idx_bits)
+        for rows in (order, None) if T else (None,):
+            scal = km.pack_needle_scalars(
+                nqr, min(b.size if rows is None else b.size // 3 + 17,
+                         PLAIN_ROWS))
+            ix = None if rows is None else idx
+            got = km.match_units(cp, nu, scal, rows, ix, **kw)
+            torch.cuda.synchronize()
+            want = km.match_units_plain(cp, nu, scal, rows, ix, **kw)
+            _check_equal(errs, "match_units_unicode", got, want,
+                         f"w{b.width} n={n} T={T} order={rows is not None}")
+            counts["match_units_unicode"] += 1
+            del got, want
+
+    idx_bits = max((len(ucorpus) - 1).bit_length(), 1)
+    for b in ucorpus.buckets:
+        colstream_checks(b, nq, 2, idx_bits,
+                         ((0, False), (1, False), (0, True)))
+        rowmajor_checks(b, _unicode_queries(UQ, kind=4), TYPO_BUDGET,
+                        idx_bits)
+        rowmajor_checks(b, _unicode_queries(UQ, kind=10), 0, idx_bits)
+
+    # long byte windows: 2-4-byte rows of a w512 block, the needle's first
+    # letter at the start and the rest at the end
+    rng = np.random.default_rng(13)
+    pool = np.array([0x00E9, 0x0644, 0x20AC, 0xAC00, 0x1F600, 0x10348])
+    rows = []
+    for i in range(3000):
+        n_units = int(rng.integers(2, 500))
+        units = rng.choice(pool, n_units)
+        row = "".join(map(chr, units))
+        rows.append(("l" + row + "inux") if i % 3 else row)
+    wide = pack_corpus(rows, unicode=True, bucket_widths=(512,))
+    (wb,) = wide.buckets
+    nql = torch.from_numpy(_needles(
+        ["linux"] * 4, Config(unicode=UnicodeMatching.ALWAYS))).to(dev)
+    cols = colstream_checks(wb, nql, 5, 12, ((0, False), (1, False)),
+                            literal=False)
+    n_greedy = int(cols[4].sum())
+    max_end = int(cols[3].max())
+    assert n_greedy > 0 and max_end > 1024, (n_greedy, max_end)
+    rowmajor_checks(wb, ["linux"] * 4, TYPO_BUDGET, 12)
+    detail["unicode_kernel_checks"] = dict(
+        counts, w512_greedy_rows=n_greedy, w512_max_end_col=max_end)
+    print(f"kernel phase, unicode: bit-equal checks {json.dumps(counts)} "
+          f"(Arabic 1M rows, buckets "
+          f"{[(b.width, b.size) for b in ucorpus.buckets]}, Q={UQ}; w512 "
+          f"block: {n_greedy} greedy rows, end_col up to {max_end})",
+          flush=True)
+
+
 def _check_equal(errs, name, got, want, what):
     pairs = [(got, want)] if torch.is_tensor(got) else list(zip(got, want))
     for g, w in pairs:
@@ -258,7 +437,7 @@ def _literal_kernel_checks(corpus, errs):
     nq = torch.from_numpy(_needles([p[:3] for p in _queries(Q)])).to(dev)
     checks = 0
     for b in corpus.buckets:
-        cpT, nuT, idxT, blk = b.device_arrays_colstream()
+        cpT, nuT, idxT, blk, _ctxT = b.device_arrays_colstream()
         scal = pack_needle_scalars(nq, b.size)
         flags = _flags(blk, nq, 0)
         for mode in LITERAL_MODES:
@@ -409,9 +588,11 @@ def _serve(label, corpus, queries, cfg, kernels, detail):
     return out
 
 
-def _paths(corpus, long_corpus):
-    """The four serving paths: label -> (corpus, queries, config, the
-    kernels the path must launch)."""
+def _paths(corpus, long_corpus, ucorpus):
+    """The seven serving paths: label -> (corpus, queries, config, the
+    kernels the path must launch). The unicode batches record their
+    finalize route without requiring one: most Arabic groups stay alive
+    for any needle, so the capped route and its row gather may not run."""
     from frizbee_tpu_torch import Config
 
     return {
@@ -423,11 +604,17 @@ def _paths(corpus, long_corpus):
                  ("match_units", "row_gather")),
         "long_needle": (long_corpus, _queries(Q, LONG_NEEDLE), Config(),
                         ("match_units", "row_gather")),
+        "unicode_fuzzy": (ucorpus, _unicode_queries(UQ), Config(),
+                          ("colstream_fuzzy",)),
+        "unicode_literal": (ucorpus, _unicode_queries(UQ, kind="literal"),
+                            Config(), ("colstream_literal",)),
+        "unicode_typo": (ucorpus, _unicode_queries(UQ, kind=4),
+                         Config(max_typos=TYPO_BUDGET), ("match_units",)),
     }
 
 
 def serving_phase(paths, detail):
-    """The four serving paths, each read on its own."""
+    """The seven serving paths, each read on its own."""
     serving = {
         label: _serve(label, c, queries, cfg, kernels, detail)
         for label, (c, queries, cfg, kernels) in paths.items()
@@ -440,25 +627,33 @@ def serving_phase(paths, detail):
     assert typo["match_counts"][0] >= main["match_counts"][0]
     assert serving["long_needle"]["match_counts"][0] > 0, (
         "no match for the long needle")
+    ufuzzy, utypo = serving["unicode_fuzzy"], serving["unicode_typo"]
+    assert ufuzzy["match_counts"][0] > 0, "no match for the unicode needle"
+    assert sum(serving["unicode_literal"]["match_counts"]) > 0, (
+        "no unicode literal query matched")
+    assert utypo["row_major_routes"]["compacted"] == utypo["batches"]
+    assert utypo["match_counts"][0] > 0, "no unicode typo-budget match"
     return serving
 
 
-def profile_phase(corpus, detail):
+def profile_phase(label, corpus, queries, detail, host_profile=False):
     """Where a serving batch's time goes: torch.profiler over blocking
     batches — wall time, device busy time, and the top device kernels
-    and host operations."""
+    and host operations; with ``host_profile``, cProfile over one more
+    batch."""
     from torch.profiler import ProfilerActivity, profile
 
     from frizbee_tpu_torch import Config, match_topk_batch
 
-    queries = _queries(Q)
     reps = 3
+    torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
             match_topk_batch(queries, corpus, Config(), k=TOP_K)
         wall_ms = (time.perf_counter() - t0) / reps * 1e3
+    peak = torch.cuda.max_memory_allocated()
     events = prof.key_averages()
 
     def device_us(e):
@@ -476,9 +671,11 @@ def profile_phase(corpus, detail):
     host_ops = sorted(events, key=lambda e: e.self_cpu_time_total,
                       reverse=True)
     out = {
+        "batch_queries": len(queries),
         "wall_ms_per_batch": wall_ms,
         "device_busy_ms_per_batch": busy_ms,
         "device_idle_share": 1 - busy_ms / wall_ms,
+        "peak_device_memory_bytes": peak,
         "top_device_ms_per_batch": [
             [e.key[:80], device_us(e) / reps / 1e3, e.count // reps]
             for e in dev_ops[:10]
@@ -489,27 +686,28 @@ def profile_phase(corpus, detail):
             for e in host_ops[:12]
         ],
     }
-    # host-side candidates: cProfile over one more batch (it slows
-    # Python calls, so only the shares are read from it)
-    import cProfile
-    import pstats
+    if host_profile:
+        # host-side candidates: cProfile over one more batch (it slows
+        # Python calls, so only the shares are read from it)
+        import cProfile
+        import pstats
 
-    cprof = cProfile.Profile()
-    cprof.enable()
-    match_topk_batch(queries, corpus, Config(), k=TOP_K)
-    torch.cuda.synchronize()
-    cprof.disable()
-    st = pstats.Stats(cprof)
-    rows = sorted(
-        ((v[3], f"{os.path.basename(k[0])}:{k[1]}:{k[2]}")
-         for k, v in st.stats.items()),
-        reverse=True,
-    )
-    out["cprofile_top_cumulative_ms"] = [
-        [name, sec * 1e3] for sec, name in rows[:25]
-    ]
-    detail["profile"] = out
-    print("profile phase: " + json.dumps({
+        cprof = cProfile.Profile()
+        cprof.enable()
+        match_topk_batch(queries, corpus, Config(), k=TOP_K)
+        torch.cuda.synchronize()
+        cprof.disable()
+        st = pstats.Stats(cprof)
+        rows = sorted(
+            ((v[3], f"{os.path.basename(k[0])}:{k[1]}:{k[2]}")
+             for k, v in st.stats.items()),
+            reverse=True,
+        )
+        out["cprofile_top_cumulative_ms"] = [
+            [name, sec * 1e3] for sec, name in rows[:25]
+        ]
+    detail.setdefault("profile", {})[label] = out
+    print(f"profile phase, {label}: " + json.dumps({
         k: out[k] for k in ("wall_ms_per_batch", "device_busy_ms_per_batch",
                             "device_idle_share")
     }) + " top device: " + json.dumps(out["top_device_ms_per_batch"][:5]),
@@ -541,15 +739,18 @@ def _colstream_work(args, kw, keys):
     """(int32 operations, bytes read, bytes written) that one colstream
     launch's data needs. A group runs for the queries whose live count
     and stage-1 flag keep it alive; each of its rows walks its unit
-    columns (only the first n in exact and prefix mode). Bytes count each
-    needed corpus byte, and the unit count and index of each row of a
-    group some query reads, once."""
+    columns (only the first n in exact and prefix mode, where a matched
+    codepoint row then sums the byte lengths of the rest for its exact
+    flag). Bytes count each needed corpus unit (1 byte, or a 4-byte
+    codepoint and its ctx-plane byte), and the unit count and index of
+    each row of a group some query reads, once."""
     from frizbee_tpu_torch.corpus import GROUP_ROWS
     from frizbee_tpu_torch.ops.kernels import PF_NONE, prefilter_mode
     from frizbee_tpu_torch.ops.literal import EXACT, PREFIX
 
-    cpT, nuT, scal, flags, _idxT = args
+    cpT, nuT, scal, flags, _idxT, ctxT = args
     W, n = kw["W"], kw["n"]
+    unit_bytes = cpT.element_size() + (0 if ctxT is None else 1)
     nG = cpT.shape[0] // W
     g0 = torch.arange(nG, device=cpT.device) * GROUP_ROWS
     alive = g0[None, :] < scal[:, :1]
@@ -562,14 +763,21 @@ def _colstream_work(args, kw, keys):
     group_cols = walk.sum(dim=1).to(torch.float64)
     cols = float((alive * group_cols[None, :]).sum())
     read = alive.amax(dim=0)
-    in_bytes = (float((read * group_cols).sum())
+    in_bytes = (float((read * group_cols).sum()) * unit_bytes
                 + float(read.sum()) * GROUP_ROWS * 8
                 + 4 * (scal.numel() + (flags.numel() if flags is not None
                                        else 0)))
     out_bytes = 8 * keys.numel()
     if "mode" in kw:
-        return cols * (LIT_OPS_PER_CELL * n + LIT_OPS_PER_COLUMN), \
-            in_bytes, out_bytes
+        ops = cols * (LIT_OPS_PER_CELL * n + LIT_OPS_PER_COLUMN)
+        if cpT.dtype == torch.int32 and kw["mode"] in (EXACT, PREFIX):
+            hit = (keys != INT64_MAX).to(torch.float64)
+            rest = torch.clamp(torch.clamp(nuT.reshape(-1), max=W) - n,
+                               min=0).to(torch.float64)
+            ops += float((hit * rest[None, :]).sum()) * LIT_OPS_PER_REST
+            in_bytes += float((hit.amax(dim=0) * rest).sum()) * (
+                1 if ctxT is not None else 4)
+        return ops, in_bytes, out_bytes
     # fuzzy: the prefilter over every walked column; a matched row's DP
     # covers >= n columns
     T = min(int(kw["max_typos"]), n)
@@ -585,8 +793,8 @@ def _match_units_work(args, kw, keys):
     launch's data needs: each query's live rows (the first count of its
     row order) run the prefilter to their length, and a matched row's DP
     covers >= n - T columns. Bytes count each row some query reads (its
-    bytes, unit count and index) once, the order entries read, the
-    scalars and the keys."""
+    units — 1 byte, or 4 for codepoints — unit count and index) once,
+    the order entries read, the scalars and the keys."""
     from frizbee_tpu_torch.ops.kernels import PF_NONE, prefilter_mode
 
     cp, nu, scal, rows, _idx = args
@@ -600,7 +808,8 @@ def _match_units_work(args, kw, keys):
     lens = torch.clamp(nu.to(torch.float64), max=W)
     live_cols = float((live.to(torch.float64) * lens[None, :]).sum())
     read = live.any(dim=0).to(torch.float64)
-    in_bytes = (float((read * (lens + 8)).sum()) + 4 * scal.numel()
+    in_bytes = (float((read * (lens * cp.element_size() + 8)).sum())
+                + 4 * scal.numel()
                 + (4 * float(cnt.sum()) if rows is not None else 0))
     pf_mode = prefilter_mode(n, T, kw["no_prefilter"])
     pf_per_col = 0 if pf_mode == PF_NONE else RM_PF_OPS_PER_COLUMN + (
@@ -616,7 +825,7 @@ def _gather_work(args, _kw, out):
     return 0.0, out.numel() * 4 + rows.numel() * 4, out.numel() * 4
 
 
-def _replay(name, calls, errs):
+def _replay(entry, name, calls, errs):
     """Time the captured launches ``calls`` ((args, kwargs) of the
     wrapper) of one serving batch on the kernel, on its plain version and
     on the library call where there is one; the kernel's results are held
@@ -644,7 +853,7 @@ def _replay(name, calls, errs):
     got = run(kernel)
     plain_ms, want = _time_once_ms(lambda: run(plain))
     for g, w in zip(got, want):
-        _check_equal(errs, name, g, w, "serving shapes")
+        _check_equal(errs, entry, g, w, "serving shapes")
     ops = in_bytes = out_bytes = 0.0
     for (a, kw), out in zip(calls, got):
         o, i, w = work(a, kw, out)
@@ -662,16 +871,29 @@ def _replay(name, calls, errs):
 
 
 KERNELS = (
-    # name, source, TPU kernel it replaces, serving paths it runs on
-    ("colstream_fuzzy", "frizbee_tpu_torch/csrc/colstream_fuzzy.cu",
+    # entry, kernel, source, TPU kernel it replaces, serving paths it
+    # runs on (the unicode launches of the match kernels are entries of
+    # their own)
+    ("colstream_fuzzy", "colstream_fuzzy",
+     "frizbee_tpu_torch/csrc/colstream_fuzzy.cu",
      "frizbee_tpu/ops/colstream.py:954", ("fuzzy",)),
-    ("colstream_literal", "frizbee_tpu_torch/csrc/colstream_literal.cu",
+    ("colstream_literal", "colstream_literal",
+     "frizbee_tpu_torch/csrc/colstream_literal.cu",
      "frizbee_tpu/ops/colstream.py:954", ("literal",)),
-    ("row_gather", "frizbee_tpu_torch/csrc/row_gather.cu",
+    ("row_gather", "row_gather", "frizbee_tpu_torch/csrc/row_gather.cu",
      "frizbee_tpu/ops/colstream.py:749",
      ("fuzzy", "literal", "typo", "long_needle")),
-    ("match_units", "frizbee_tpu_torch/csrc/match_units.cu",
+    ("match_units", "match_units", "frizbee_tpu_torch/csrc/match_units.cu",
      "frizbee_tpu/ops/kernels.py:632", ("typo", "long_needle")),
+    ("colstream_fuzzy_unicode", "colstream_fuzzy",
+     "frizbee_tpu_torch/csrc/colstream_fuzzy.cu",
+     "frizbee_tpu/ops/colstream.py:954", ("unicode_fuzzy",)),
+    ("colstream_literal_unicode", "colstream_literal",
+     "frizbee_tpu_torch/csrc/colstream_literal.cu",
+     "frizbee_tpu/ops/colstream.py:954", ("unicode_literal",)),
+    ("match_units_unicode", "match_units",
+     "frizbee_tpu_torch/csrc/match_units.cu",
+     "frizbee_tpu/ops/kernels.py:632", ("unicode_typo",)),
 )
 
 
@@ -694,25 +916,31 @@ def timing_phase(paths, serving, errs, detail):
     The captures run after the serving phase has read its counters."""
     calls = {label: _capture(c, queries, cfg)
              for label, (c, queries, cfg, _k) in paths.items()}
+    paths_q = {label: p[1] for label, p in paths.items()}
     entries = []
     detail["timing"] = {}
-    for name, source, replaces, paths in KERNELS:
+    detail["unicode_row_gather_launches"] = {
+        p: serving[p]["launches"]["row_gather"] for p in serving
+        if p.startswith("unicode")
+    }
+    for entry, name, source, replaces, paths in KERNELS:
         per_path = {p: [c for k, c in calls[p] if k == name] for p in paths}
-        nums, work = _replay(name, sum(per_path.values(), []), errs)
+        nums, work = _replay(entry, name, sum(per_path.values(), []), errs)
         if len(paths) > 1:
             work["ms_per_path"] = {
-                p: _replay(name, c, errs)[0]["ms"]
+                p: _replay(entry, name, c, errs)[0]["ms"]
                 for p, c in per_path.items()
             }
-        work["per"] = f"one batch of each of {list(paths)} (Q={Q})"
-        detail["timing"][name] = {**nums, **work}
-        print(f"timing phase: {name} " + json.dumps(detail["timing"][name]),
+        work["per"] = "one batch of each of " + ", ".join(
+            f"{p} (Q={len(paths_q[p])})" for p in paths)
+        detail["timing"][entry] = {**nums, **work}
+        print(f"timing phase: {entry} " + json.dumps(detail["timing"][entry]),
               flush=True)
         entries.append({
-            "name": name, "route": "cuda", "source": source,
+            "name": entry, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": sum(serving[p]["launches"][name] for p in paths),
-            "max_abs_err": errs[name],
+            "max_abs_err": errs[entry],
             **nums,
         })
     return entries
@@ -720,29 +948,52 @@ def timing_phase(paths, serving, errs, detail):
 
 def cpu_parity_phase(detail):
     """Reduced size: the card's serving arrays equal the CPU's, group by
-    group, and so do the decoded top-k results."""
-    from frizbee_tpu_torch import Config, datagen, match_topk_batch
-    from frizbee_tpu_torch import pack_corpus
+    group, and so do the decoded top-k results — byte corpora, Arabic and
+    Korean codepoint corpora, and ASCII needles under ALWAYS over a
+    mixed-script codepoint corpus."""
+    from frizbee_tpu_torch import Config, UnicodeMatching, datagen
+    from frizbee_tpu_torch import match_topk_batch, pack_corpus
     from frizbee_tpu_torch.matcher import Matcher, _dispatch_batch_groups
 
     n_rows, q = 20_000, 8
     hay = datagen.partial_match_corpus(median_length=MEDIAN_LEN,
                                        num_samples=n_rows, seed=7)
     long_hay = _long_corpus(n_rows, seed=7)
-    cases = (
+    cases = [
         ("fuzzy T=0", hay, _queries(q), Config(max_typos=0)),
         ("fuzzy T=1", hay, _queries(q), Config(max_typos=1)),
         ("literal", hay, _literal_queries(q), Config()),
         (f"typo T={TYPO_BUDGET}", hay, _queries(q),
          Config(max_typos=TYPO_BUDGET)),
         ("long needle", long_hay, _queries(q, LONG_NEEDLE), Config()),
-    )
+    ]
+    # (label, rows, queries, config[, codepoint units, must match])
+    for script in ("arabic", "korean"):
+        rows = _unicode_corpus(n_rows, script, seed=7)
+        cases += [
+            (f"{script} fuzzy T=0", rows, _unicode_queries(q, script),
+             Config(max_typos=0), True, True),
+            (f"{script} fuzzy T=1", rows, _unicode_queries(q, script),
+             Config(max_typos=1), True, True),
+            (f"{script} literal", rows,
+             _unicode_queries(q, script, "literal"), Config(), True, True),
+            # Korean rows rarely hold 4 of 8 given syllables: the arrays
+            # must still agree
+            (f"{script} typo T={TYPO_BUDGET}", rows,
+             _unicode_queries(q, script, 4), Config(max_typos=TYPO_BUDGET),
+             True, script == "arabic"),
+        ]
+    mixed = _unicode_corpus(n_rows // 2, seed=8) + hay[:n_rows // 2]
+    cases.append(("ALWAYS ascii needles, mixed script", mixed, _queries(q),
+                  Config(unicode=UnicodeMatching.ALWAYS), True, True))
     packed = {}
     compared = {}
-    for label, rows, queries, cfg in cases:
+    for label, rows, queries, cfg, *uni in cases:
+        unicode, must_match = uni or (False, True)
         key = id(rows)
         if key not in packed:
-            packed[key] = (pack_corpus(rows), pack_corpus(rows, device="cpu"))
+            packed[key] = (pack_corpus(rows, unicode=unicode),
+                           pack_corpus(rows, unicode=unicode, device="cpu"))
         on_card, on_cpu = packed[key]
         raw = []
         for corpus in (on_card, on_cpu):
@@ -765,7 +1016,8 @@ def cpu_parity_phase(detail):
             assert x[0] == y[0]
             for u, v in zip(x[1:], y[1:]):
                 assert np.array_equal(u, v)
-        assert sum(x[0] for x in got) > 0, f"{label}: nothing matched"
+        assert sum(x[0] for x in got) > 0 or not must_match, (
+            f"{label}: nothing matched")
         compared[label] = sum(a.size for a, _m in raw[0])
     detail["cpu_parity_elements"] = compared
     print(f"card-vs-CPU phase: serving-array elements equal "
@@ -822,22 +1074,41 @@ def main():
     print(f"long-needle corpus: {len(long_corpus)} rows, buckets "
           f"{detail['long_buckets']}, generated and packed in "
           f"{detail['long_pack_seconds']:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    uhay = _unicode_corpus(N_ROWS)
+    detail["unicode_generate_seconds"] = time.perf_counter() - t0
+    ucorpus = pack_corpus(uhay, unicode=True)
+    for b in ucorpus.buckets:
+        b.device_arrays_colstream()
+        b.device_presence_bits()
+        b.device_arrays_units()
+    torch.cuda.synchronize()
+    detail["unicode_pack_seconds"] = time.perf_counter() - t0
+    detail["unicode_buckets"] = [(b.width, b.size) for b in ucorpus.buckets]
+    print(f"unicode corpus (Arabic): {len(ucorpus)} rows, buckets "
+          f"{detail['unicode_buckets']}, generated in "
+          f"{detail['unicode_generate_seconds']:.1f} s, packed by "
+          f"{detail['unicode_pack_seconds']:.1f} s", flush=True)
 
     phases = {}
     t0 = time.perf_counter()
     errs = kernel_phase(corpus, detail)
     phases["kernel"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    paths = _paths(corpus, long_corpus)
+    unicode_kernel_phase(ucorpus, errs, detail)
+    phases["kernel_unicode"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    paths = _paths(corpus, long_corpus, ucorpus)
     serving = serving_phase(paths, detail)
     phases["serving"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     entries = timing_phase(paths, serving, errs, detail)
     phases["timing"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    profile_phase(corpus, detail)
+    profile_phase("fuzzy", corpus, _queries(Q), detail, host_profile=True)
+    profile_phase("unicode_fuzzy", ucorpus, _unicode_queries(UQ), detail)
     phases["profile"] = time.perf_counter() - t0
-    del corpus, hay, long_corpus, long_hay, paths
+    del corpus, hay, long_corpus, long_hay, ucorpus, uhay, paths
     t0 = time.perf_counter()
     cpu_parity_phase(detail)
     phases["cpu_parity"] = time.perf_counter() - t0

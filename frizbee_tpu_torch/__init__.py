@@ -1,13 +1,15 @@
 """frizbee-tpu on PyTorch and CUDA: batched top-k fuzzy serving on an
 NVIDIA H100.
 
-The port of ``frizbee_tpu``'s serving main path: a resident packed ASCII
-corpus answers batches of fuzzy single-pattern queries through
-``match_topk_batch`` / ``match_topk_batch_async``. The two device kernels
-of that path, the column-stream fuzzy match and the whole-row gather, are
-hand-written CUDA for ``sm_90a`` (``csrc/``); everything else is plain
-PyTorch. Entry points run on the card unless the caller passes
-``device="cpu"``, which runs the kernels' plain PyTorch versions.
+The port of ``frizbee_tpu``'s serving main path: a resident packed
+corpus (byte units, or codepoint units for unicode needles) answers
+batches of single-pattern fuzzy and literal queries through
+``match_topk_batch`` / ``match_topk_batch_async``. The device kernels of
+that path — the column-stream fuzzy and literal matches, the row-major
+match and the whole-row gather — are hand-written CUDA for ``sm_90a``
+(``csrc/``); everything else is plain PyTorch. Entry points run on the
+card unless the caller passes ``device="cpu"``, which runs the kernels'
+plain PyTorch versions.
 
 ``config``, ``casefold``, ``pattern`` and ``datagen`` are copies of
 ``frizbee_tpu``'s modules of the same names: the package imports nothing

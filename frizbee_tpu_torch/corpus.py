@@ -1,9 +1,12 @@
-"""Corpus packing: ragged strings -> length-bucketed byte matrices, and the
-device layout the column-stream kernel streams.
+"""Corpus packing: ragged strings -> length-bucketed unit matrices, and the
+device layouts the kernels stream.
 
-Counterpart of ``frizbee_tpu/corpus.py`` for byte-unit (ASCII) corpora.
-Packing is vectorized NumPy into one int8 byte matrix per bucket; the
-per-unit context arrays of the generic pipelines are not built. A packed
+Counterpart of ``frizbee_tpu/corpus.py``. A unit is a byte on the ASCII
+path (one int8 matrix per bucket) and a codepoint on the unicode path (one
+int32 matrix per bucket, with the UTF-8 byte counts of each row beside
+it). Packing is vectorized NumPy; the per-unit context arrays of the
+generic pipelines are not built (the kernels derive the UTF-8 context
+from the codepoints, or read the colstream ctx plane). A packed
 ``Corpus`` is query-independent: build once, serve many batches — the
 production serving pattern. Its tensors live on the corpus device, which
 is the card unless the caller asks for the CPU.
@@ -18,6 +21,14 @@ import numpy as np
 import torch
 
 from .ops.presence import PLANES
+
+# ctx-plane bit layout of the colstream unicode blocks (frizbee_tpu's
+# ops/colstream.CTX_*): one int8 per unit
+CTX_UPPER_FIRST = 1   # is_upper(first UTF-8 byte)
+CTX_DELIM_FIRST = 2   # delim(first byte)
+CTX_LOWER_LAST = 4    # lower(last byte)
+CTX_DELIM_LAST = 8    # delim(last byte)
+CTX_BLEN_SHIFT = 4    # bits 4-6: UTF-8 byte length
 
 # Unit-width buckets. Rows wider than the last form the XL set, served
 # by the host path (reference: src/smith_waterman/algo/mod.rs:18).
@@ -48,6 +59,50 @@ def max_bucket_rows(width: int) -> int:
     into one 31-bit sort key on the compacted serving tiers. Oversized
     buckets split into chained buckets of the same width."""
     return min(1 << 20, 1 << (30 - (width).bit_length()))
+
+
+def _utf8_lead_byte(cp: np.ndarray) -> np.ndarray:
+    """First UTF-8 byte of each codepoint (vectorized)."""
+    out = np.where(cp < 0x80, cp, 0)
+    out = np.where((cp >= 0x80) & (cp < 0x800), 0xC0 | (cp >> 6), out)
+    out = np.where((cp >= 0x800) & (cp < 0x10000), 0xE0 | (cp >> 12), out)
+    out = np.where(cp >= 0x10000, 0xF0 | (cp >> 18), out)
+    return out.astype(np.int32)
+
+
+def _utf8_last_byte(cp: np.ndarray) -> np.ndarray:
+    """Last UTF-8 byte of each codepoint (vectorized)."""
+    return np.where(cp < 0x80, cp, 0x80 | (cp & 0x3F)).astype(np.int32)
+
+
+def _utf8_len(cp: np.ndarray) -> np.ndarray:
+    out = np.ones_like(cp)
+    out = np.where(cp >= 0x80, 2, out)
+    out = np.where(cp >= 0x800, 3, out)
+    out = np.where(cp >= 0x10000, 4, out)
+    return out.astype(np.int32)
+
+
+def _delim_byte(b: np.ndarray) -> np.ndarray:
+    letter = ((b >= 0x41) & (b <= 0x5A)) | ((b >= 0x61) & (b <= 0x7A))
+    digit = (b >= 0x30) & (b <= 0x39)
+    return (b >= 0) & (b <= 127) & ~letter & ~digit
+
+
+def ctx_plane(cp: np.ndarray) -> np.ndarray:
+    """int8 UTF-8 bonus context of each codepoint (CTX_* layout): the
+    case and delimiter classes of its first and last byte and its byte
+    length — the per-column facts the colstream kernels would otherwise
+    derive from the codepoint on every pass."""
+    first = _utf8_lead_byte(cp)
+    last = _utf8_last_byte(cp)
+    ctx = ((first >= 0x41) & (first <= 0x5A)).astype(np.int8) \
+        * CTX_UPPER_FIRST
+    ctx |= _delim_byte(first).astype(np.int8) * CTX_DELIM_FIRST
+    ctx |= ((last >= 0x61) & (last <= 0x7A)).astype(np.int8) * CTX_LOWER_LAST
+    ctx |= _delim_byte(last).astype(np.int8) * CTX_DELIM_LAST
+    ctx |= _utf8_len(cp).astype(np.int8) << CTX_BLEN_SHIFT
+    return ctx
 
 
 def _size_class(b: int) -> int:
@@ -92,9 +147,10 @@ class PackedBucket:
     width: int
     # Original corpus indices of the rows, (B,); size-class padding is -1
     indices: np.ndarray
-    # Byte values, (B, W) int8, zero-padded
+    # Unit values, (B, W), zero-padded: int8 bytes on the ASCII path,
+    # int32 codepoints on the unicode path
     cp: np.ndarray
-    # Units (== bytes) per haystack, (B,) int32
+    # Units per haystack, (B,) int32
     n_units: np.ndarray
     # Bytes per haystack, (B,) int32
     n_bytes: np.ndarray
@@ -104,13 +160,20 @@ class PackedBucket:
     def size(self) -> int:
         return int(self.indices.shape[0])
 
+    @property
+    def unicode(self) -> bool:
+        """Codepoint units (int32) rather than bytes (int8)."""
+        return self.cp.dtype != np.int8
+
     def presence_counts(self) -> np.ndarray:
         """(B, 128) uint8 per-row fold-bit occurrence counts capped at
         PLANES, in bucket row order (cached). Padding columns land in a
         sentinel bin 128; 64k-row chunks keep the bincount cache-friendly."""
         if not hasattr(self, "_counts"):
             b, w = self.cp.shape
-            cp32 = self.cp.astype(np.int32) & 0xFF
+            cp32 = self.cp.astype(np.int32)
+            if not self.unicode:
+                cp32 &= 0xFF
             nu = self.n_units.astype(np.int32)
             upper = (cp32 >= 0x41) & (cp32 <= 0x5A)
             fold = np.where(upper, cp32 + 0x20, cp32) & 127
@@ -137,7 +200,8 @@ class PackedBucket:
         device, in bucket row order (cached): plane k column c is 1 when
         fold-bit c occurs more than k times — the ``bits8`` operand of
         the stage-1 survivor matmul (frizbee_tpu's
-        ``device_arrays_ascii()[4]``)."""
+        ``device_arrays_ascii()[4]``, or ``device_arrays_units()[4]``
+        for a unicode bucket)."""
         if not hasattr(self, "_device_bits"):
             counts = self.presence_counts()
             bits8 = np.concatenate(
@@ -152,6 +216,9 @@ class PackedBucket:
         size-class padding), in bucket row order — the operands of
         ``ops/kernels.match_units`` (frizbee_tpu's
         ``device_arrays_ascii()[:3]``)."""
+        if self.unicode:
+            raise ValueError("a unicode bucket has no byte matrix; use "
+                             "device_arrays_units()")
         if not hasattr(self, "_device_ascii"):
             dev = self.device
             self._device_ascii = (
@@ -161,39 +228,71 @@ class PackedBucket:
             )
         return self._device_ascii
 
+    def device_arrays_units(self):
+        """Row-major kernel arrays of a unicode bucket (cached): (cp
+        (B, W) int32 codepoints, n_units (B,) int32, indices (B,) int32
+        with -1 on size-class padding), in bucket row order
+        (frizbee_tpu's ``device_arrays_units()[:3]``)."""
+        if not self.unicode:
+            raise ValueError("a byte bucket has no codepoint matrix; use "
+                             "device_arrays_ascii()")
+        if not hasattr(self, "_device_units"):
+            dev = self.device
+            self._device_units = (
+                torch.from_numpy(self.cp.astype(np.int32)).to(dev),
+                torch.from_numpy(self.n_units.astype(np.int32)).to(dev),
+                torch.from_numpy(self.indices.astype(np.int32)).to(dev),
+            )
+        return self._device_units
+
+    def device_arrays_rowmajor(self):
+        """The row-major kernel's operands: :meth:`device_arrays_units`
+        for a unicode bucket, else :meth:`device_arrays_ascii`."""
+        if self.unicode:
+            return self.device_arrays_units()
+        return self.device_arrays_ascii()
+
     def device_arrays_colstream(self):
-        """Column-stream blocks (cached): (cpT (nG*W, SUBL, 128) int8,
-        nuT (nG*SUBL, 128) int32, idxT (nG*1024,) int32, blk_bits
-        (nG, PLANES*128) int8).
+        """Column-stream blocks (cached): (cpT (nG*W, SUBL, 128) int8
+        bytes or int32 codepoints, nuT (nG*SUBL, 128) int32, idxT
+        (nG*1024,) int32, blk_bits (nG, PLANES*128) int8, ctxT
+        (nG*W, SUBL, 128) int8 UTF-8 bonus context plane (``ctx_plane``)
+        of a unicode bucket, None for a byte bucket).
 
         Rows are content-clustered (``_cluster_order``), padded to whole
         1024-row groups, and laid out unit-major: row r of group g at unit
-        column j is byte ``(g*W + j)*1024 + r`` of cpT, so the threads of
-        a warp, one per row, read one column contiguously. The same bytes
-        view as ``(nG, W, 1024)``. idxT maps colstream slot -> corpus
-        index (-1 on padding). blk_bits are the group-max capped presence
-        planes: a group failing ``hits >= tot - typos`` holds no stage-1
-        survivor, so the kernel skips it."""
+        column j is element ``(g*W + j)*1024 + r`` of cpT (and of ctxT),
+        so the threads of a warp, one per row, read one column
+        contiguously. The same elements view as ``(nG, W, 1024)``. idxT
+        maps colstream slot -> corpus index (-1 on padding). blk_bits are
+        the group-max capped presence planes: a group failing ``hits >=
+        tot - typos`` holds no stage-1 survivor, so the kernel skips
+        it."""
         if hasattr(self, "_device_colstream"):
             return self._device_colstream
         b, w = self.cp.shape
         nu = self.n_units.astype(np.int32)
         counts = self.presence_counts()
-        order = _cluster_order(counts, nu, GROUP_ROWS, unicode=False)
-        cp8 = self.cp[order]
+        order = _cluster_order(counts, nu, GROUP_ROWS, unicode=self.unicode)
+        cpo = self.cp[order]
         nup = nu[order]
         idxt = self.indices.astype(np.int32)[order]
         counts = counts[order]
         pad = (-b) % GROUP_ROWS
         if pad:
-            cp8 = np.pad(cp8, ((0, pad), (0, 0)))
+            cpo = np.pad(cpo, ((0, pad), (0, 0)))
             nup = np.pad(nup, (0, pad))
             counts = np.pad(counts, ((0, pad), (0, 0)))
             idxt = np.pad(idxt, (0, pad), constant_values=-1)
-        ng = cp8.shape[0] // GROUP_ROWS
+        ng = cpo.shape[0] // GROUP_ROWS
         cpt = np.ascontiguousarray(
-            cp8.reshape(ng, GROUP_ROWS, w).transpose(0, 2, 1)
+            cpo.reshape(ng, GROUP_ROWS, w).transpose(0, 2, 1)
         ).reshape(ng * w, SUBL, 128)
+        ctxt = None
+        if self.unicode:
+            # padding units (cp 0) get cp 0's context; the kernels read the
+            # plane only under the unit-count gate
+            ctxt = ctx_plane(cpt)
         blk_counts = counts.reshape(ng, GROUP_ROWS, 128).max(axis=1)
         blk_bits = np.concatenate(
             [(blk_counts > k) for k in range(PLANES)], axis=1
@@ -204,6 +303,7 @@ class PackedBucket:
             torch.from_numpy(nup.reshape(ng * SUBL, 128)).to(dev),
             torch.from_numpy(idxt).to(dev),
             torch.from_numpy(blk_bits).to(dev),
+            None if ctxt is None else torch.from_numpy(ctxt).to(dev),
         )
         # host copy: the dispatcher picks the static result-sort capacity
         # from per-group alive counts before the batch runs
@@ -233,7 +333,8 @@ class Corpus:
 
     def greedy_risk(self) -> bool:
         """True when any bucketed row could take the greedy path (more
-        bytes than the 1024-byte DP cap)."""
+        UTF-8 bytes than the 1024-byte DP cap: only multi-byte-heavy
+        unicode rows)."""
         return any(
             b.size and int(b.n_bytes.max()) > 1024 for b in self.buckets
         )
@@ -245,17 +346,15 @@ class Corpus:
                    unicode: bool = False, device=None) -> "Corpus":
         """A corpus from packed bucket arrays, e.g. those of a
         ``frizbee_tpu`` corpus: ``buckets`` holds one (width, indices, cp,
-        n_units, n_bytes) tuple per bucket; ``cp`` may be int8 bytes or
-        int32 byte values."""
-        if unicode:
-            raise NotImplementedError(
-                "unicode corpora come with the unicode colstream slice"
-            )
+        n_units, n_bytes) tuple per bucket; ``cp`` holds codepoints when
+        ``unicode``, else int8 bytes or int32 byte values."""
         dev = resolve_device(device)
         out = []
         for width, indices, cp, n_units, n_bytes in buckets:
             cp = np.asarray(cp)
-            if cp.dtype != np.int8:
+            if unicode:
+                cp = cp.astype(np.int32)
+            elif cp.dtype != np.int8:
                 cp = (cp.astype(np.int32) & 0xFF).astype(np.uint8).view(
                     np.int8
                 )
@@ -267,7 +366,7 @@ class Corpus:
                 n_bytes=np.asarray(n_bytes, np.int32),
                 device=dev,
             ))
-        return cls(list(haystacks), False, out,
+        return cls(list(haystacks), bool(unicode), out,
                    np.asarray(xl_indices, np.int64), dev)
 
     @classmethod
@@ -307,14 +406,11 @@ def pack_corpus(
     bucket_widths: Optional[Sequence[int]] = None,
     device=None,
 ) -> Corpus:
-    """Pack haystacks into byte-unit buckets resident on ``device``
-    (default: the card). Bucket assignment, sparse-bucket consolidation,
-    chained splits and size-class padding follow frizbee_tpu's
-    ``pack_corpus`` exactly, so both packings hold the same rows."""
-    if unicode:
-        raise NotImplementedError(
-            "unicode corpora come with the unicode colstream slice"
-        )
+    """Pack haystacks into buckets resident on ``device`` (default: the
+    card): byte units, or codepoint units when ``unicode``. Bucket
+    assignment, sparse-bucket consolidation, chained splits and
+    size-class padding follow frizbee_tpu's ``pack_corpus`` exactly, so
+    both packings hold the same rows."""
     dev = resolve_device(device)
     if bucket_widths is None:
         bucket_widths = LANE_BUCKETS
@@ -324,14 +420,31 @@ def pack_corpus(
             f"corpus has {n} haystacks; the maximum supported is 2^31 - 1"
         )
     if n == 0:
-        return Corpus(list(haystacks), False, [], np.zeros(0, np.int64), dev)
+        return Corpus(list(haystacks), unicode, [], np.zeros(0, np.int64),
+                      dev)
 
-    data = [h.encode("utf-8") for h in haystacks]
-    unit_counts = np.fromiter((len(d) for d in data), dtype=np.int64, count=n)
-    flat = np.frombuffer(b"".join(data), dtype=np.uint8)
-    del data
+    if unicode:
+        # unit = codepoint; the UTF-32 round trip vectorizes the decode
+        unit_counts = np.fromiter((len(h) for h in haystacks),
+                                  dtype=np.int64, count=n)
+        flat = np.frombuffer("".join(haystacks).encode("utf-32-le"),
+                             dtype=np.uint32).astype(np.int32)
+    else:
+        data = [h.encode("utf-8") for h in haystacks]
+        unit_counts = np.fromiter((len(d) for d in data), dtype=np.int64,
+                                  count=n)
+        flat = np.frombuffer(b"".join(data), dtype=np.uint8)
+        del data
     starts = np.zeros(n + 1, dtype=np.int64)
     np.cumsum(unit_counts, out=starts[1:])
+    if unicode:
+        # UTF-8 bytes per row: a global cumsum of unit byte lengths
+        glob = np.zeros(flat.shape[0] + 1, dtype=np.int64)
+        np.cumsum(_utf8_len(flat), out=glob[1:])
+        nbytes = glob[starts[1:]] - glob[starts[:-1]]
+        del glob
+    else:
+        nbytes = unit_counts  # bytes == units
 
     widths = sorted(set(int(w) for w in bucket_widths))
     max_w = widths[-1]
@@ -369,8 +482,8 @@ def pack_corpus(
                     [rows, np.full(b - rows.size, -1, np.int64)]
                 )
             counts = np.where(rows >= 0, unit_counts[np.maximum(rows, 0)], 0)
-            # flat gather of each row's bytes, fully vectorized
-            cp = np.zeros((b, w), np.uint8)
+            # flat gather of each row's units, fully vectorized
+            cp = np.zeros((b, w), flat.dtype)
             unit_rows = np.repeat(np.arange(b), counts)
             cum = np.zeros(b + 1, dtype=np.int64)
             np.cumsum(counts, out=cum[1:])
@@ -381,11 +494,12 @@ def pack_corpus(
             buckets.append(PackedBucket(
                 width=w,
                 indices=rows.astype(np.int64),
-                cp=cp.view(np.int8),
+                cp=cp if unicode else cp.view(np.int8),
                 n_units=counts.astype(np.int32),
-                n_bytes=counts.astype(np.int32),
+                n_bytes=np.where(rows >= 0, nbytes[np.maximum(rows, 0)],
+                                 0).astype(np.int32),
                 device=dev,
             ))
 
     xl = np.nonzero(xl_mask)[0].astype(np.int64)
-    return Corpus(list(haystacks), False, buckets, xl, dev)
+    return Corpus(list(haystacks), unicode, buckets, xl, dev)

@@ -6,13 +6,15 @@ batched device pass each (``ops/batch.fused_match_sorted_batch``), and
 the ``(Q, 1+k, 2)`` results decode on the host into per-query
 ``(total_count, index, score, exact, end_col)`` arrays.
 
-This slice serves single-pattern ASCII queries with a score sort over
-byte-unit corpora of bucket width <= 1024: fuzzy needles of up to 64
-units with typo budgets of up to 8 (the column-stream kernel for up to
-16 units and budgets of up to 3, the row-major kernel beyond), and
-literal needles (exact, prefix, suffix, substring) of up to 16 bytes.
-Queries and corpora outside that raise NotImplementedError naming the
-slice that ports them.
+This slice serves single-pattern queries with a score sort over corpora
+of bucket width <= 1024: ASCII needles over byte-unit corpora and
+unicode needles (``UnicodeMatching.SMART`` with a non-ASCII needle, or
+any needle under ``ALWAYS``) over codepoint-unit corpora — fuzzy needles
+of up to 64 units with typo budgets of up to 8 (the column-stream kernel
+for up to 16 units and budgets of up to 3, the row-major kernel beyond),
+and literal needles (exact, prefix, suffix, substring) of up to 16
+units. Queries and corpora outside that raise NotImplementedError naming
+the slice that ports them.
 """
 
 from __future__ import annotations
@@ -101,10 +103,6 @@ class Matcher:
                 "slice"
             )
         cp = self._compiled[0]
-        if cp.engine.unicode:
-            raise NotImplementedError(
-                "unicode needles come with the unicode colstream slice"
-            )
         reason = unserved_reason(self._statics()[0],
                                  len(cp.engine.units.orig))
         if reason is not None:
@@ -237,10 +235,6 @@ def _colstream_finalize_cap(corpus, pattern_needles, fetch_rows):
 
 
 def _check_corpus(corpus: Corpus) -> None:
-    if corpus.unicode:
-        raise NotImplementedError(
-            "unicode corpora come with the unicode colstream slice"
-        )
     if len(corpus.xl_indices):
         raise NotImplementedError(
             "corpora with rows wider than the widest bucket need the host "
@@ -262,6 +256,14 @@ def _dispatch_batch_groups(
     groups = {}
     prepared = {}
     for i, m in enumerate(matchers):
+        if m._compiled[0].engine.unicode != corpus.unicode:
+            # the needle's unit mode (reference: src/matcher/mod.rs
+            # respects_unicode) differs from the corpus packing: the
+            # reference repacks per query on its per-query path
+            raise NotImplementedError(
+                "a needle whose unit mode differs from the corpus packing "
+                "comes with the single-query Matcher slice"
+            )
         bits8, statics, use_kernel = m._fused_device_args(corpus)
         if not use_kernel or not config.sort.is_by_score:
             raise NotImplementedError(
@@ -337,7 +339,10 @@ def _resolve_batch(queries, corpus, config):
         for q in queries
     ]
     if not isinstance(corpus, Corpus):
-        corpus = pack_corpus(corpus)
+        # codepoint units when any needle respects unicode
+        unicode = any(cp.engine.unicode for m in matchers
+                      for cp in m._compiled)
+        corpus = pack_corpus(corpus, unicode=unicode)
     return matchers, corpus
 
 
@@ -349,7 +354,8 @@ def match_topk_batch(
 ) -> List[tuple]:
     """Top-k serving: each query returns ``(total_count, index, score,
     exact, end_col)`` with at most the best ``k`` matches materialized on
-    the host. A corpus given as strings is packed on the card."""
+    the host. A corpus given as strings is packed on the card, in
+    codepoint units when any needle respects unicode."""
     return match_topk_batch_async(queries, corpus, config, k).result()
 
 

@@ -40,11 +40,13 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "colstream_fuzzy": (
         "colstream_fuzzy_launch",
-        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P],
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P,
+         _P],
     ),
     "colstream_literal": (
         "colstream_literal_launch",
-        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P],
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P,
+         _P],
     ),
     "row_gather": (
         "row_gather_launch",
@@ -52,7 +54,7 @@ SIGNATURES = {
     ),
     "match_units": (
         "match_units_launch",
-        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P],
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P],
     ),
 }
 

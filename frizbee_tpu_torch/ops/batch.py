@@ -189,7 +189,7 @@ def unserved_reason(st, nlen: int):
         return (f"a needle of {nlen} units with max_typos={typos} comes "
                 "with the generic pipelines slice")
     if mode != FUZZY_MODE and not colstream_literal_supported(nlen):
-        return (f"literal needles of {nlen} bytes (over 16) come with the "
+        return (f"literal needles of {nlen} units (over 16) come with the "
                 "generic pipelines slice")
     return None
 
@@ -297,8 +297,10 @@ def fused_match_sorted_batch(
     corpus: (Q, 1 + fetch_rows, 2) int32 on the corpus device.
 
     :func:`uses_colstream` picks the flow: the colstream flow reads each
-    bucket's ``device_arrays_colstream()`` (and takes ``finalize_cap``),
-    the row-major flow its ``device_arrays_ascii()``. Queries outside
+    bucket's ``device_arrays_colstream()`` (with the ctx plane of a
+    unicode bucket; it takes ``finalize_cap``), the row-major flow its
+    ``device_arrays_rowmajor()`` (bytes, or the codepoints of a unicode
+    bucket). Queries outside
     :func:`unserved_reason` raise NotImplementedError naming the slice
     that ports them."""
     if len(pattern_statics) != 1 or pattern_statics[0][2]:
@@ -330,7 +332,8 @@ def fused_match_sorted_batch(
                            device=dev)
     if not uses_colstream(st, nlen):
         return _row_major_flow(
-            bits8, [b.device_arrays_ascii() for b in buckets], needles_q,
+            bits8, [b.device_arrays_rowmajor() for b in buckets],
+            needles_q,
             T=T, no_prefilter=no_prefilter, scoring=scoring,
             use_stage1=use_stage1, fetch_rows=fetch_rows,
             idx_bits=idx_bits, idx_mask=idx_mask,
@@ -359,11 +362,11 @@ def fused_match_sorted_batch(
     # in-place flow: one kernel launch per bucket covers all Q queries
     keys = []
     for bi, (bits, bt) in enumerate(zip(bits8, buckets_T)):
-        cpT, nuT, idxT, blk_bits = bt
+        cpT, nuT, idxT, blk_bits, ctxT = bt
         W = cpT.shape[0] // blk_bits.shape[0]
         keys.append(match_units_colstream(
             cpT, nuT, pack_needle_scalars(needles_q, bits.shape[0]),
-            flags_T[bi] if flags_T is not None else None, idxT,
+            flags_T[bi] if flags_T is not None else None, idxT, ctxT,
             W=W, n=nlen, max_typos=T, scoring=scoring,
             no_prefilter=no_prefilter, idx_bits=idx_bits, mode=mode,
             needle_byte_len=nbl,

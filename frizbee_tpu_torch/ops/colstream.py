@@ -1,4 +1,4 @@
-"""Column-stream fused prefilter + Smith-Waterman (ASCII fuzzy mode), the
+"""Column-stream fused prefilter + Smith-Waterman (fuzzy mode), the
 column-stream literal match (exact, prefix, suffix, substring) and the
 whole-row gather, each as a CUDA kernel beside its plain PyTorch version.
 
@@ -6,7 +6,11 @@ Counterpart of ``frizbee_tpu/ops/colstream.py``. Rows come in 1024-row
 groups laid out unit-major (``corpus.PackedBucket.device_arrays_colstream``):
 group g's unit column j holds rows g*1024 .. g*1024+1023 contiguously, so
 one thread per row walks its columns and every DP dependency is a
-loop-carried value.
+loop-carried value. The units are int8 bytes (ASCII corpora) or int32
+codepoints (unicode corpora, chosen by cpT's dtype); a unicode row carries
+its byte offset and byte count through the walk, its windows and end
+columns are byte offsets, and its bonus context comes from the int8 ctx
+plane (``corpus.ctx_plane``) when one is given, else from the codepoints.
 
 The wrappers dispatch on the tensor's device: a CPU tensor runs the plain
 version, a CUDA tensor launches the kernel (``csrc/colstream_fuzzy.cu``,
@@ -32,7 +36,14 @@ from typing import Tuple
 import torch
 
 from ..config import MAX_HAYSTACK_LEN
-from ..corpus import GROUP_ROWS
+from ..corpus import (
+    CTX_BLEN_SHIFT,
+    CTX_DELIM_FIRST,
+    CTX_DELIM_LAST,
+    CTX_LOWER_LAST,
+    CTX_UPPER_FIRST,
+    GROUP_ROWS,
+)
 from . import _build
 from ._build import ptr, stream
 from .kernels import (
@@ -43,6 +54,7 @@ from .kernels import (
     is_upper,
     pack_keys,
     prefilter_mode,
+    utf8_context,
 )
 from .literal import EXACT, LITERAL_MODES, PREFIX, SUBSTRING, SUFFIX
 
@@ -70,6 +82,46 @@ def colstream_literal_supported(n: int) -> bool:
     return 1 <= n <= MAX_COLSTREAM_NEEDLE
 
 
+def _bonus_bits(first, last):
+    """The bonus facts of a unit from its first and last byte, in the ctx
+    plane's bit layout (``corpus.ctx_plane``)."""
+    bits = torch.where(is_upper(first), CTX_UPPER_FIRST, 0)
+    bits = bits | torch.where(is_delim(first), CTX_DELIM_FIRST, 0)
+    bits = bits | torch.where(is_lower(last), CTX_LOWER_LAST, 0)
+    return bits | torch.where(is_delim(last), CTX_DELIM_LAST, 0)
+
+
+def _column_reader(cpT, nuT, W, ctxT):
+    """column(j) -> (hay, valid, blen, bits) of unit column j for every
+    row, each (1, nG*1024) int32: the unit values, the unit-count gate,
+    the UTF-8 byte length (0 past the row) and the bonus bits. Bytes are
+    their own first and last byte; codepoints read the ctx plane when
+    ``ctxT`` is given and derive it otherwise (frizbee_tpu's
+    ``_column``)."""
+    nG = cpT.shape[0] // W
+    hay_all = cpT.reshape(nG, W, GROUP_ROWS)
+    ctx_all = None if ctxT is None else ctxT.reshape(nG, W, GROUP_ROWS)
+    nu = nuT.reshape(-1)
+    unicode = cpT.dtype != torch.int8
+
+    def column(j):
+        hay = hay_all[:, j, :].reshape(1, -1).to(torch.int32)
+        valid = (nu > j)[None, :]
+        if not unicode:
+            hay = hay & 0xFF
+            first = torch.where(valid, hay, 0)
+            return hay, valid, valid.to(torch.int32), _bonus_bits(first,
+                                                                  first)
+        if ctx_all is not None:
+            ctx = ctx_all[:, j, :].reshape(1, -1).to(torch.int32)
+            blen = torch.where(valid, (ctx >> CTX_BLEN_SHIFT) & 7, 0)
+            return hay, valid, blen, ctx & 0xF
+        first, last, blen = utf8_context(hay, valid)
+        return hay, valid, blen, _bonus_bits(first, last)
+
+    return column
+
+
 def _alive_rows(scalars, flags, nG):
     """(Q, nG*1024) bool: group alive = live-count bound and stage-1 flag."""
     g0 = torch.arange(nG, device=scalars.device) * GROUP_ROWS
@@ -80,7 +132,7 @@ def _alive_rows(scalars, flags, nG):
 
 
 def match_units_colstream_plain(
-    cpT, nuT, scalars, flags=None, idxT=None, *, W: int, n: int,
+    cpT, nuT, scalars, flags=None, idxT=None, ctxT=None, *, W: int, n: int,
     max_typos: int = 0, scoring: Tuple[int, ...], no_prefilter: bool = False,
     idx_bits: int = 0,
 ):
@@ -88,18 +140,21 @@ def match_units_colstream_plain(
     (query, row), Python loops over unit columns and needle units, line
     for line after ``frizbee_tpu.ops.colstream._match_block``.
 
-    cpT (nG*W, 8, 128) int8, nuT (nG*8, 128) int32, scalars (Q, 130)
-    int32 (``kernels.pack_needle_scalars``; [q, 0] is the live row
-    count), flags (Q, nG) int32 or None. Returns int64 keys (Q, nG*1024)
-    when ``idxT`` (nG*1024,) is given, else the five int32 columns
-    (matched, score, exact, end_col, greedy), each (Q, nG*1024)."""
+    cpT (nG*W, 8, 128) int8 bytes or int32 codepoints, nuT (nG*8, 128)
+    int32, scalars (Q, 130) int32 (``kernels.pack_needle_scalars``;
+    [q, 0] is the live row count), flags (Q, nG) int32 or None, ctxT
+    (nG*W, 8, 128) int8 ctx plane or None (codepoint blocks only).
+    Returns int64 keys (Q, nG*1024) when ``idxT`` (nG*1024,) is given,
+    else the five int32 columns (matched, score, exact, end_col, greedy),
+    each (Q, nG*1024). Windows and end_col are byte offsets."""
     (match_score, mismatch, gap_open, gap_ext, prefix_b, cap_b, case_b,
      exact_b, delim_b) = (int(s) for s in scoring)
     gop_extra = max(gap_open - gap_ext, 0)
     nG = cpT.shape[0] // W
     T = min(int(max_typos), n)
     Q = scalars.shape[0]
-    hay_all = cpT.reshape(nG, W, GROUP_ROWS)
+    unicode = cpT.dtype != torch.int8
+    column = _column_reader(cpT, nuT, W, ctxT)
     nu = nuT.reshape(-1)
     shape = (Q, nu.shape[0])
     dev = cpT.device
@@ -114,31 +169,27 @@ def match_units_colstream_plain(
     def flip_k(k):
         return flip[:, k:k + 1]
 
-    def column(j):
-        hay = (hay_all[:, j, :].reshape(1, -1).to(torch.int32) & 0xFF)
-        return hay, (nu > j)[None, :]
-
     jmaxu = min(int(nu.max()), W) if nu.numel() else 0
-    nb = torch.clamp(nu, max=W)[None, :].expand(shape)
 
-    # ---- pass 1: positional prefilter -----------------------------------
+    # ---- pass 1: byte totals and the positional prefilter ---------------
     auto = (not no_prefilter) and n <= T
     run_pf = (not no_prefilter) and not auto
     ffound, efound = fz.clone(), fz.clone()
     sbyte, ebyte = z.clone(), z.clone()
+    boff = z  # byte offset of column j (== j on a byte row)
 
-    def track(hit_start, hit_end, j):
+    def track(hit_start, hit_end, blen):
         nonlocal ffound, efound, sbyte, ebyte
-        sbyte = torch.where(~ffound & hit_start, j, sbyte)
+        sbyte = torch.where(~ffound & hit_start, boff, sbyte)
         ffound = ffound | hit_start
-        ebyte = torch.where(hit_end, j + 1, ebyte)
+        ebyte = torch.where(hit_end, boff + blen, ebyte)
         efound = efound | hit_end
 
     if run_pf and T == 0:
         # greedy leftmost embedding: np_ = needle units consumed
         np_ = z.clone()
         for j in range(jmaxu):
-            hay, valid = column(j)
+            hay, valid, blen, _bits = column(j)
             occ_np = fz
             hit0 = occ_last = None
             for k in range(n):
@@ -149,15 +200,16 @@ def match_units_colstream_plain(
                 if k == n - 1:
                     occ_last = occ_k
             np2 = np_ + occ_np.to(torch.int32)
-            track(hit0, occ_last & (np2 >= n), j)
+            track(hit0, occ_last & (np2 >= n), blen)
             np_ = np2
+            boff = boff + blen
         matched = np_ >= n
     elif run_pf:
         # minimal-position DP over T+1 deletion budgets
         g = [torch.full(shape, t, dtype=torch.int32, device=dev)
              for t in range(T + 1)]
         for j in range(jmaxu):
-            hay, valid = column(j)
+            hay, valid, blen, _bits = column(j)
             hits = [fz] * (T + 1)
             hit_low, hit_tail = fz, fz
             for k in range(n):
@@ -171,10 +223,16 @@ def match_units_colstream_plain(
             g = [g[t] + hits[t].to(torch.int32) for t in range(T + 1)]
             for t in range(1, T + 1):
                 g[t] = torch.maximum(g[t], g[t - 1] + 1)
-            track(hit_low, hit_tail, j)
+            track(hit_low, hit_tail, blen)
+            boff = boff + blen
         matched = g[T] >= n
     else:
         matched = torch.ones(shape, dtype=torch.bool, device=dev)
+        if unicode:
+            for j in range(jmaxu):
+                boff = boff + column(j)[2]
+    # the row's UTF-8 byte count (its unit count on a byte row)
+    nb = boff if unicode else torch.clamp(nu, max=W)[None, :].expand(shape)
     if run_pf:
         wstart_raw = torch.where(matched & ffound, sbyte, 0)
         wend = torch.where(matched & efound, ebyte, nb)
@@ -185,28 +243,28 @@ def match_units_colstream_plain(
     wstart = torch.clamp(wstart_raw - 1, min=0)
     include_exact = (wstart == 0) & (wend == nb)
     include_prefix = wstart == 0
-    sw_bound = min(int(torch.where(matched, wend, 0).max()), jmaxu)
+    # a byte row's window ends at a unit column, so the walk stops at the
+    # furthest matched window end; a codepoint row's at a byte offset
+    sw_bound = jmaxu if unicode else min(
+        int(torch.where(matched, wend, 0).max()), jmaxu)
     h = [z] * n
-    mm_bits, pctx, seen_first, best, end_b = z, z, z, z, z
+    mm_bits, pctx, seen_first, best, end_b, boff = z, z, z, z, z, z
     for j in range(sw_bound):
-        hay, valid = column(j)
-        first = torch.where(valid, hay, 0)
-        active = valid & (j >= wstart) & (j + 1 <= wend)
+        hay, valid, blen, bits = column(j)
+        active = valid & (boff >= wstart) & (boff + blen <= wend)
         is_first = active & (seen_first == 0)
         seen_first = seen_first | active.to(torch.int32)
-        cap_mask = is_upper(first) & ((pctx & 1) > 0) & ~is_first
-        delim_mask = ((pctx & 2) > 0) & ~is_delim(first) & ~is_first
+        cap_mask = ((bits & CTX_UPPER_FIRST) > 0) & ((pctx & 1) > 0) \
+            & ~is_first
+        delim_mask = ((pctx & 2) > 0) & ((bits & CTX_DELIM_FIRST) == 0) \
+            & ~is_first
         bonus = (
             torch.where(cap_mask, cap_b, 0)
             + torch.where(delim_mask, delim_b, 0)
             + torch.where(is_first & include_prefix, prefix_b, 0)
         )
-        pctx = torch.where(
-            valid,
-            is_lower(first).to(torch.int32)
-            | (is_delim(first).to(torch.int32) << 1),
-            0,
-        )
+        # [lower(last byte), delim(last byte)] for the next column
+        pctx = torch.where(valid, (bits >> 2) & 3, 0)
         diag_in, up_src, mm_prev = z, z, fz
         h_new, mm_new = [], z
         for k in range(n):
@@ -236,15 +294,15 @@ def match_units_colstream_plain(
             mm_new = mm_new | (occ.to(torch.int32) << k)
             if k == n - 1:
                 masked = torch.where(active, cur, 0)
-                end_b = torch.where(masked > best, j, end_b)
+                end_b = torch.where(masked > best, boff, end_b)
                 best = torch.maximum(best, masked)
         h, mm_bits = h_new, mm_new
+        boff = boff + blen
 
     # exact: haystack unit j vs needle unit j, case-sensitive
     neq = fz
     for j in range(min(n, W)):
-        hay, _valid = column(j)
-        neq = neq | (hay != orig_k(j))
+        neq = neq | (column(j)[0] != orig_k(j))
     score = torch.clamp(best, min=0)
     end_col = torch.where(score > 0, end_b, wstart)
     exact = include_exact & (nu == n)[None, :] & ~neq
@@ -265,25 +323,29 @@ def match_units_colstream_plain(
 
 
 def match_units_colstream_literal_plain(
-    cpT, nuT, scalars, flags=None, idxT=None, *, W: int, n: int, mode: str,
-    needle_byte_len: int, scoring: Tuple[int, ...], idx_bits: int = 0,
+    cpT, nuT, scalars, flags=None, idxT=None, ctxT=None, *, W: int, n: int,
+    mode: str, needle_byte_len: int, scoring: Tuple[int, ...],
+    idx_bits: int = 0,
 ):
     """Plain PyTorch version of the literal colstream kernel, line for
-    line after ``frizbee_tpu.ops.colstream._literal_block`` (ASCII): one
-    walk over the unit columns carrying a bitap prefix-alive mask ``D``
-    (bit k = a run of needle units 0..k ends at this column) and per-prefix
-    score sums ``S[k]``; a completed run scores n*match + its bonus/case
-    sum (+ the exact bonus when it covers the whole row, clamped to u16),
-    and a strict ``>`` keeps the earliest best run. EXACT and PREFIX runs
-    can only complete at column n-1, so those modes walk n columns.
+    line after ``frizbee_tpu.ops.colstream._literal_block``: one walk over
+    the unit columns carrying a bitap prefix-alive mask ``D`` (bit k = a
+    run of needle units 0..k ends at this column), per-prefix score sums
+    ``S[k]`` and the runs' start bytes ``SB[k]``; a completed run scores
+    n*match + its bonus/case sum (+ the exact bonus when it covers the
+    whole row, clamped to u16), and a strict ``>`` keeps the earliest best
+    run. EXACT and PREFIX runs can only complete at column n-1, so those
+    modes walk n columns.
 
     Arguments and results as :func:`match_units_colstream_plain` (greedy
-    is always 0, end_col = run start + ``needle_byte_len`` - 1)."""
+    is always 0, end_col = the run's start byte + ``needle_byte_len`` -
+    1; exact needs the run to cover every byte of the row)."""
     (match_score, _mm, _gop, _gex, prefix_b, cap_b, case_b, exact_b,
      delim_b) = (int(s) for s in scoring)
     nG = cpT.shape[0] // W
     Q = scalars.shape[0]
-    hay_all = cpT.reshape(nG, W, GROUP_ROWS)
+    unicode = cpT.dtype != torch.int8
+    column = _column_reader(cpT, nuT, W, ctxT)
     nu = nuT.reshape(-1)
     shape = (Q, nu.shape[0])
     dev = cpT.device
@@ -296,42 +358,39 @@ def match_units_colstream_literal_plain(
 
     D = z
     S = [z] * n
+    SB = [z] * n
     best = torch.full(shape, -1, dtype=torch.int32, device=dev)
-    b_sb, b_p0, pctx = z, z, z
+    b_sb, b_p0, pctx, boff = z, z, z, z
     for j in range(bound):
-        hay = hay_all[:, j, :].reshape(1, -1).to(torch.int32) & 0xFF
-        valid = (nu > j)[None, :]
-        first = torch.where(valid, hay, 0)
+        hay, valid, blen, bits = column(j)
         # column 0 takes the prefix bonus; later columns the capitalization
         # / delimiter context of the previous unit, carried in pctx
         if j == 0:
             bonus = torch.full(shape, prefix_b, dtype=torch.int32, device=dev)
         else:
             bonus = (
-                torch.where(is_upper(first) & ((pctx & 1) > 0), cap_b, 0)
-                + torch.where(((pctx & 2) > 0) & ~is_delim(first), delim_b,
-                              0)
+                torch.where(((bits & CTX_UPPER_FIRST) > 0) & ((pctx & 1) > 0),
+                            cap_b, 0)
+                + torch.where(((pctx & 2) > 0)
+                              & ((bits & CTX_DELIM_FIRST) == 0), delim_b, 0)
             )
-        pctx = torch.where(
-            valid,
-            is_lower(first).to(torch.int32)
-            | (is_delim(first).to(torch.int32) << 1),
-            0,
-        )
+        pctx = torch.where(valid, (bits >> 2) & 3, 0)
         D_new = z
-        S_new = []
+        S_new, SB_new = [], []
         for k in range(n):
             eq_o = valid & (hay == orig[:, k:k + 1])
             occ = eq_o | (valid & (hay == flip[:, k:k + 1]))
             s_k = bonus + torch.where(eq_o, case_b, 0)
             if k == 0:
                 alive = occ
+                sb_k = boff
             else:
                 alive = occ & (((D >> (k - 1)) & 1) > 0)
                 s_k = S[k - 1] + s_k
-            s_k = torch.where(alive, s_k, 0)
+                sb_k = SB[k - 1]
             D_new = D_new | (alive.to(torch.int32) << k)
-            S_new.append(s_k)
+            S_new.append(torch.where(alive, s_k, 0))
+            SB_new.append(torch.where(alive, sb_k, 0))
         done, s_done = alive, S_new[-1]
         # completion: a run of n units ends at column j, so it starts at
         # unit j-n+1 (at unit 0 iff j == n-1)
@@ -352,11 +411,19 @@ def match_units_colstream_literal_plain(
             raise ValueError(f"unknown literal mode {mode!r}")
         upd = sel & (cand > best)
         best = torch.where(upd, cand, best)
-        b_sb = torch.where(upd, j - (n - 1), b_sb)
+        b_sb = torch.where(upd, SB_new[-1], b_sb)
         b_p0 = torch.where(upd, int(at_p0), b_p0)
-        D, S = D_new, S_new
+        D, S, SB = D_new, S_new, SB_new
+        boff = boff + blen
 
-    nb = torch.clamp(nu_row, max=W)
+    # the row's byte count: a byte row's unit count; a codepoint row's
+    # byte sum, walked on past the short modes' bound
+    if unicode:
+        nb = boff
+        for j in range(bound, jmaxu):
+            nb = nb + column(j)[2]
+    else:
+        nb = torch.clamp(nu_row, max=W)
     matched = best >= 0
     score = torch.where(matched, best, 0)
     end_col = torch.where(
@@ -373,15 +440,16 @@ def match_units_colstream_literal_plain(
 
 
 def match_units_colstream(
-    cpT, nuT, scalars, flags=None, idxT=None, *, W: int, n: int,
+    cpT, nuT, scalars, flags=None, idxT=None, ctxT=None, *, W: int, n: int,
     max_typos: int = 0, scoring: Tuple[int, ...], no_prefilter: bool = False,
     idx_bits: int = 0, mode: str = FUZZY_MODE, needle_byte_len: int = 0,
 ):
-    """Fused ASCII match over nG groups of 1024 rows for Q queries in one
+    """Fused match over nG groups of 1024 rows for Q queries in one
     launch (grid = groups x queries): fuzzy mode (default) or a literal
     ``mode`` (exact, prefix, suffix, substring; ``needle_byte_len`` sets
-    end_col, ``max_typos`` is ignored). Arguments and results as
-    :func:`match_units_colstream_plain`.
+    end_col, ``max_typos`` is ignored). cpT's dtype picks the units: int8
+    bytes, or int32 codepoints with the optional int8 ctx plane ``ctxT``.
+    Arguments and results as :func:`match_units_colstream_plain`.
 
     ``flags`` (Q, nG) carries the per-group stage-1 alive bits: a dead
     group holds no stage-1 survivor, so the kernel writes zeros (or
@@ -394,13 +462,14 @@ def match_units_colstream(
     if cpT.device.type == "cpu":
         if literal:
             return match_units_colstream_literal_plain(
-                cpT, nuT, scalars, flags, idxT, W=W, n=n, mode=mode,
+                cpT, nuT, scalars, flags, idxT, ctxT, W=W, n=n, mode=mode,
                 needle_byte_len=needle_byte_len, scoring=scoring,
                 idx_bits=idx_bits,
             )
         return match_units_colstream_plain(
-            cpT, nuT, scalars, flags, idxT, W=W, n=n, max_typos=max_typos,
-            scoring=scoring, no_prefilter=no_prefilter, idx_bits=idx_bits,
+            cpT, nuT, scalars, flags, idxT, ctxT, W=W, n=n,
+            max_typos=max_typos, scoring=scoring, no_prefilter=no_prefilter,
+            idx_bits=idx_bits,
         )
     if cpT.device.type != "cuda":
         raise ValueError(f"unsupported device {cpT.device}")
@@ -410,11 +479,16 @@ def match_units_colstream(
             raise ValueError(f"literal needle length {n} out of range")
     elif not colstream_supported(n, T, no_prefilter):
         raise ValueError(f"needle length {n} / typo budget {T} out of range")
+    unicode = cpT.dtype != torch.int8
+    if not unicode and ctxT is not None:
+        raise ValueError("a ctx plane goes with codepoint blocks only")
     nG = cpT.shape[0] // W
     Q = scalars.shape[0]
     total = nG * GROUP_ROWS
     _build.check_operands(cpT.device, (
-        ("cpT", cpT, torch.int8, (nG * W, 8, 128)),
+        ("cpT", cpT, torch.int32 if unicode else torch.int8,
+         (nG * W, 8, 128)),
+        ("ctxT", ctxT, torch.int8, (nG * W, 8, 128)),
         ("nuT", nuT, torch.int32, (nG * 8, 128)),
         ("scalars", scalars, torch.int32, (Q, 2 + 2 * MAX_KERNEL_NEEDLE)),
         ("flags", flags, torch.int32, (Q, nG)),
@@ -427,13 +501,14 @@ def match_units_colstream(
         cols = torch.empty((5, Q, total), dtype=torch.int32,
                            device=cpT.device)
     _sc, sc_ptr = _build.scoring_arg(scoring)
-    call_args = (cpT, nuT, scalars, flags, idxT)
+    call_args = (cpT, nuT, scalars, flags, idxT, ctxT)
     if literal:
         _build.launch(
             "colstream_literal", cpT.device,
-            ptr(cpT), ptr(nuT), ptr(scalars), ptr(flags), ptr(idxT),
-            Q, nG, W, n, LITERAL_MODES.index(mode), needle_byte_len, sc_ptr,
-            idx_bits, ptr(keys), ptr(cols), stream(cpT),
+            ptr(cpT), ptr(ctxT), ptr(nuT), ptr(scalars), ptr(flags),
+            ptr(idxT), Q, nG, W, n, int(unicode), LITERAL_MODES.index(mode),
+            needle_byte_len, sc_ptr, idx_bits, ptr(keys), ptr(cols),
+            stream(cpT),
             call=(call_args, dict(W=W, n=n, mode=mode,
                                   needle_byte_len=needle_byte_len,
                                   scoring=scoring, idx_bits=idx_bits)),
@@ -441,9 +516,10 @@ def match_units_colstream(
     else:
         _build.launch(
             "colstream_fuzzy", cpT.device,
-            ptr(cpT), ptr(nuT), ptr(scalars), ptr(flags), ptr(idxT),
-            Q, nG, W, n, T, prefilter_mode(n, T, no_prefilter), sc_ptr,
-            idx_bits, ptr(keys), ptr(cols), stream(cpT),
+            ptr(cpT), ptr(ctxT), ptr(nuT), ptr(scalars), ptr(flags),
+            ptr(idxT), Q, nG, W, n, int(unicode), T,
+            prefilter_mode(n, T, no_prefilter), sc_ptr, idx_bits,
+            ptr(keys), ptr(cols), stream(cpT),
             call=(call_args, dict(W=W, n=n, max_typos=max_typos,
                                   scoring=scoring, no_prefilter=no_prefilter,
                                   idx_bits=idx_bits)),

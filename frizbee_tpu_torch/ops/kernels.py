@@ -1,7 +1,9 @@
 """The row-major fused prefilter + Smith-Waterman kernel (``match_units``,
 CUDA kernel ``csrc/match_units.cu`` beside its plain PyTorch version),
 the needle scalar layout and the serving sort key shared by every match
-kernel.
+kernel. Rows are int8 bytes (ASCII corpora) or int32 codepoints (unicode
+corpora), whose UTF-8 context (first and last byte, byte offset and
+length) the kernel derives from the codepoints.
 
 Counterpart of ``frizbee_tpu/ops/kernels.py``. The row-major route serves
 what the column-stream kernels cannot hold in registers: fuzzy needles of
@@ -98,30 +100,67 @@ def _shift_right(x, fill):
     return torch.cat([pad, x[:, :-1]], dim=1)
 
 
-def _match_rows_plain(hay8, nu, orig, flip, *, n, T, scoring, no_prefilter):
-    """Row-major fused match of R rows (R, W) int8 with unit counts nu
-    (R,) against one needle (``orig``/``flip`` lists of n ints), line for
-    line after ``frizbee_tpu.ops.kernels._match_tile`` with one row per
-    vector (lanes = unit columns): the minimal-position prefilter over
-    needle units, lane min/max reductions for the window, and the
-    left-to-right gap recurrence as an exact max-plus prefix scan
-    (``cummax(c + q) - q``). Returns (matched, score, exact, end_col,
-    greedy) int32, each (R,). As in the reference, rows the prefilter
-    rejects still carry the full-row DP's score, exact and end_col."""
+def utf8_context(hay, valid):
+    """(first byte, last byte, byte length) of int32 codepoints, the first
+    byte and length 0 where ``valid`` is false."""
+    blen = (1 + (hay >= 0x80).to(torch.int32) + (hay >= 0x800).to(torch.int32)
+            + (hay >= 0x10000).to(torch.int32))
+    blen = torch.where(valid, blen, 0)
+    first = torch.where(
+        hay < 0x80, hay,
+        torch.where(hay < 0x800, 0xC0 | (hay >> 6),
+                    torch.where(hay < 0x10000, 0xE0 | (hay >> 12),
+                                0xF0 | (hay >> 18))),
+    )
+    first = torch.where(valid, first, 0)
+    last = torch.where(hay < 0x80, hay, 0x80 | (hay & 0x3F))
+    return first, last, blen
+
+
+def _unit_context(hay, valid, col):
+    """(first byte, previous unit's last byte (-1 at the row start and
+    past it), byte offset, byte length, byte count) of (R, W) units, as
+    frizbee_tpu's ``_unit_context`` derives them: bytes are their own
+    first and last byte; codepoints take their UTF-8 lead and last byte
+    and length, and the offsets are the exclusive byte-length sums."""
+    if hay.dtype == torch.int8:
+        first = last = hay.to(torch.int32) & 0xFF
+        blen = valid.to(torch.int32)
+        boff = torch.where(valid, col, 0)
+    else:
+        first, last, blen = utf8_context(hay, valid)
+        boff = _shift_right(torch.cumsum(blen, dim=1, dtype=torch.int32), 0)
+        boff = torch.where(valid, boff, 0)
+    prev = torch.where(valid, _shift_right(last, -1), -1)
+    return first, prev, boff, blen, blen.sum(dim=1, dtype=torch.int32)
+
+
+def _match_rows_plain(hay_in, nu, orig, flip, *, n, T, scoring, no_prefilter):
+    """Row-major fused match of R rows (R, W) — int8 bytes or int32
+    codepoints — with unit counts nu (R,) against one needle
+    (``orig``/``flip`` lists of n ints), line for line after
+    ``frizbee_tpu.ops.kernels._match_tile`` with one row per vector
+    (lanes = unit columns): the minimal-position prefilter over needle
+    units, lane min/max reductions for the window, and the left-to-right
+    gap recurrence as an exact max-plus prefix scan (``cummax(c + q) -
+    q``). Windows and end_col are byte offsets. Returns (matched, score,
+    exact, end_col, greedy) int32, each (R,). As in the reference, rows
+    the prefilter rejects still carry the full-row DP's score, exact and
+    end_col."""
     (match_score, mismatch, gap_open, gap_ext, prefix_b, cap_b, case_b,
      exact_b, delim_b) = (int(s) for s in scoring)
     gop_extra = max(gap_open - gap_ext, 0)
-    R, W = hay8.shape
+    R, W = hay_in.shape
     S = W
     BIG = S + 1
     i32 = torch.int32
-    dev = hay8.device
-    hay = hay8.to(i32) & 0xFF
+    dev = hay_in.device
+    hay = hay_in.to(i32)
+    if hay_in.dtype == torch.int8:
+        hay = hay & 0xFF
     col = torch.arange(W, dtype=i32, device=dev)[None, :]
     valid = col < torch.clamp(nu, max=BIG)[:, None]
-    n_bytes = valid.sum(dim=1, dtype=i32)
-    boff = torch.where(valid, col, 0)
-    blen = valid.to(i32)
+    fb, prev_b, boff, blen, n_bytes = _unit_context(hay_in, valid, col)
     zero = torch.zeros(R, dtype=i32, device=dev)
 
     def lane_min(x):
@@ -193,9 +232,8 @@ def _match_rows_plain(hay8, nu, orig, flip, *, n, T, scoring, no_prefilter):
     active = valid & (boff >= wstart[:, None]) & (boff + blen <= wend[:, None])
     first_unit = lane_min(torch.where(active, col, BIG))
     is_first = active & (col == first_unit[:, None])
-    prev_b = torch.where(valid, _shift_right(hay, -1), -1)
-    cap_mask = is_upper(hay) & is_lower(prev_b) & ~is_first
-    delim_mask = is_delim(prev_b) & ~is_delim(hay) & ~is_first
+    cap_mask = is_upper(fb) & is_lower(prev_b) & ~is_first
+    delim_mask = is_delim(prev_b) & ~is_delim(fb) & ~is_first
     bonus = (
         torch.where(cap_mask, cap_b, 0)
         + torch.where(delim_mask, delim_b, 0)
@@ -281,8 +319,9 @@ def match_units(
     """Row-major fused prefilter + Smith-Waterman for Q queries over one
     bucket in one launch (grid = row blocks x queries).
 
-    cp (B, W) int8 bytes, n_units (B,) int32, scalars (Q, 130) int32
-    (:func:`pack_needle_scalars`; [q, 0] is query q's live count).
+    cp (B, W) int8 bytes or int32 codepoints, n_units (B,) int32,
+    scalars (Q, 130) int32 (:func:`pack_needle_scalars`; [q, 0] is query
+    q's live count).
     ``rows`` (Q, B) int32, when given, is each query's row order: logical
     row i of query q is bucket row ``rows[q, i]`` (the serving flow puts
     stage-1 survivors first); without it logical row i is row i. Only
@@ -304,12 +343,13 @@ def match_units(
         raise ValueError(f"needle length {n} / typo budget {T} out of range")
     B, W = cp.shape
     Q = scalars.shape[0]
+    unicode = cp.dtype != torch.int8
     if W % 4 or W > MAX_HAYSTACK_LEN or cp.data_ptr() % 4:
         raise ValueError(f"row-major kernel wants a 4-byte aligned width "
                          f"<= {MAX_HAYSTACK_LEN}, got {W}")
     n_units = n_units.reshape(-1)
     _build.check_operands(cp.device, (
-        ("cp", cp, torch.int8, (B, W)),
+        ("cp", cp, torch.int32 if unicode else torch.int8, (B, W)),
         ("n_units", n_units, torch.int32, (B,)),
         ("scalars", scalars, torch.int32, (Q, 2 + 2 * MAX_KERNEL_NEEDLE)),
         ("rows", rows, torch.int32, (Q, B)),
@@ -325,7 +365,7 @@ def match_units(
         "match_units", cp.device,
         _build.ptr(cp), _build.ptr(n_units), _build.ptr(scalars),
         _build.ptr(rows), _build.ptr(idx), Q, B, W, n, T,
-        prefilter_mode(n, T, no_prefilter), sc_ptr, idx_bits,
+        prefilter_mode(n, T, no_prefilter), int(unicode), sc_ptr, idx_bits,
         _build.ptr(keys), _build.ptr(cols), _build.stream(cp),
         call=((cp, n_units, scalars, rows, idx),
               dict(n=n, max_typos=max_typos, scoring=scoring,

@@ -167,6 +167,13 @@ def test_default_device_is_the_card(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-def test_unicode_corpus_refused():
-    with pytest.raises(NotImplementedError, match="unicode"):
-        pack_corpus(["héllo"], unicode=True, device="cpu")
+def test_unicode_corpus_packs_on_cpu():
+    """A unicode corpus packs codepoint units on the CPU, with UTF-8 byte
+    counts beside the unit counts."""
+    c = pack_corpus(["héllo", "€𐍈", ""], unicode=True, device="cpu")
+    assert c.unicode and c.device == torch.device("cpu")
+    (b,) = c.buckets
+    assert b.cp.dtype == np.int32 and b.unicode
+    assert b.n_units[:3].tolist() == [5, 2, 0]
+    assert b.n_bytes[:3].tolist() == [6, 7, 0]
+    assert b.cp[1, :2].tolist() == [0x20AC, 0x10348]
