@@ -13,8 +13,12 @@ Builds the package's CUDA kernels from ``frizbee_tpu_torch/csrc`` (one
    modes, flags and key-emit on and off, at Q=32; the row-major kernel on
    every bucket at (n=8, T=4), (n=24, T=0) and (n=24, no prefilter), all
    rows in five-column mode and a live count below B through a random
-   row order in key-emit mode; the row gather at the capped finalize and
-   broad tournament shapes; and the unicode variant of each match kernel
+   row order in key-emit mode, and at every template boundary (needle
+   lengths 8-64 x typo budgets 0-8, byte and codepoint rows, both modes)
+   on a bucket with all-matched, all-rejected and mixed blocks; the row
+   gather at 128-, 256-, 384- and 2048-word rows, 1, 7 and the capped
+   finalize's or broad tournament's rows; and the unicode variant of each
+   match kernel
    on every bucket of a 1M-row Arabic codepoint corpus at Q=16 (the
    colstream kernels with the ctx plane, the plain versions on a subset
    of groups; the row-major kernel at (n=8, T=4) through a row order and
@@ -35,8 +39,10 @@ Builds the package's CUDA kernels from ``frizbee_tpu_torch/csrc`` (one
 3. timing phase: the launches of one more batch of each path, captured
    (``_build.CAPTURE``) and replayed per kernel — held bit-equal to its
    plain version on the same arguments, then timed (CUDA events, warmed
-   up) beside the bound this run's data needs, its plain version and, for
-   the row gather, ``torch.index_select``;
+   up, queued behind a device sleep so host launch overhead leaves no
+   gaps) beside the bound this run's data needs, its plain version and,
+   for the row gather (ASCII and unicode paths apart, and per path),
+   ``torch.index_select``;
 4. profile phase: torch.profiler over blocking fuzzy batches, ASCII and
    unicode (wall time, device busy time, top kernels and host
    operations) and cProfile over one ASCII batch;
@@ -78,6 +84,8 @@ DEPTH, RUNS = 3, 10
 # lanes per SM are the float32 pipe) x 132 SMs x 1.98 GHz
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# cycles of torch.cuda._sleep per second at the H100 SXM's boost clock
+SLEEP_CYCLES_PER_S = 1.98e9
 INT64_MAX = (1 << 63) - 1  # the key of an unmatched row
 # int32 operations per (column, needle unit) cell of the colstream
 # kernel: prefilter (2 compares, or, compare, and, or) and SW DP
@@ -93,9 +101,13 @@ LIT_OPS_PER_COLUMN = 12
 LIT_OPS_PER_REST = 3
 # row-major kernel, per column of a live row's prefilter: table load,
 # byte extract and the window tests, plus 3 per DP state (shift-test,
-# add, closure max) at T > 0; its SW cell costs SW_OPS_PER_CELL
+# add, closure max) at T > 0; per SW cell: 3 bit tests (unit match,
+# case match, previous column's match), 3 selects (case bonus, hit or
+# mismatch, left gap), add, subtract, the up move's gap select and the
+# two DPX add-max instructions that carry the serial path
 RM_PF_OPS_PER_COLUMN = 6
 RM_PF_OPS_PER_STATE = 3
+RM_SW_OPS_PER_CELL = 11
 
 LITERAL_WRAP = (("'", ""), ("^", ""), ("", "$"), ("^", "$"))
 TYPO_BUDGET = 4
@@ -116,6 +128,13 @@ UNICODE_NEEDLE = {"arabic": "إن", "korean": "니다"}
 PLAIN_GROUPS = 48
 # row-major plain versions run on at most this many live rows per query
 PLAIN_ROWS = 65536
+# the row-major kernel's template boundaries the kernel phase checks, on
+# a bucket of this many rows of this width
+RM_BOUNDARY_N = (8, 16, 17, 24, 32, 33, 64)
+RM_BOUNDARY_T = (0, 1, 2, 3, 4, 5, 8)
+RM_BOUNDARY_B, RM_BOUNDARY_W = 640, 128
+# row widths (4-byte words) the row gather is checked at
+GATHER_CHECK_C = (128, 256, 384, 2048)
 
 
 def _queries(q, base="deadbeef"):
@@ -174,12 +193,21 @@ def _long_corpus(num_samples, seed=42):
 
 
 def _time_ms(fn, reps=5, warm=2):
-    """Mean device time of fn() in ms, CUDA events around ``reps`` calls."""
+    """Mean device time of fn() in ms, CUDA events around ``reps`` calls.
+    The calls queue behind a device sleep that outlasts their enqueue, so
+    the host's launch overhead leaves no gaps between them on the card
+    (a small launch can be quicker on the card than its Python wrapper
+    on the host)."""
     for _ in range(warm):
         fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(int(2 * reps * host_s * SLEEP_CYCLES_PER_S) + 10_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -259,30 +287,156 @@ def kernel_phase(corpus, detail):
                     checks += 1
                     del got, want, pairs
     gather_shapes = _gather_shapes(corpus)
-    g = torch.Generator(device=dev).manual_seed(5)
-    for name, (R, C, M) in gather_shapes.items():
-        data = torch.randint(-(2**31), 2**31 - 1, (R, C), generator=g,
-                             dtype=torch.int32, device=dev)
-        rows = torch.randint(0, R, (M,), generator=g, dtype=torch.int32,
-                             device=dev)
-        err = _max_abs_err(cs.row_gather(data, rows),
-                           cs.row_gather_plain(data, rows))
-        errs["row_gather"] = max(errs["row_gather"], err)
-        if err:
-            raise AssertionError(f"row_gather != plain at {name}")
-        checks += 1
+    rg = _row_gather_checks(dev, errs, gather_shapes)
     lit = _literal_kernel_checks(corpus, errs)
     rm = _rowmajor_kernel_checks(corpus, errs)
-    checks += lit + rm
+    rmx = _rowmajor_boundary_checks(dev, errs)
+    checks += rg + lit + rm + rmx
     detail["kernel_checks"] = checks
     print(f"kernel phase: {checks} kernel-vs-plain checks bit-equal "
           f"(colstream fuzzy Q={Q} x {len(corpus.buckets)} buckets x "
           f"T=0,1,none x flags x key-emit; colstream literal {lit}: "
           f"buckets x 4 modes x flags x key-emit; match_units {rm}: "
           f"buckets x (n=8,T=4),(n=24,T=0),(n=24,none) x all rows / "
-          f"random row order; row_gather {sorted(gather_shapes)})",
+          f"random row order; match_units {rmx} at the template "
+          f"boundaries: n {RM_BOUNDARY_N} x T {RM_BOUNDARY_T} x bytes, "
+          f"codepoints x columns, key-emit; row_gather {rg}: C "
+          f"{GATHER_CHECK_C} x M 1, 7, served {gather_shapes})",
           flush=True)
     return errs
+
+
+def _row_gather_checks(dev, errs, gather_shapes):
+    """The row gather against its plain version at every row width it
+    has a path for (C = 128 a generic vector a lane, 256 the tournament's,
+    384 three, 2048 the capped finalize's) and M = 1, 7 and a served size
+    (the capped gather's at C=2048, the tournament's elsewhere), over R
+    served rows, the ids including 0 and R-1."""
+    from frizbee_tpu_torch.ops import colstream as cs
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    checks = 0
+    for C in GATHER_CHECK_C:
+        R, _c, M_served = gather_shapes["capped" if C == 2048 else "broad"]
+        data = torch.randint(-(2**31), 2**31 - 1, (R, C), generator=g,
+                             dtype=torch.int32, device=dev)
+        cases = [torch.tensor([0]), torch.tensor([R - 1])]
+        for M in (7, M_served):
+            rows = torch.randint(0, R, (M,), generator=g, device=dev)
+            rows[0], rows[-1] = 0, R - 1
+            cases.append(rows)
+        for rows in cases:
+            rows = rows.to(device=dev, dtype=torch.int32)
+            _check_equal(errs, "row_gather", cs.row_gather(data, rows),
+                         cs.row_gather_plain(data, rows),
+                         f"C={C} M={rows.numel()} R={R}")
+            checks += 1
+        del data
+    return checks
+
+
+def _boundary_bucket(rng, n, T, unicode):
+    """(cp (B, W), n_units (B,), needle orig + flip (2n,)) of a bucket
+    whose first block of rows all carry the needle with at most T units
+    dropped (all matched), whose second block holds no needle unit (all
+    rejected at T < n), and whose other blocks mix both in every warp,
+    over row lengths 0..W. Byte rows or codepoints of 1-4 UTF-8 bytes."""
+    B, W = RM_BOUNDARY_B, RM_BOUNDARY_W
+    if unicode:
+        pool = np.array([0x0627, 0x0644, 0x0645, 0x0646, 0x0647, 0x0648,
+                         0x61, 0x62, 0x43])
+        filler = np.array([0xAC00, 0xAC01, 0xE9, 0x1F600, 0x10348, 0x2F,
+                           0x78, 0x59])
+    else:
+        pool = np.frombuffer(b"abcdefghABCDEFGH", np.uint8).astype(np.int64)
+        filler = np.frombuffer(b"qrstuvwxyzQRSTUVWXYZ0123456789/_-",
+                               np.uint8).astype(np.int64)
+
+    def swapcase(u):
+        upper = (u >= 0x41) & (u <= 0x5A)
+        lower = (u >= 0x61) & (u <= 0x7A)
+        return np.where(upper, u + 32, np.where(lower, u - 32, u))
+
+    orig = rng.choice(pool, n)
+    flip = swapcase(orig)
+    cp = rng.choice(filler, (B, W))
+    nu = rng.integers(0, W + 1, B)
+    rb = max(32, min(128, (32768 // (4 * W if unicode else W)) & ~31))
+    for r in range(rb, B):
+        if r >= 2 * rb:
+            sprinkle = rng.random(W) < 0.1
+            cp[r, sprinkle] = rng.choice(pool, int(sprinkle.sum()))
+    for r in list(range(rb)) + list(range(2 * rb, B)):
+        if r >= 2 * rb and rng.random() < 0.3:
+            continue
+        drop = int(rng.integers(0, T + (1 if r < rb else 3)))
+        keep = np.sort(rng.permutation(n)[:max(n - drop, 0)])
+        units = np.where(rng.random(len(keep)) < 0.3, flip[keep], orig[keep])
+        nu[r] = max(nu[r], len(units))
+        pos = np.sort(rng.choice(nu[r], len(units), replace=False))
+        cp[r, pos] = units
+    cp = np.where(np.arange(W)[None, :] < nu[:, None], cp, 0)
+    cp = cp.astype(np.int32 if unicode else np.uint8)
+    if not unicode:
+        cp = cp.view(np.int8)
+    return cp, nu.astype(np.int32), np.concatenate([orig, flip])
+
+
+def _rowmajor_boundary_checks(dev, errs):
+    """The row-major kernel against its plain version at every template
+    boundary: needle lengths RM_BOUNDARY_N (NMAX 16, 32, 64 and their
+    edges) x typo budgets RM_BOUNDARY_T (the greedy embedding, TMAX 1, 2,
+    4, 8 and the budgets between), byte and codepoint rows, in columns
+    mode (identity order) and key-emit mode (the identity order for one
+    query, a random order for the other), two queries with their own live
+    counts over :func:`_boundary_bucket`'s blocks."""
+    from frizbee_tpu_torch.ops import kernels as km
+
+    rng = np.random.default_rng(23)
+    scorings = (km.DEFAULT_SCORING, (10, 3, 1, 2, 7, 5, 2, 6, 9))
+    B = RM_BOUNDARY_B
+    counts = (B - 37, B // 3 + 5)
+    checks = 0
+    for unicode in (False, True):
+        for n in RM_BOUNDARY_N:
+            for T in RM_BOUNDARY_T:
+                cp_np, nu_np, needle = _boundary_bucket(rng, n, T, unicode)
+                cp = torch.from_numpy(cp_np).to(dev)
+                nu = torch.from_numpy(nu_np).to(dev)
+                nq = torch.from_numpy(np.stack([needle, needle])).to(dev)
+                idx = torch.from_numpy(rng.permutation(B).astype(np.int32))
+                idx[torch.from_numpy(rng.random(B) < 0.05)] = -1
+                idx = idx.to(dev)
+                rows = torch.from_numpy(np.stack([
+                    np.arange(B), rng.permutation(B)]).astype(np.int32)).to(
+                        dev)
+                kw = dict(n=n, max_typos=T, scoring=scorings[(n + T) % 2],
+                          idx_bits=10)
+                scal = km.pack_needle_scalars(nq, B)
+                want = km.match_units_plain(cp, nu, scal, **kw)
+                scal[:, 0] = torch.tensor(counts)
+                what = (f"{'codepoints' if unicode else 'bytes'} n={n} "
+                        f"T={T}")
+                got = km.match_units(cp, nu, scal, **kw)
+                torch.cuda.synchronize()
+                want_cols = torch.zeros_like(want)
+                want_keys = torch.full((2, B), INT64_MAX, dtype=torch.int64,
+                                       device=dev)
+                for q, c in enumerate(counts):
+                    want_cols[q, :c] = want[q, :c]
+                    sel = rows[q, :c].to(torch.int64)
+                    w = want[q, sel]
+                    want_keys[q, :c] = km.pack_keys(
+                        w[:, 0], w[:, 1], w[:, 2], w[:, 3], w[:, 4], idx[sel],
+                        10)
+                _check_equal(errs, "match_units", got, want_cols,
+                             what + " columns")
+                got = km.match_units(cp, nu, scal, rows, idx, **kw)
+                torch.cuda.synchronize()
+                _check_equal(errs, "match_units", got, want_keys,
+                             what + " keys")
+                checks += 2
+    return checks
 
 
 def _group_slice(t, groups, per_group):
@@ -788,16 +942,19 @@ def _colstream_work(args, kw, keys):
     return ops, in_bytes, out_bytes
 
 
-def _match_units_work(args, kw, keys):
+def _match_units_work(args, kw, out):
     """(int32 operations, bytes read, bytes written) that one row-major
     launch's data needs: each query's live rows (the first count of its
-    row order) run the prefilter to their length, and a matched row's DP
-    covers >= n - T columns. Bytes count each row some query reads (its
-    units — 1 byte, or 4 for codepoints — unit count and index) once,
-    the order entries read, the scalars and the keys."""
-    from frizbee_tpu_torch.ops.kernels import PF_NONE, prefilter_mode
+    row order) run the prefilter to their length, and the DP walks n
+    cells a column over the trimmed window [max(start - 1, 0), end) of
+    each matched row (every live row in columns mode), the window pass 1
+    leaves (``kernels.prefilter_window``, ``kernels.window_units``).
+    Bytes count each row some query reads (its units — 1 byte, or 4 for
+    codepoints — unit count and index) once, the order entries read, the
+    scalars and the output."""
+    from frizbee_tpu_torch.ops import kernels as km
 
-    cp, nu, scal, rows, _idx = args
+    cp, nu, scal, rows, idx = args
     B, W = cp.shape
     n = kw["n"]
     T = min(int(kw["max_typos"]), n)
@@ -811,13 +968,27 @@ def _match_units_work(args, kw, keys):
     in_bytes = (float((read * (lens * cp.element_size() + 8)).sum())
                 + 4 * scal.numel()
                 + (4 * float(cnt.sum()) if rows is not None else 0))
-    pf_mode = prefilter_mode(n, T, kw["no_prefilter"])
-    pf_per_col = 0 if pf_mode == PF_NONE else RM_PF_OPS_PER_COLUMN + (
+    pf_mode = km.prefilter_mode(n, T, kw["no_prefilter"])
+    pf_per_col = 0 if pf_mode == km.PF_NONE else RM_PF_OPS_PER_COLUMN + (
         RM_PF_OPS_PER_STATE * (T + 1) if T else 0)
-    matched = float((keys != INT64_MAX).sum())
-    ops = live_cols * pf_per_col + matched * max(n - T, 1) * n * \
-        SW_OPS_PER_CELL
-    return ops, in_bytes, 8 * keys.numel()
+    dp_cols = 0.0
+    sc = scal.cpu()
+    for q, c in enumerate(cnt.tolist()):
+        if c == 0:
+            continue
+        sel = (torch.arange(c, device=cp.device) if rows is None
+               else rows[q, :c].to(torch.int64))
+        hay, units = cp[sel], nu.reshape(-1)[sel]
+        matched, ws, we, _nb = km.prefilter_window(
+            hay, units, sc[q, 2:2 + n].tolist(),
+            sc[q, 2 + km.MAX_KERNEL_NEEDLE:2 + km.MAX_KERNEL_NEEDLE + n]
+            .tolist(), n=n, T=T, no_prefilter=kw["no_prefilter"])
+        walked = km.window_units(hay, units, ws, we)
+        if idx is not None:
+            walked = walked[matched]
+        dp_cols += float(walked.sum())
+    ops = live_cols * pf_per_col + dp_cols * n * RM_SW_OPS_PER_CELL
+    return ops, in_bytes, out.numel() * out.element_size()
 
 
 def _gather_work(args, _kw, out):
@@ -883,6 +1054,10 @@ KERNELS = (
     ("row_gather", "row_gather", "frizbee_tpu_torch/csrc/row_gather.cu",
      "frizbee_tpu/ops/colstream.py:749",
      ("fuzzy", "literal", "typo", "long_needle")),
+    ("row_gather_unicode", "row_gather",
+     "frizbee_tpu_torch/csrc/row_gather.cu",
+     "frizbee_tpu/ops/colstream.py:749",
+     ("unicode_fuzzy", "unicode_literal", "unicode_typo")),
     ("match_units", "match_units", "frizbee_tpu_torch/csrc/match_units.cu",
      "frizbee_tpu/ops/kernels.py:632", ("typo", "long_needle")),
     ("colstream_fuzzy_unicode", "colstream_fuzzy",
@@ -919,17 +1094,14 @@ def timing_phase(paths, serving, errs, detail):
     paths_q = {label: p[1] for label, p in paths.items()}
     entries = []
     detail["timing"] = {}
-    detail["unicode_row_gather_launches"] = {
-        p: serving[p]["launches"]["row_gather"] for p in serving
-        if p.startswith("unicode")
-    }
     for entry, name, source, replaces, paths in KERNELS:
         per_path = {p: [c for k, c in calls[p] if k == name] for p in paths}
+        assert any(per_path.values()), f"{entry}: no launch captured"
         nums, work = _replay(entry, name, sum(per_path.values(), []), errs)
         if len(paths) > 1:
-            work["ms_per_path"] = {
-                p: _replay(entry, name, c, errs)[0]["ms"]
-                for p, c in per_path.items()
+            work["per_path"] = {
+                p: _replay(entry, name, c, errs)[0]
+                for p, c in per_path.items() if c
             }
         work["per"] = "one batch of each of " + ", ".join(
             f"{p} (Q={len(paths_q[p])})" for p in paths)

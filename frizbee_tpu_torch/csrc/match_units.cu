@@ -27,18 +27,22 @@
 // (cudaFuncAttributeMaxDynamicSharedMemorySize; 227 KB per block on H100)
 // rather than staging fewer rows.
 //
-// The needle arrives as 64-bit unit masks per value (the units a value
-// matches, orig or flip; the units whose original case it equals), so the
-// T=0 greedy embedding and the T+1-state minimal-position DP cost O(T) per
-// column, not O(n*T), and the DP's per-unit match bits are bit tests of one
-// register pair. Bytes index two 256-entry tables. Codepoints look up a
-// 256-slot open-addressing hash table in shared memory holding the
-// needle's <= 128 distinct orig/flip values: each value's masks are built
-// by the thread that inserts it (one thread per needle value, atomicCAS on
-// the key), so a lookup equals ``c == orig[k] || c == flip[k]`` bit for
-// bit, and a value outside the needle ends its probe at an empty slot.
-// h[k] lives in registers; the kernel is templated on a ceiling NMAX in
-// {16, 32, 64} with the needle length n at run time.
+// The needle arrives as unit masks per value (the units a value matches,
+// orig or flip; the units whose original case it equals), 32-bit words
+// for needles of up to 32 units (one shared-memory bank a lookup, one
+// 32-bit shift a test), else 64-bit. So the T=0 greedy embedding and the
+// minimal-position DP cost O(T) per column, not O(n*T), and the SW DP's
+// per-unit match bits are bit tests of one register. Bytes index two
+// 256-entry tables. Codepoints look up a 256-slot open-addressing hash
+// table in shared memory holding the needle's <= 128 distinct orig/flip
+// values: each value's masks are built by the thread that inserts it (one
+// thread per needle value, atomicCAS on the key), so a lookup equals
+// ``c == orig[k] || c == flip[k]`` bit for bit, and a value outside the
+// needle ends its probe at an empty slot. h[k] lives in registers; the
+// kernel is templated on a ceiling NMAX in {16, 32, 64} with the needle
+// length n at run time, and on a ceiling TMAX in {1, 2, 4, 8} of the typo
+// budget T of the minimal-position DP (TMAX = 0: the greedy embedding or
+// no prefilter), so a budget of 4 runs 5 DP states, not 9.
 //
 // A codepoint row's window and end_col are UTF-8 byte offsets: each column
 // derives its lead and last byte and length from the codepoint (as
@@ -47,12 +51,22 @@
 //
 // As in _match_tile, rows the prefilter rejects still run the DP over the
 // full row in columns mode (their score, exact and end_col are part of the
-// (B, 8) result); key-emit mode writes their sentinel without it.
+// (B, 8) result), each thread on its own row. Key-emit mode writes their
+// sentinel without it and, behind the typo-budget prefilter, compacts
+// the block's matched rows: a warp ballot and a block prefix put each
+// matched row's (staged slot, window, byte count) into a shared queue in
+// row order, and threads 0..m-1 run the DP on the queue, so every lane of
+// a DP warp has a row and the other warps end after pass 1. The DP cell
+// takes Hopper's DPX add-max instructions (__viaddmax_s32,
+// __viaddmax_s32_relu): two on the cell's serial path from the unit
+// before.
 //
 // Bound on this card: integer ALU work, ~14 int32 operations per (column,
-// needle unit) cell of each matched row's window plus ~6 + 3(T+1) per
-// column of every live row's prefilter, against W bytes (4W for
+// needle unit) cell of each matched row's trimmed window plus ~6 + 3(T+1)
+// per column of every live row's prefilter, against W bytes (4W for
 // codepoints) per live row.
+
+#include <type_traits>
 
 #include "kernel_common.cuh"
 
@@ -83,23 +97,33 @@ int block_rows(int W, bool unicode) {
 // staged words per row: W bytes pack 4 to a word; codepoints are a word
 int row_words(int W, bool unicode) { return unicode ? W : W / 4; }
 
+// resident blocks per SM asked of ptxas, by needle ceiling (h[NMAX] in
+// registers): 128-thread blocks at <= 128 registers (NMAX 16, 32) and
+// <= 168 (NMAX 64)
+template <int NMAX>
+constexpr int kMinBlocks = NMAX <= 32 ? 4 : 3;
+
 __device__ __forceinline__ int hash_slot(int c) {
   return (int)(((unsigned)c * 2654435761u) >> 24);
 }
 
-template <int NMAX, bool UNICODE>
-__global__ void __launch_bounds__(kMaxThreads) match_units_kernel(
-    const void* __restrict__ cp, const int* __restrict__ n_units,
-    const int* __restrict__ scalars, const int* __restrict__ rows,
-    const int* __restrict__ idx, int B, int W, int n, int T, int pf_mode,
-    Scoring sc, int idx_bits, long long* __restrict__ keys_out,
-    int* __restrict__ cols_out) {
+template <int NMAX, int TMAX, bool UNICODE>
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks<NMAX>)
+    match_units_kernel(const void* __restrict__ cp, const int* __restrict__ n_units,
+                       const int* __restrict__ scalars, const int* __restrict__ rows,
+                       const int* __restrict__ idx, int B, int W, int n, int T,
+                       int pf_mode, Scoring sc, int idx_bits,
+                       long long* __restrict__ keys_out, int* __restrict__ cols_out) {
+  using Mask = std::conditional_t<(NMAX <= 32), uint32_t, unsigned long long>;
+  constexpr int kMaskBits = 8 * sizeof(Mask);
   extern __shared__ uint32_t s_hay[];                // rows x (words + 1)
   // bytes: byte value -> masks; codepoints: hash slot -> masks of s_key
-  __shared__ unsigned long long s_occ[256];          // units it matches
-  __shared__ unsigned long long s_eq[256];           // units it equals (orig)
-  __shared__ int s_key[kHashSlots];
+  __shared__ Mask s_occ[256];                        // units it matches
+  __shared__ Mask s_eq[256];                         // units it equals (orig)
+  __shared__ int s_key[UNICODE ? kHashSlots : 1];
   __shared__ int s_row[kMaxThreads];
+  __shared__ int4 s_queue[kMaxThreads];              // slot, wstart, wend, nb
+  __shared__ int s_warp_n[kMaxThreads / 32];
 
   const int rb = blockDim.x;
   const int tid = threadIdx.x;
@@ -112,59 +136,8 @@ __global__ void __launch_bounds__(kMaxThreads) match_units_kernel(
   const int words = UNICODE ? W : W / 4;
   const int stride = words + 1;
 
-  if (i0 < count) {
-    if (UNICODE) {
-      for (int c = tid; c < kHashSlots; c += rb) s_key[c] = -1;
-      __syncthreads();
-      // one thread per needle value (orig then flip): its masks, then its
-      // slot; a value already present was inserted with the same masks
-      for (int t = tid; t < 2 * n; t += rb) {
-        const int v = t < n ? scal[2 + t] : scal[2 + kMaxNeedle + t - n];
-        unsigned long long occ = 0, eq = 0;
-        for (int k = 0; k < n; ++k) {
-          const int o = scal[2 + k];
-          if (v == o) eq |= 1ull << k;
-          if (v == o || v == scal[2 + kMaxNeedle + k]) occ |= 1ull << k;
-        }
-        int h = hash_slot(v);
-        while (true) {
-          const int prev = atomicCAS(&s_key[h], -1, v);
-          if (prev == -1) {
-            s_occ[h] = occ;
-            s_eq[h] = eq;
-            break;
-          }
-          if (prev == v) break;
-          h = (h + 1) & (kHashSlots - 1);
-        }
-      }
-    } else {
-      for (int c = tid; c < 256; c += rb) {
-        unsigned long long occ = 0, eq = 0;
-        for (int k = 0; k < n; ++k) {
-          const int o = scal[2 + k];
-          if (c == o) eq |= 1ull << k;
-          if (c == o || c == scal[2 + kMaxNeedle + k]) occ |= 1ull << k;
-        }
-        s_occ[c] = occ;
-        s_eq[c] = eq;
-      }
-    }
-    s_row[tid] = i < count ? (rows != nullptr ? rows[out_i] : i) : -1;
-    __syncthreads();
-    // stage the block's live rows: consecutive threads, consecutive words
-    for (int c = tid; c < rb * words; c += rb) {
-      const int r = c / words;
-      const int w = c - r * words;
-      const int row = s_row[r];
-      if (row >= 0)
-        s_hay[r * stride + w] =
-            static_cast<const uint32_t*>(cp)[(long long)row * words + w];
-    }
-    __syncthreads();
-  }
-  if (i >= B) return;
-  if (i >= count) {
+  if (i0 >= count) {  // the whole block lies past the live count
+    if (i >= B) return;
     if (keys_out != nullptr) {
       keys_out[out_i] = kKeySentinel;
     } else {
@@ -174,169 +147,275 @@ __global__ void __launch_bounds__(kMaxThreads) match_units_kernel(
     return;
   }
 
-  const int row = s_row[tid];
-  const int nu = n_units[row];
-  const int len = min(nu, W);
-  const uint32_t* hay = s_hay + tid * stride;
-  auto unit = [&](int j) -> int {
-    return UNICODE ? (int)hay[j] : (int)((hay[j >> 2] >> ((j & 3) * 8)) & 0xFFu);
-  };
+  if constexpr (UNICODE) {
+    for (int c = tid; c < kHashSlots; c += rb) s_key[c] = -1;
+    __syncthreads();
+    // one thread per needle value (orig then flip): its masks, then its
+    // slot; a value already present was inserted with the same masks
+    for (int t = tid; t < 2 * n; t += rb) {
+      const int v = t < n ? scal[2 + t] : scal[2 + kMaxNeedle + t - n];
+      Mask occ = 0, eq = 0;
+      for (int k = 0; k < n; ++k) {
+        const int o = scal[2 + k];
+        if (v == o) eq |= Mask(1) << k;
+        if (v == o || v == scal[2 + kMaxNeedle + k]) occ |= Mask(1) << k;
+      }
+      int h = hash_slot(v);
+      while (true) {
+        const int prev = atomicCAS(&s_key[h], -1, v);
+        if (prev == -1) {
+          s_occ[h] = occ;
+          s_eq[h] = eq;
+          break;
+        }
+        if (prev == v) break;
+        h = (h + 1) & (kHashSlots - 1);
+      }
+    }
+  } else {
+    for (int c = tid; c < 256; c += rb) {
+      Mask occ = 0, eq = 0;
+      for (int k = 0; k < n; ++k) {
+        const int o = scal[2 + k];
+        if (c == o) eq |= Mask(1) << k;
+        if (c == o || c == scal[2 + kMaxNeedle + k]) occ |= Mask(1) << k;
+      }
+      s_occ[c] = occ;
+      s_eq[c] = eq;
+    }
+  }
+  s_row[tid] = i < count ? (rows != nullptr ? rows[out_i] : i) : -1;
+  __syncthreads();
+  // stage the block's live rows: consecutive threads, consecutive words
+  for (int c = tid; c < rb * words; c += rb) {
+    const int r = c / words;
+    const int w = c - r * words;
+    const int row = s_row[r];
+    if (row >= 0)
+      s_hay[r * stride + w] =
+          static_cast<const uint32_t*>(cp)[(long long)row * words + w];
+  }
+  __syncthreads();
+
   // where the needle masks of value c live: its byte, or its hash slot
   // (-1 when c is no needle value)
   auto slot_of = [&](int c) -> int {
-    if (!UNICODE) return c;
-    int h = hash_slot(c);
-    while (s_key[h] != c && s_key[h] != -1) h = (h + 1) & (kHashSlots - 1);
-    return s_key[h] == c ? h : -1;
+    if constexpr (!UNICODE) {
+      return c;
+    } else {
+      int h = hash_slot(c);
+      while (s_key[h] != c && s_key[h] != -1) h = (h + 1) & (kHashSlots - 1);
+      return s_key[h] == c ? h : -1;
+    }
   };
   // the units value c matches (orig or flip), and those it equals (orig)
-  auto occ_at = [&](int s) -> unsigned long long { return s >= 0 ? s_occ[s] : 0ull; };
-  auto eq_at = [&](int s) -> unsigned long long { return s >= 0 ? s_eq[s] : 0ull; };
+  auto occ_at = [&](int s) -> Mask { return s >= 0 ? s_occ[s] : Mask(0); };
+  auto eq_at = [&](int s) -> Mask { return s >= 0 ? s_eq[s] : Mask(0); };
+  auto unit_of = [&](const uint32_t* hay, int j) -> int {
+    return UNICODE ? (int)hay[j] : (int)((hay[j >> 2] >> ((j & 3) * 8)) & 0xFFu);
+  };
   auto blen_of = [&](int c) -> int { return UNICODE ? ctx_blen(codepoint_ctx(c)) : 1; };
 
   // ---- pass 1: positional prefilter -> matched, byte window [start, end)
   // and the row's byte count nb
+  const bool live = i < count;
   bool matched = true;
-  int wstart_raw = 0, wend = 0, nb = len;
-  if (pf_mode == kPfGreedy) {
-    // greedy leftmost embedding; start = first hit of needle[0], end =
-    // last occurrence of the final unit at or after completion
-    int np = 0, sbyte = 0, ebyte = 0, boff = 0;
-    bool ffound = false, efound = false;
-    for (int j = 0; j < len; ++j) {
-      const int c = unit(j);
-      const int bl = blen_of(c);
-      const unsigned long long m = occ_at(slot_of(c));
-      if (!ffound && (m & 1ull)) { ffound = true; sbyte = boff; }
-      if (np < n && ((m >> np) & 1ull)) ++np;
-      if (np >= n && ((m >> (n - 1)) & 1ull)) { efound = true; ebyte = boff + bl; }
-      boff += bl;
+  int wstart_raw = 0, wend = 0, nb = 0;
+  if (live) {
+    const uint32_t* hay = s_hay + tid * stride;
+    const int len = min(n_units[s_row[tid]], W);
+    int boff = 0;
+    if (TMAX == 0 && pf_mode == kPfGreedy) {
+      // greedy leftmost embedding; start = first hit of needle[0], end =
+      // last occurrence of the final unit at or after completion
+      int np = 0, sbyte = 0, ebyte = 0;
+      bool ffound = false, efound = false;
+      for (int j = 0; j < len; ++j) {
+        const int c = unit_of(hay, j);
+        const int bl = blen_of(c);
+        const Mask m = occ_at(slot_of(c));
+        if (!ffound && (m & Mask(1))) { ffound = true; sbyte = boff; }
+        if (np < n && ((m >> np) & Mask(1))) ++np;
+        if (np >= n && ((m >> (n - 1)) & Mask(1))) { efound = true; ebyte = boff + bl; }
+        boff += bl;
+      }
+      nb = boff;
+      matched = np >= n;
+      wstart_raw = (matched && ffound) ? sbyte : 0;
+      wend = (matched && efound) ? ebyte : nb;
+    } else if (TMAX > 0) {
+      // minimal-position DP (pf_mode == kPfDp, 0 < T <= TMAX < n): gs[t] =
+      // longest needle prefix embeddable with <= t deletions; start = first
+      // occurrence among needle[0..=T], end = last occurrence among the
+      // last T+1 units. States past T take no hits, only the closure, so
+      // gs[TMAX] = gs[T] + TMAX - T.
+      const Mask all_n = n == kMaskBits ? ~Mask(0) : (Mask(1) << n) - 1;
+      const Mask low = (Mask(1) << (T + 1)) - 1;
+      const Mask tail = all_n & ~((Mask(1) << (n - 1 - T)) - 1);
+      int gs[TMAX + 1];
+#pragma unroll
+      for (int t = 0; t <= TMAX; ++t) gs[t] = t;
+      int sbyte = 0, ebyte = 0;
+      bool ffound = false, efound = false;
+      for (int j = 0; j < len; ++j) {
+        const int c = unit_of(hay, j);
+        const int bl = blen_of(c);
+        const Mask m = occ_at(slot_of(c));
+        bool hit[TMAX + 1];
+#pragma unroll
+        for (int t = 0; t <= TMAX; ++t)
+          hit[t] = t <= T && gs[t] < n && ((m >> gs[t]) & Mask(1));
+#pragma unroll
+        for (int t = 0; t <= TMAX; ++t) gs[t] += hit[t] ? 1 : 0;
+#pragma unroll
+        for (int t = 1; t <= TMAX; ++t) gs[t] = max(gs[t], gs[t - 1] + 1);
+        if (!ffound && (m & low)) { ffound = true; sbyte = boff; }
+        if (m & tail) { efound = true; ebyte = boff + bl; }
+        boff += bl;
+      }
+      nb = boff;
+      matched = gs[TMAX] >= n + TMAX - T;
+      wstart_raw = (matched && ffound) ? sbyte : 0;
+      wend = (matched && efound) ? ebyte : nb;
+    } else {
+      if constexpr (UNICODE) {
+        for (int j = 0; j < len; ++j) boff += blen_of(unit_of(hay, j));
+      } else {
+        boff = len;
+      }
+      nb = boff;
+      wend = nb;
     }
-    nb = boff;
-    matched = np >= n;
-    wstart_raw = (matched && ffound) ? sbyte : 0;
-    wend = (matched && efound) ? ebyte : nb;
-  } else if (pf_mode == kPfDp) {
-    // minimal-position DP: gs[t] = longest needle prefix embeddable with
-    // <= t deletions; start = first occurrence among needle[0..=T], end =
-    // last occurrence among the last T+1 units (n > T here)
-    const unsigned long long all_n = n == 64 ? ~0ull : (1ull << n) - 1;
-    const unsigned long long low = (1ull << (T + 1)) - 1;
-    const unsigned long long tail = all_n & ~((1ull << (n - 1 - T)) - 1);
-    int gs[kMaxTypos + 1];
+  } else if (i < B) {
+    if (keys_out != nullptr) {
+      keys_out[out_i] = kKeySentinel;
+    } else {
 #pragma unroll
-    for (int t = 0; t <= kMaxTypos; ++t) gs[t] = t;
-    int sbyte = 0, ebyte = 0, boff = 0;
-    bool ffound = false, efound = false;
-    for (int j = 0; j < len; ++j) {
-      const int c = unit(j);
-      const int bl = blen_of(c);
-      const unsigned long long m = occ_at(slot_of(c));
-      bool hit[kMaxTypos + 1];
-#pragma unroll
-      for (int t = 0; t <= kMaxTypos; ++t)
-        hit[t] = t <= T && gs[t] < n && ((m >> gs[t]) & 1ull);
-#pragma unroll
-      for (int t = 0; t <= kMaxTypos; ++t) gs[t] += hit[t] ? 1 : 0;
-#pragma unroll
-      for (int t = 1; t <= kMaxTypos; ++t)
-        if (t <= T) gs[t] = max(gs[t], gs[t - 1] + 1);
-      if (!ffound && (m & low)) { ffound = true; sbyte = boff; }
-      if (m & tail) { efound = true; ebyte = boff + bl; }
-      boff += bl;
+      for (int c = 0; c < 8; ++c) cols_out[out_i * 8 + c] = 0;
     }
-    nb = boff;
-    int g_last = 0;
-#pragma unroll
-    for (int t = 0; t <= kMaxTypos; ++t)
-      if (t == T) g_last = gs[t];
-    matched = g_last >= n;
-    wstart_raw = (matched && ffound) ? sbyte : 0;
-    wend = (matched && efound) ? ebyte : nb;
-  } else {
-    if (UNICODE) {
-      nb = 0;
-      for (int j = 0; j < len; ++j) nb += blen_of(unit(j));
-    }
-    wend = nb;
   }
 
-  int score = 0, exact = 0, end_col = 0, greedy = 0;
-  if (matched || keys_out == nullptr) {
-    // ---- pass 2: affine-gap SW over the start-1-trimmed window
-    const int wstart = max(wstart_raw - 1, 0);
-    const bool include_exact = wstart == 0 && wend == nb;
-    const int gop_extra = max(sc.gap_open - sc.gap_ext, 0);
-    int h[NMAX];
+  // ---- who runs pass 2: in columns mode every live row, rejected or
+  // not, on its own thread; in key-emit mode the matched rows, rejected
+  // ones taking the sentinel. Behind a typo-budget prefilter (TMAX > 0)
+  // the block's matched rows go to the queue and threads 0..m-1 run
+  // them; behind the greedy embedding each thread runs its own, as the
+  // queue's block barrier cost more than it saved there (measured on an
+  // H100: PERF.md).
+  if (keys_out != nullptr && live && !matched) keys_out[out_i] = kKeySentinel;
+  int slot = tid;
+  bool run = live && (matched || keys_out == nullptr);
+  if (TMAX > 0 && keys_out != nullptr) {
+    // compaction: matched rows to the queue
+    const unsigned ballot = __ballot_sync(0xFFFFFFFFu, run);
+    const int warp = tid >> 5, lane = tid & 31;
+    if (lane == 0) s_warp_n[warp] = __popc(ballot);
+    __syncthreads();
+    int base = 0, m = 0;
+    for (int w = 0; w < (rb >> 5); ++w) {
+      const int c = s_warp_n[w];
+      base += w < warp ? c : 0;
+      m += c;
+    }
+    if (run)
+      s_queue[base + __popc(ballot & ((1u << lane) - 1u))] =
+          make_int4(tid, wstart_raw, wend, nb);
+    __syncthreads();
+    run = tid < m;
+    if (run) {
+      const int4 e = s_queue[tid];
+      slot = e.x;
+      wstart_raw = e.y;
+      wend = e.z;
+      nb = e.w;
+      matched = true;
+    }
+  }
+  if (!run) return;
+
+  // ---- pass 2: affine-gap SW over the start-1-trimmed window of the row
+  // staged in ``slot``
+  const uint32_t* hay = s_hay + slot * stride;
+  const int row = s_row[slot];
+  const int nu = n_units[row];
+  const int len = min(nu, W);
+  const int wstart = max(wstart_raw - 1, 0);
+  const bool include_exact = wstart == 0 && wend == nb;
+  const int gop_extra = max(sc.gap_open - sc.gap_ext, 0);
+  const int ge = sc.gap_ext, geo = sc.gap_ext + gop_extra;
+  int h[NMAX];
 #pragma unroll
-    for (int k = 0; k < NMAX; ++k) h[k] = 0;
-    unsigned long long mm = 0;  // previous column's per-unit match bits
-    int prev = 0, best = 0, end_b = 0;
-    bool first = true;
-    // a byte row's window starts at column wstart; a codepoint row walks
-    // from column 0 to the first unit at or past byte wstart
-    int boff = UNICODE ? 0 : wstart;
-    for (int j = UNICODE ? 0 : wstart; j < len; ++j) {
-      const int c = unit(j);
-      const int f = UNICODE ? codepoint_ctx(c) : byte_ctx(c);
-      const int bl = UNICODE ? ctx_blen(f) : 1;
-      if (boff + bl > wend) break;
-      if (UNICODE && boff < wstart) {
-        prev = f;
-        boff += bl;
-        continue;
-      }
-      const int sl = slot_of(c);
-      const unsigned long long m = occ_at(sl);
-      const unsigned long long me = eq_at(sl);
-      int bonus = 0;
-      if (first) {
-        if (wstart == 0) bonus = sc.prefix;
-        first = false;
-      } else {
-        bonus = context_bonus(f, prev, sc);
-      }
-      int diag_in = 0, up_src = 0, cur = 0;
-      bool mm_prev = false;
-#pragma unroll
-      for (int k = 0; k < NMAX; ++k) {
-        if (k >= n) break;
-        const bool occ = (m >> k) & 1ull;
-        const int hit = sc.match + bonus + (((me >> k) & 1ull) ? sc.case_b : 0);
-        const int left = h[k] - sc.gap_ext - (((mm >> k) & 1ull) ? gop_extra : 0);
-        if (k == 0) {
-          cur = max(occ ? hit : 0, left);
-        } else {
-          const int diag = occ ? diag_in + hit : max(diag_in - sc.mismatch, 0);
-          const int up = max(up_src - sc.gap_ext - (mm_prev ? gop_extra : 0), 0);
-          cur = max(max(diag, up), left);
-        }
-        diag_in = h[k];
-        up_src = cur;
-        mm_prev = occ;
-        h[k] = cur;
-      }
-      if (cur > best) { best = cur; end_b = boff; }  // cur = unit n-1's cell
-      mm = m;
+  for (int k = 0; k < NMAX; ++k) h[k] = 0;
+  Mask mm = 0;  // previous column's per-unit match bits
+  int prev = 0, best = 0, end_b = 0;
+  bool first = true;
+  // a byte row's window starts at column wstart; a codepoint row walks
+  // from column 0 to the first unit at or past byte wstart
+  int boff = UNICODE ? 0 : wstart;
+  for (int j = UNICODE ? 0 : wstart; j < len; ++j) {
+    const int c = unit_of(hay, j);
+    const int f = UNICODE ? codepoint_ctx(c) : byte_ctx(c);
+    const int bl = UNICODE ? ctx_blen(f) : 1;
+    if (boff + bl > wend) break;
+    if (UNICODE && boff < wstart) {
       prev = f;
       boff += bl;
+      continue;
     }
-    // exact: the row equals the needle's original units (a unit past the
-    // width compares as 0, as the reference's lane gather does)
-    bool eq = nu == n;
-    for (int k = 0; k < n && eq; ++k) eq = (k < W ? unit(k) : 0) == scal[2 + k];
-    score = best;
-    end_col = score > 0 ? end_b : wstart;
-    exact = (include_exact && eq) ? 1 : 0;
-    if (exact) score = min(score + sc.exact, 0xFFFF);
-    greedy = (matched && (wend - wstart) > kMaxHaystackLen) ? 1 : 0;
+    const int sl = slot_of(c);
+    const Mask m = occ_at(sl);
+    const Mask me = eq_at(sl);
+    int bonus = 0;
+    if (first) {
+      if (wstart == 0) bonus = sc.prefix;
+      first = false;
+    } else {
+      bonus = context_bonus(f, prev, sc);
+    }
+    const int base_hit = sc.match + bonus;
+    // unit 0: no diagonal or up source
+    const bool occ0 = m & Mask(1);
+    int cur = max(occ0 ? base_hit + ((me & Mask(1)) ? sc.case_b : 0) : 0,
+                  h[0] - ((mm & Mask(1)) ? geo : ge));
+    int diag_in = h[0];
+    int g_up = occ0 ? geo : ge;  // the up move's gap cost after unit k-1
+    h[0] = cur;
+    // unit k: max(diag_in + (hit or -mismatch), cur[k-1] - g_up,
+    // h[k] - g_left, 0); the relu stands in for both the diagonal's
+    // mismatch floor and the up move's
+#pragma unroll
+    for (int k = 1; k < NMAX; ++k) {
+      if (k >= n) break;
+      const bool occ = (m >> k) & Mask(1);
+      const int d = occ ? base_hit + (((me >> k) & Mask(1)) ? sc.case_b : 0)
+                        : -sc.mismatch;
+      const int left = h[k] - (((mm >> k) & Mask(1)) ? geo : ge);
+      cur = __viaddmax_s32_relu(diag_in, d, __viaddmax_s32(cur, -g_up, left));
+      diag_in = h[k];
+      h[k] = cur;
+      g_up = occ ? geo : ge;
+    }
+    if (cur > best) { best = cur; end_b = boff; }  // cur = unit n-1's cell
+    mm = m;
+    prev = f;
+    boff += bl;
   }
+  // exact: the row equals the needle's original units (a unit past the
+  // width compares as 0, as the reference's lane gather does)
+  bool eq = nu == n;
+  for (int k = 0; k < n && eq; ++k) eq = (k < W ? unit_of(hay, k) : 0) == scal[2 + k];
+  int score = best;
+  const int end_col = score > 0 ? end_b : wstart;
+  const int exact = (include_exact && eq) ? 1 : 0;
+  if (exact) score = min(score + sc.exact, 0xFFFF);
+  const int greedy = (matched && (wend - wstart) > kMaxHaystackLen) ? 1 : 0;
 
+  const long long o_i = (long long)q * B + i0 + slot;
   if (keys_out != nullptr) {
-    keys_out[out_i] =
-        frizbee::pack_key(matched, score, exact, end_col, greedy, idx[row], idx_bits);
+    keys_out[o_i] = frizbee::pack_key(true, score, exact, end_col, greedy, idx[row],
+                                      idx_bits);
   } else {
-    int* o = cols_out + out_i * 8;
+    int* o = cols_out + o_i * 8;
     o[0] = matched ? 1 : 0;
     o[1] = score;
     o[2] = exact;
@@ -346,39 +425,51 @@ __global__ void __launch_bounds__(kMaxThreads) match_units_kernel(
   }
 }
 
-template <int NMAX, bool UNICODE>
-int launch(dim3 grid, int threads, size_t smem, cudaStream_t stream,
-           const void* cp, const int* nu, const int* scalars, const int* rows,
-           const int* idx, int B, int W, int n, int T, int pf_mode, Scoring sc,
-           int idx_bits, long long* keys_out, int* cols_out) {
-  auto kernel = match_units_kernel<NMAX, UNICODE>;
-  if (smem > 48 * 1024) {
+// one launch's configuration and operands
+struct Launch {
+  dim3 grid;
+  int threads;
+  size_t smem;
+  cudaStream_t stream;
+  const void* cp;
+  const int *nu, *scalars, *rows, *idx;
+  int B, W, n, T, pf_mode;
+  Scoring sc;
+  int idx_bits;
+  long long* keys_out;
+  int* cols_out;
+};
+
+template <int NMAX, int TMAX, bool UNICODE>
+int launch(const Launch& a) {
+  auto kernel = match_units_kernel<NMAX, TMAX, UNICODE>;
+  if (a.smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)a.smem);
     if (err != cudaSuccess) return (int)err;
   }
-  kernel<<<grid, threads, smem, stream>>>(cp, nu, scalars, rows, idx, B, W, n,
-                                          T, pf_mode, sc, idx_bits, keys_out,
-                                          cols_out);
+  kernel<<<a.grid, a.threads, a.smem, a.stream>>>(
+      a.cp, a.nu, a.scalars, a.rows, a.idx, a.B, a.W, a.n, a.T, a.pf_mode, a.sc,
+      a.idx_bits, a.keys_out, a.cols_out);
   return 0;
 }
 
+// the instantiation for a needle ceiling: TMAX = 0 serves no prefilter
+// and the greedy embedding, else the least of 1, 2, 4, 8 >= T
+template <int NMAX, bool UNICODE>
+int launch_t(const Launch& a) {
+  if (a.pf_mode != kPfDp) return launch<NMAX, 0, UNICODE>(a);
+  if (a.T <= 1) return launch<NMAX, 1, UNICODE>(a);
+  if (a.T <= 2) return launch<NMAX, 2, UNICODE>(a);
+  if (a.T <= 4) return launch<NMAX, 4, UNICODE>(a);
+  return launch<NMAX, 8, UNICODE>(a);
+}
+
 template <bool UNICODE>
-int launch_n(dim3 grid, int threads, size_t smem, cudaStream_t stream,
-             const void* cp, const int* nu, const int* scalars, const int* rows,
-             const int* idx, int B, int W, int n, int T, int pf_mode, Scoring sc,
-             int idx_bits, long long* keys_out, int* cols_out) {
-  if (n <= 16)
-    return launch<16, UNICODE>(grid, threads, smem, stream, cp, nu, scalars, rows,
-                               idx, B, W, n, T, pf_mode, sc, idx_bits, keys_out,
-                               cols_out);
-  if (n <= 32)
-    return launch<32, UNICODE>(grid, threads, smem, stream, cp, nu, scalars, rows,
-                               idx, B, W, n, T, pf_mode, sc, idx_bits, keys_out,
-                               cols_out);
-  return launch<64, UNICODE>(grid, threads, smem, stream, cp, nu, scalars, rows,
-                             idx, B, W, n, T, pf_mode, sc, idx_bits, keys_out,
-                             cols_out);
+int launch_n(const Launch& a) {
+  if (a.n <= 16) return launch_t<16, UNICODE>(a);
+  if (a.n <= 32) return launch_t<32, UNICODE>(a);
+  return launch_t<64, UNICODE>(a);
 }
 
 }  // namespace
@@ -398,24 +489,19 @@ extern "C" int match_units_launch(
     void* cols_out, void* stream) {
   if (Q == 0 || B == 0) return 0;
   if (n < 1 || n > kMaxNeedle || T < 0 || T > kMaxTypos || W < 4 || W % 4 ||
-      W > kMaxHaystackLen || (keys_out != nullptr && idx == nullptr))
+      W > kMaxHaystackLen || (keys_out != nullptr && idx == nullptr) ||
+      (pf_mode == kPfDp && (T == 0 || T >= n)))
     return (int)cudaErrorInvalidValue;
   const bool u = unicode != 0;
-  const Scoring sc = frizbee::scoring_from(scoring);
   const int rb = block_rows(W, u);
-  const dim3 grid((B + rb - 1) / rb, Q);
-  const size_t smem = (size_t)rb * (row_words(W, u) + 1) * sizeof(uint32_t);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* b = static_cast<const int*>(n_units);
-  const int* c = static_cast<const int*>(scalars);
-  const int* d = static_cast<const int*>(rows);
-  const int* e = static_cast<const int*>(idx);
-  long long* ko = static_cast<long long*>(keys_out);
-  int* co = static_cast<int*>(cols_out);
-  const int rc = u ? launch_n<true>(grid, rb, smem, st, cp, b, c, d, e, B, W, n, T,
-                                    pf_mode, sc, idx_bits, ko, co)
-                   : launch_n<false>(grid, rb, smem, st, cp, b, c, d, e, B, W, n,
-                                     T, pf_mode, sc, idx_bits, ko, co);
+  const Launch a{dim3((B + rb - 1) / rb, Q), rb,
+                 (size_t)rb * (row_words(W, u) + 1) * sizeof(uint32_t),
+                 static_cast<cudaStream_t>(stream), cp,
+                 static_cast<const int*>(n_units), static_cast<const int*>(scalars),
+                 static_cast<const int*>(rows), static_cast<const int*>(idx), B, W,
+                 n, T, pf_mode, frizbee::scoring_from(scoring), idx_bits,
+                 static_cast<long long*>(keys_out), static_cast<int*>(cols_out)};
+  const int rc = u ? launch_n<true>(a) : launch_n<false>(a);
   if (rc != 0) return rc;
   return (int)cudaGetLastError();
 }

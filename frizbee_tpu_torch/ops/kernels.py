@@ -135,18 +135,135 @@ def _unit_context(hay, valid, col):
     return first, prev, boff, blen, blen.sum(dim=1, dtype=torch.int32)
 
 
+def _lane_min(x):
+    return x.amin(dim=1)
+
+
+def _lane_max(x):
+    return x.amax(dim=1)
+
+
+def _lane_gather(x, idx):
+    """x[r, idx[r]] of (R, W) x, one column per row."""
+    return x.gather(1, idx[:, None].to(torch.int64))[:, 0]
+
+
+def _unit_grid(hay_in, nu):
+    """(int32 units, valid mask, column index (1, W), unit context) of (R,
+    W) rows with unit counts nu: :func:`_unit_context`'s first byte,
+    previous last byte, byte offset, byte length and byte count."""
+    R, W = hay_in.shape
+    i32 = torch.int32
+    hay = hay_in.to(i32)
+    if hay_in.dtype == torch.int8:
+        hay = hay & 0xFF
+    col = torch.arange(W, dtype=i32, device=hay_in.device)[None, :]
+    valid = col < torch.clamp(nu, max=W + 1)[:, None]
+    return hay, valid, col, _unit_context(hay_in, valid, col)
+
+
+def _prefilter(hay, valid, col, boff, blen, n_bytes, orig, flip, *, n, T,
+               no_prefilter):
+    """Pass 1 of the row-major match over :func:`_unit_grid`'s arrays:
+    the positional prefilter — f[t] = position after needle units 0..k
+    with <= t of them deleted (BIG = no embedding) — and the byte window
+    it leaves. Returns (matched bool, wstart_raw, wend, n_bytes), each
+    (R,); rejected rows keep the whole row [0, n_bytes)."""
+    R, W = hay.shape
+    S = W
+    BIG = S + 1
+    i32 = torch.int32
+    dev = hay.device
+    zero = torch.zeros(R, dtype=i32, device=dev)
+
+    if no_prefilter or n <= T:
+        # no prefilter, or a needle no longer than the typo budget: every
+        # row matches
+        return (torch.ones(R, dtype=torch.bool, device=dev), zero, n_bytes,
+                n_bytes)
+    f = [zero] * (T + 1)
+    fos = torch.full((R,), BIG, dtype=i32, device=dev)
+    start0 = zero
+    tail = torch.zeros((R, W), dtype=torch.bool, device=dev)
+    for k in range(n):
+        occ = valid & ((hay == orig[k]) | (hay == flip[k]))
+        if k <= T:
+            fos = torch.minimum(fos, _lane_min(torch.where(occ, col, BIG)))
+        nf = []
+        for t in range(T + 1):
+            nxt_occ = _lane_min(
+                torch.where(occ & (col >= f[t][:, None]), col, BIG)
+            )
+            nxt = torch.where(
+                f[t] <= S, torch.clamp(nxt_occ + 1, max=BIG), BIG
+            )
+            if t > 0:
+                nxt = torch.minimum(nxt, f[t - 1])
+            nf.append(nxt)
+        if k == 0:
+            start0 = torch.clamp(nf[0] - 1, max=S)
+        if k >= n - 1 - T:
+            tail = tail | occ
+        f = nf
+    matched = f[T] <= S
+    if T == 0:
+        last_pos = f[0] - 1
+        e = _lane_max(torch.where(tail & (col >= last_pos[:, None]), col, -1))
+        wstart_raw = _lane_gather(boff, torch.clamp(start0, 0, S - 1))
+    else:
+        e = _lane_max(torch.where(tail, col, -1))
+        wstart_raw = torch.where(
+            fos <= S, _lane_gather(boff, torch.clamp(fos, 0, S - 1)), 0
+        )
+    e_c = torch.clamp(e, 0, S - 1)
+    wend = torch.where(
+        e >= 0, _lane_gather(boff, e_c) + _lane_gather(blen, e_c), n_bytes)
+    wstart_raw = torch.where(matched, wstart_raw, 0)
+    wend = torch.where(matched, wend, n_bytes)
+    return matched, wstart_raw, wend, n_bytes
+
+
+def _window_active(valid, boff, blen, wstart, wend):
+    """The units of each row inside its trimmed byte window [wstart,
+    wend): the columns the SW DP walks."""
+    return (valid & (boff >= wstart[:, None])
+            & (boff + blen <= wend[:, None]))
+
+
+def prefilter_window(hay_in, nu, orig, flip, *, n, T, no_prefilter):
+    """Pass 1 of the row-major match of R rows (R, W) — int8 bytes or
+    int32 codepoints — against one needle (``orig``/``flip`` lists of n
+    ints) at typo budget T (clamped to n): (matched bool, wstart_raw,
+    wend, n_bytes) int32, each (R,), as :func:`_match_rows_plain` and the
+    CUDA kernel compute them. The window is in bytes; pass 2 trims its
+    start by one."""
+    hay, valid, col, (_fb, _prev, boff, blen, n_bytes) = _unit_grid(
+        hay_in, nu)
+    return _prefilter(hay, valid, col, boff, blen, n_bytes, orig, flip,
+                      n=n, T=T, no_prefilter=no_prefilter)
+
+
+def window_units(hay_in, nu, wstart_raw, wend):
+    """(R,) int64 count of the units pass 2 walks in each row: those of
+    the byte window [max(wstart_raw - 1, 0), wend)."""
+    _hay, valid, _col, (_fb, _prev, boff, blen, _nb) = _unit_grid(
+        hay_in, nu)
+    wstart = torch.clamp(wstart_raw - 1, min=0)
+    return _window_active(valid, boff, blen, wstart, wend).sum(dim=1)
+
+
 def _match_rows_plain(hay_in, nu, orig, flip, *, n, T, scoring, no_prefilter):
     """Row-major fused match of R rows (R, W) — int8 bytes or int32
     codepoints — with unit counts nu (R,) against one needle
     (``orig``/``flip`` lists of n ints), line for line after
     ``frizbee_tpu.ops.kernels._match_tile`` with one row per vector
     (lanes = unit columns): the minimal-position prefilter over needle
-    units, lane min/max reductions for the window, and the left-to-right
-    gap recurrence as an exact max-plus prefix scan (``cummax(c + q) -
-    q``). Windows and end_col are byte offsets. Returns (matched, score,
-    exact, end_col, greedy) int32, each (R,). As in the reference, rows
-    the prefilter rejects still carry the full-row DP's score, exact and
-    end_col."""
+    units (:func:`_prefilter`), lane min/max reductions for the window,
+    and the left-to-right gap recurrence as an exact max-plus prefix scan
+    (``cummax(c + q) - q``). Windows and end_col are byte offsets.
+    Returns (matched, score, exact, end_col, greedy) int32, each (R,). As
+    in the reference, rows the prefilter rejects still carry the full-row
+    DP's score, exact and end_col."""
     (match_score, mismatch, gap_open, gap_ext, prefix_b, cap_b, case_b,
      exact_b, delim_b) = (int(s) for s in scoring)
     gop_extra = max(gap_open - gap_ext, 0)
@@ -154,83 +271,20 @@ def _match_rows_plain(hay_in, nu, orig, flip, *, n, T, scoring, no_prefilter):
     S = W
     BIG = S + 1
     i32 = torch.int32
+    hay, valid, col, (fb, prev_b, boff, blen, n_bytes) = _unit_grid(
+        hay_in, nu)
     dev = hay_in.device
-    hay = hay_in.to(i32)
-    if hay_in.dtype == torch.int8:
-        hay = hay & 0xFF
-    col = torch.arange(W, dtype=i32, device=dev)[None, :]
-    valid = col < torch.clamp(nu, max=BIG)[:, None]
-    fb, prev_b, boff, blen, n_bytes = _unit_context(hay_in, valid, col)
     zero = torch.zeros(R, dtype=i32, device=dev)
 
-    def lane_min(x):
-        return x.amin(dim=1)
-
-    def lane_max(x):
-        return x.amax(dim=1)
-
-    def gather(x, idx):
-        return x.gather(1, idx[:, None].to(torch.int64))[:, 0]
-
-    def occ_of(k):
-        return valid & ((hay == orig[k]) | (hay == flip[k]))
-
-    # ---- positional prefilter: f[t] = position after needle units 0..k
-    # with <= t of them deleted (BIG = no embedding)
-    if no_prefilter:
-        matched = torch.ones(R, dtype=torch.bool, device=dev)
-        wstart_raw, wend = zero, n_bytes
-    else:
-        f = [zero] * (T + 1)
-        fos = torch.full((R,), BIG, dtype=i32, device=dev)
-        start0 = zero
-        tail = torch.zeros((R, W), dtype=torch.bool, device=dev)
-        for k in range(n):
-            occ = occ_of(k)
-            if k <= T:
-                fos = torch.minimum(fos, lane_min(torch.where(occ, col, BIG)))
-            nf = []
-            for t in range(T + 1):
-                nxt_occ = lane_min(
-                    torch.where(occ & (col >= f[t][:, None]), col, BIG)
-                )
-                nxt = torch.where(
-                    f[t] <= S, torch.clamp(nxt_occ + 1, max=BIG), BIG
-                )
-                if t > 0:
-                    nxt = torch.minimum(nxt, f[t - 1])
-                nf.append(nxt)
-            if k == 0:
-                start0 = torch.clamp(nf[0] - 1, max=S)
-            if k >= n - 1 - T:
-                tail = tail | occ
-            f = nf
-        matched = f[T] <= S
-        if T == 0:
-            last_pos = f[0] - 1
-            e = lane_max(torch.where(tail & (col >= last_pos[:, None]), col,
-                                     -1))
-            wstart_raw = gather(boff, torch.clamp(start0, 0, S - 1))
-        else:
-            e = lane_max(torch.where(tail, col, -1))
-            wstart_raw = torch.where(
-                fos <= S, gather(boff, torch.clamp(fos, 0, S - 1)), 0
-            )
-        e_c = torch.clamp(e, 0, S - 1)
-        wend = torch.where(e >= 0, gather(boff, e_c) + gather(blen, e_c),
-                           n_bytes)
-        wstart_raw = torch.where(matched, wstart_raw, 0)
-        wend = torch.where(matched, wend, n_bytes)
-        if n <= T:
-            # a needle no longer than the typo budget matches everything
-            matched = torch.ones(R, dtype=torch.bool, device=dev)
-            wstart_raw, wend = zero, n_bytes
+    matched, wstart_raw, wend, _nb = _prefilter(
+        hay, valid, col, boff, blen, n_bytes, orig, flip, n=n, T=T,
+        no_prefilter=no_prefilter)
 
     # ---- windowed affine-gap Smith-Waterman, start-1 trim
     wstart = torch.clamp(wstart_raw - 1, min=0)
     include_exact = (wstart == 0) & (wend == n_bytes)
-    active = valid & (boff >= wstart[:, None]) & (boff + blen <= wend[:, None])
-    first_unit = lane_min(torch.where(active, col, BIG))
+    active = _window_active(valid, boff, blen, wstart, wend)
+    first_unit = _lane_min(torch.where(active, col, BIG))
     is_first = active & (col == first_unit[:, None])
     cap_mask = is_upper(fb) & is_lower(prev_b) & ~is_first
     delim_mask = is_delim(prev_b) & ~is_delim(fb) & ~is_first
@@ -263,9 +317,9 @@ def _match_rows_plain(hay_in, nu, orig, flip, *, n, T, scoring, no_prefilter):
         neq = neq | (hk != orig[k])
         prev_mm = match
     prev_row = torch.where(active, prev_row, 0)
-    score = torch.clamp(lane_max(prev_row), min=0)
-    end_unit = lane_min(torch.where(prev_row == score[:, None], col, BIG))
-    end_b = gather(boff, torch.clamp(end_unit, max=S - 1))
+    score = torch.clamp(_lane_max(prev_row), min=0)
+    end_unit = _lane_min(torch.where(prev_row == score[:, None], col, BIG))
+    end_b = _lane_gather(boff, torch.clamp(end_unit, max=S - 1))
     end_col = torch.where(score > 0, end_b, wstart)
     exact = include_exact & (nu == n) & ~neq
     score = torch.where(exact, torch.clamp(score + exact_b, max=0xFFFF),

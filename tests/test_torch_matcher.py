@@ -140,11 +140,13 @@ def _port_files():
             if f.endswith(".py"):
                 yield os.path.join(base, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    yield os.path.join(ROOT, "kernel_probe.py")
 
 
 def test_port_imports_no_jax_and_no_reference():
-    """The port runs where JAX is absent: no file of the package, and not
-    chip_smoke.py, imports jax or frizbee_tpu."""
+    """The port runs where JAX is absent: no file of the package, and
+    neither chip_smoke.py nor kernel_probe.py, imports jax or
+    frizbee_tpu."""
     files = list(_port_files())
     assert len(files) > 10
     scanned = {os.path.relpath(p, ROOT) for p in files}

@@ -29,6 +29,7 @@ from frizbee_tpu.config import Config as JConfig
 from frizbee_tpu.corpus import pack_corpus as j_pack
 from frizbee_tpu_torch import Config, datagen, match_topk_batch
 from frizbee_tpu_torch import pack_corpus
+from frizbee_tpu_torch.ops import colstream as cs
 from frizbee_tpu_torch.ops import kernels as tk
 from frizbee_tpu_torch.ops.presence import needle_need_matrix, presence_hits
 
@@ -90,7 +91,7 @@ def _reference_cols(cp, nu, needle, count, *, T, no_pre, scoring):
     return np.asarray(out).reshape(-1, 8)
 
 
-@pytest.mark.parametrize("W,n,T,no_pre", [
+COLUMN_CASES = [
     (16, 17, 0, False),
     (64, 17, 4, False),
     (128, 17, 8, False),
@@ -101,15 +102,33 @@ def _reference_cols(cp, nu, needle, count, *, T, no_pre, scoring):
     (64, 24, 0, True),
     (32, 5, 8, False),   # needle within the budget: every row matches
     (128, 9, 4, False),  # a short needle past the colstream budget
-])
-def test_match_units_columns(W, n, T, no_pre):
-    """(B, 8) columns for the live rows, zeros past the count; rows the
-    prefilter rejects keep the full-row DP's score, exact and end_col."""
+]
+
+# (W, n, T) at the CUDA kernel's template boundaries: needle ceilings 16,
+# 32, 64 (32-bit masks up to 32 units) and the DP-state ceilings 1, 2, 4,
+# 8 of the typo budget, on 64 rows of a narrow bucket
+BOUNDARY_CASES = [
+    (16, 8, 1),
+    (32, 8, 2),
+    (16, 8, 3),
+    (16, 16, 5),
+    (32, 17, 8),
+    (32, 32, 6),
+    (32, 33, 2),
+    (32, 64, 7),
+]
+
+
+def _columns_case(W, n, T, B=512):
+    """(cp, nu, needle, live count, scoring) of one columns case."""
     rng = np.random.default_rng(W * 100 + n + T)
     needle = _needle(rng, n)
-    cp, nu = _rows(rng, 512, W, needle)
-    count = 512 - 37
-    scoring = SCORINGS[(n + T) % 2]
+    cp, nu = _rows(rng, B, W, needle)
+    return cp, nu, needle, B - 37 * B // 512, SCORINGS[(n + T) % 2]
+
+
+def _check_columns(W, n, T, no_pre, B):
+    cp, nu, needle, count, scoring = _columns_case(W, n, T, B)
     got = tk.match_units(
         torch.from_numpy(cp), torch.from_numpy(nu),
         tk.pack_needle_scalars(torch.from_numpy(needle[None]), count),
@@ -119,8 +138,74 @@ def test_match_units_columns(W, n, T, no_pre):
                            scoring=scoring)
     np.testing.assert_array_equal(got[:count], want[:count])
     assert not got[count:].any()
+    return got[:count]
+
+
+@pytest.mark.parametrize("W,n,T,no_pre", COLUMN_CASES)
+def test_match_units_columns(W, n, T, no_pre):
+    """(B, 8) columns for the live rows, zeros past the count; rows the
+    prefilter rejects keep the full-row DP's score, exact and end_col."""
+    got = _check_columns(W, n, T, no_pre, 512)
     if n <= W or no_pre:
-        assert got[:count, 0].any()
+        assert got[:, 0].any()
+
+
+@pytest.mark.parametrize("W,n,T", BOUNDARY_CASES)
+def test_match_units_template_boundaries(W, n, T):
+    """The plain version against the reference at each (needle length,
+    typo budget) boundary of the CUDA kernel's instantiations."""
+    got = _check_columns(W, n, T, False, 64)
+    if n - T <= W:
+        assert got[:, 0].any()
+
+
+@pytest.mark.parametrize("W,n,T,no_pre", COLUMN_CASES + [
+    (W, n, T, False) for W, n, T in BOUNDARY_CASES])
+def test_prefilter_window_matches_reference(W, n, T, no_pre):
+    """``prefilter_window`` (pass 1, shared by the plain version and the
+    bound's operation count) decides ``matched`` as the reference's
+    column 0 does, and leaves rejected rows their whole byte range."""
+    B = 512 if (W, n, T, no_pre) in COLUMN_CASES else 64
+    cp, nu, needle, count, scoring = _columns_case(W, n, T, B)
+    matched, wstart, wend, n_bytes = tk.prefilter_window(
+        torch.from_numpy(cp[:count]), torch.from_numpy(nu[:count]),
+        needle[:n].tolist(), needle[n:].tolist(), n=n, T=min(T, n),
+        no_prefilter=no_pre,
+    )
+    want = _reference_cols(cp, nu, needle, count, T=T, no_pre=no_pre,
+                           scoring=scoring)
+    np.testing.assert_array_equal(matched.numpy(), want[:count, 0] > 0)
+    assert torch.equal(n_bytes, torch.clamp(torch.from_numpy(nu[:count]),
+                                            max=W))
+    rejected = ~matched
+    assert not wstart[rejected].any()
+    assert torch.equal(wend[rejected], n_bytes[rejected])
+    assert ((wstart <= wend) & (wend <= n_bytes)).all()
+    cols = tk.window_units(torch.from_numpy(cp[:count]),
+                           torch.from_numpy(nu[:count]), wstart, wend)
+    assert torch.equal(cols, wend - torch.clamp(wstart - 1, min=0))
+
+
+@pytest.mark.parametrize("M,ids", [
+    (0, "none"),
+    (1, "first"),
+    (1, "last"),
+    (9, "edges"),
+])
+def test_row_gather_plain_edges(M, ids):
+    """The row gather's plain version against numpy indexing: no rows,
+    one row, and row ids 0 and R-1."""
+    rng = np.random.default_rng(M)
+    R, C = 37, 256
+    data = rng.integers(-(2**31), 2**31 - 1, (R, C)).astype(np.int32)
+    rows = rng.integers(0, R, M).astype(np.int32)
+    if ids in ("first", "edges"):
+        rows[0] = 0
+    if ids in ("last", "edges"):
+        rows[-1] = R - 1
+    got = cs.row_gather(torch.from_numpy(data), torch.from_numpy(rows))
+    assert got.shape == (M, C) and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), data[rows])
 
 
 @pytest.mark.parametrize("T", [0, 4])
