@@ -15,7 +15,12 @@ Builds the package's CUDA kernels from ``frizbee_tpu_torch/csrc`` (one
    rows in five-column mode and a live count below B through a random
    row order in key-emit mode, and at every template boundary (needle
    lengths 8-64 x typo budgets 0-8, byte and codepoint rows, both modes)
-   on a bucket with all-matched, all-rejected and mixed blocks; the row
+   on a bucket with all-matched, all-rejected and mixed blocks; both
+   column-stream kernels at their tile boundaries (every bucket width
+   16-1024, Q = 1, 2, 17, 33, blocks that share a tile among queries,
+   groups alive for one query or none, live counts ending mid-group,
+   rows of 0 and W units, byte and codepoint rows, all four literal modes
+   at n = 1, 2 and 16, both output modes); the row
    gather at 128-, 256-, 384- and 2048-word rows, 1, 7 and the capped
    finalize's or broad tournament's rows; and the unicode variant of each
    match kernel
@@ -87,15 +92,35 @@ INT32_OPS_PER_S = 64 * 132 * 1.98e9
 # cycles of torch.cuda._sleep per second at the H100 SXM's boost clock
 SLEEP_CYCLES_PER_S = 1.98e9
 INT64_MAX = (1 << 63) - 1  # the key of an unmatched row
-# int32 operations per (column, needle unit) cell of the colstream
-# kernel: prefilter (2 compares, or, compare, and, or) and SW DP
-PF_OPS_PER_CELL = 6
-SW_OPS_PER_CELL = 14
+# int32 operations of the colstream fuzzy kernel, each instruction one
+# (corpus loads are counted as bytes): the T=0 greedy embedding per
+# column, for n >= GREEDY_LOOKUP_FROM independent of n (2 compares and an
+# or for each of the window's first and last needle unit, the bound
+# test, 2 shared loads of the next needle unit, 2 compares, or, add; 4
+# for the first-hit and 2 for the last-hit tracking; the byte offset),
+# for shorter needles per unit (2 compares, or, compare, and, or) plus
+# the add, the tracking and the byte offset; the minimal-position
+# prefilter per (column, needle unit) cell (2 compares, or, the window's
+# start and end tests, and per budget state a compare, and, or); the SW
+# DP per (column, needle unit) cell of a matched row's trimmed window (2
+# compares and an or for the unit match, 2 selects of hit or mismatch,
+# select and subtract of the left gap, the two DPX add-max instructions,
+# the up gap's select)
+GREEDY_LOOKUP_FROM = 4
+PF_GREEDY_OPS_PER_COLUMN = 20
+PF_GREEDY_OPS_PER_CELL_SHORT = 6
+PF_GREEDY_OPS_PER_COLUMN_SHORT = 8
+PF_DP_OPS_PER_CELL = 5
+PF_DP_OPS_PER_STATE = 3
+SW_OPS_PER_CELL = 10
 # colstream literal kernel: per (column, needle unit) cell (2 compares,
-# or, bit test, and, add, select, or-into-mask) and per column (bonus
-# context, completion score, mode test, best update)
-LIT_OPS_PER_CELL = 8
-LIT_OPS_PER_COLUMN = 12
+# or, and with the run before, the case select, add, the run select) and
+# per column (the bonus's 2 selects and add, the case-bonus add, the
+# first column's prefix select, the completion test, the loop's add and
+# compare); a codepoint row's start-byte select a cell and byte-offset
+# step a column are not counted
+LIT_OPS_PER_CELL = 7
+LIT_OPS_PER_COLUMN = 8
 # a matched codepoint row's byte-count walk past an exact or prefix run:
 # load, length extract, add
 LIT_OPS_PER_REST = 3
@@ -135,6 +160,19 @@ RM_BOUNDARY_T = (0, 1, 2, 3, 4, 5, 8)
 RM_BOUNDARY_B, RM_BOUNDARY_W = 640, 128
 # row widths (4-byte words) the row gather is checked at
 GATHER_CHECK_C = (128, 256, 384, 2048)
+# the colstream kernels' tile boundaries the kernel phase checks: every
+# bucket width (each tile size and shared-memory size the geometry
+# picks) on 3 groups, where every query gets blocks of its own, Q at 1,
+# 2, 17 and 33 in turn; and buckets whose blocks share a tile among 5 of
+# 17 queries, all 32 (the most a block serves) and 17 of 33; needle
+# lengths at their edges
+TILE_BOUNDARY_W = (16, 32, 64, 128, 256, 512, 1024)
+# (W, groups, Q)
+TILE_BOUNDARY_SHARED = ((32, 40, 17), (16, 160, 32), (16, 160, 33))
+TILE_BOUNDARY_Q = (1, 2, 17, 33)
+TILE_BOUNDARY_FUZZY = ((1, 0), (16, 1), (5, 3), (2, None), (8, 0),
+                       (2, 1), (3, 1), (16, 0), (7, 2))  # (n, T)
+TILE_BOUNDARY_LIT_N = (1, 2, 16)
 
 
 def _queries(q, base="deadbeef"):
@@ -291,7 +329,8 @@ def kernel_phase(corpus, detail):
     lit = _literal_kernel_checks(corpus, errs)
     rm = _rowmajor_kernel_checks(corpus, errs)
     rmx = _rowmajor_boundary_checks(dev, errs)
-    checks += rg + lit + rm + rmx
+    tbx = _tile_boundary_checks(dev, errs)
+    checks += rg + lit + rm + rmx + tbx
     detail["kernel_checks"] = checks
     print(f"kernel phase: {checks} kernel-vs-plain checks bit-equal "
           f"(colstream fuzzy Q={Q} x {len(corpus.buckets)} buckets x "
@@ -300,6 +339,9 @@ def kernel_phase(corpus, detail):
           f"buckets x (n=8,T=4),(n=24,T=0),(n=24,none) x all rows / "
           f"random row order; match_units {rmx} at the template "
           f"boundaries: n {RM_BOUNDARY_N} x T {RM_BOUNDARY_T} x bytes, "
+          f"codepoints x columns, key-emit; colstream fuzzy and literal "
+          f"{tbx} at the tile boundaries: W {TILE_BOUNDARY_W} and "
+          f"{TILE_BOUNDARY_SHARED} x Q {TILE_BOUNDARY_Q} x bytes, "
           f"codepoints x columns, key-emit; row_gather {rg}: C "
           f"{GATHER_CHECK_C} x M 1, 7, served {gather_shapes})",
           flush=True)
@@ -436,6 +478,125 @@ def _rowmajor_boundary_checks(dev, errs):
                 _check_equal(errs, "match_units", got, want_keys,
                              what + " keys")
                 checks += 2
+    return checks
+
+
+def _tile_boundary_bucket(rng, W, groups, unicode):
+    """A W-wide colstream bucket of ``groups`` 1024-row groups (the last
+    one partly padding) and a 16-unit needle: rows of 0 to W units (some
+    0, some exactly W, most short) over the needle's letters in both
+    cases, delimiters, digits and, for codepoints, 2-4-byte units; a
+    fifth of them are a prefix of the needle, or start, end or hold one."""
+    from frizbee_tpu_torch import pack_corpus
+
+    letters = "abcdefghABCDEFGH" + ("éنإ한" if unicode else "")
+    alpha = np.array(list(letters + "/_-.0123" + ("€😀𐍈" if unicode
+                                                   else "")))
+    needle = "".join(rng.choice(list(letters), 16))
+    rows = []
+    for i in range(groups * 1024 - 37):
+        r = rng.random()
+        L = W if r < 0.03 else 0 if r < 0.06 else int(
+            rng.integers(1, min(W, 40) + 1))
+        row = "".join(rng.choice(alpha, L))
+        piece = needle[:(1, 2, 16, int(rng.integers(1, 17)))[i % 4]]
+        kind = i % 25
+        if kind == 0:
+            row = piece
+        elif kind in (1, 2):
+            row = (piece + row)[:W]
+        elif kind == 3:
+            row = (row + piece)[-W:]
+        elif kind == 4 and L > len(piece):
+            at = int(rng.integers(0, L - len(piece)))
+            row = row[:at] + piece + row[at + len(piece):]
+        rows.append(row)
+    corpus = pack_corpus(rows, unicode=unicode, bucket_widths=(W,))
+    (b,) = corpus.buckets
+    return b, needle, max((len(corpus) - 1).bit_length(), 1)
+
+
+def _tile_boundary_checks(dev, errs):
+    """Both colstream kernels against their plain versions at the tile
+    boundaries: every bucket width (TILE_BOUNDARY_W, 3 groups) and the
+    query-sharing buckets (TILE_BOUNDARY_SHARED), byte and codepoint rows
+    with the ctx plane, Q cycling through TILE_BOUNDARY_Q, in key-emit
+    and five-column mode; flags keep group 0 alive for every query, group
+    1 for the first only and group 2 for none (or flags off), and odd
+    queries' live count ends in the middle of group 1. Fuzzy (n, T) cycle
+    through TILE_BOUNDARY_FUZZY and a literal mode through the four; on
+    the 32-wide bucket all four literal modes at n = 1, 2, 16. Returns
+    the number of checks."""
+    from frizbee_tpu_torch import Config, UnicodeMatching
+    from frizbee_tpu_torch.ops import colstream as cs
+    from frizbee_tpu_torch.ops.kernels import (
+        DEFAULT_SCORING,
+        pack_needle_scalars,
+    )
+    from frizbee_tpu_torch.ops.literal import LITERAL_MODES
+
+    rng = np.random.default_rng(31)
+    cases = [(W, 3, TILE_BOUNDARY_Q[i % len(TILE_BOUNDARY_Q)])
+             for i, W in enumerate(TILE_BOUNDARY_W)]
+    cases += list(TILE_BOUNDARY_SHARED)
+    checks = 0
+    for unicode in (False, True):
+        name = "_unicode" if unicode else ""
+        cfg = Config(unicode=UnicodeMatching.ALWAYS) if unicode else None
+        for ci, (W, groups, Q) in enumerate(cases):
+            b, needle, idx_bits = _tile_boundary_bucket(rng, W, groups,
+                                                        unicode)
+            cpT, nuT, idxT, _blk, ctxT = b.device_arrays_colstream()
+            nG = cpT.shape[0] // W
+            geo = cs.tile_geometry(W, 5 if unicode else 1, nG, Q)
+            flags = torch.zeros((Q, nG), dtype=torch.int32, device=dev)
+            flags[:, 0] = 1
+            flags[0, 1] = 1
+            flags[:, 3:] = 1
+            flags = flags if ci % 3 else None
+
+            def queries(n):
+                out = []
+                for _ in range(Q):
+                    q = list(needle[:n])
+                    for i in np.flatnonzero(rng.random(n) < 0.3):
+                        q[i] = q[i].swapcase()
+                    out.append("".join(q))
+                return out
+
+            def scalars(n):
+                nq = torch.from_numpy(_needles(queries(n), cfg)).to(dev)
+                scal = pack_needle_scalars(nq, b.size)
+                scal[1::2, 0] = 1024 + 517
+                return scal
+
+            n, T = TILE_BOUNDARY_FUZZY[ci % len(TILE_BOUNDARY_FUZZY)]
+            runs = [("colstream_fuzzy" + name, scalars(n), dict(
+                W=W, n=n, max_typos=T or 0, no_prefilter=T is None,
+                scoring=DEFAULT_SCORING, idx_bits=idx_bits))]
+            lit = [(LITERAL_MODES[ci % 4], TILE_BOUNDARY_LIT_N[ci % 3])]
+            if W == 32 and groups == 3:
+                lit = [(m, k) for m in LITERAL_MODES
+                       for k in TILE_BOUNDARY_LIT_N]
+            for mode, k in lit:
+                runs.append(("colstream_literal" + name, scalars(k), dict(
+                    W=W, n=k, mode=mode,
+                    needle_byte_len=len(needle[:k].encode()),
+                    scoring=DEFAULT_SCORING, idx_bits=idx_bits)))
+            for entry, scal, kw in runs:
+                plain = (cs.match_units_colstream_plain if "fuzzy" in entry
+                         else cs.match_units_colstream_literal_plain)
+                for ix in (idxT, None):
+                    got = cs.match_units_colstream(cpT, nuT, scal, flags,
+                                                   ix, ctxT, **kw)
+                    torch.cuda.synchronize()
+                    want = plain(cpT, nuT, scal, flags, ix, ctxT, **kw)
+                    _check_equal(errs, entry, got, want,
+                                 f"tile boundary w{W} groups={nG} Q={Q} "
+                                 f"{geo} {kw} flags={flags is not None} "
+                                 f"keys={ix is not None}")
+                    checks += 1
+            del cpT, nuT, idxT, ctxT, b
     return checks
 
 
@@ -895,11 +1056,15 @@ def _colstream_work(args, kw, keys):
     and stage-1 flag keep it alive; each of its rows walks its unit
     columns (only the first n in exact and prefix mode, where a matched
     codepoint row then sums the byte lengths of the rest for its exact
-    flag). Bytes count each needed corpus unit (1 byte, or a 4-byte
-    codepoint and its ctx-plane byte), and the unit count and index of
-    each row of a group some query reads, once."""
+    flag). A fuzzy row that passes the prefilter runs the DP over the
+    units of its trimmed window (``colstream.colstream_window``,
+    ``colstream_window_units``), n cells a unit. Bytes count each needed
+    corpus unit (1 byte, or a 4-byte codepoint and its ctx-plane byte),
+    and the unit count and index of each row of a group some query reads,
+    once."""
     from frizbee_tpu_torch.corpus import GROUP_ROWS
-    from frizbee_tpu_torch.ops.kernels import PF_NONE, prefilter_mode
+    from frizbee_tpu_torch.ops import colstream as cs
+    from frizbee_tpu_torch.ops.kernels import PF_DP, PF_GREEDY, prefilter_mode
     from frizbee_tpu_torch.ops.literal import EXACT, PREFIX
 
     cpT, nuT, scal, flags, _idxT, ctxT = args
@@ -932,13 +1097,26 @@ def _colstream_work(args, kw, keys):
             in_bytes += float((hit.amax(dim=0) * rest).sum()) * (
                 1 if ctxT is not None else 4)
         return ops, in_bytes, out_bytes
-    # fuzzy: the prefilter over every walked column; a matched row's DP
-    # covers >= n columns
+    # fuzzy: the prefilter over every walked column; the DP over the
+    # trimmed window of each alive row it passes
     T = min(int(kw["max_typos"]), n)
-    pf = prefilter_mode(n, T, kw["no_prefilter"]) != PF_NONE
-    matched = float((keys != INT64_MAX).sum())
-    ops = (cols * n * PF_OPS_PER_CELL if pf else 0.0) \
-        + matched * n * n * SW_OPS_PER_CELL
+    pf = prefilter_mode(n, T, kw["no_prefilter"])
+    if pf == PF_GREEDY:
+        per_col = (PF_GREEDY_OPS_PER_COLUMN if n >= GREEDY_LOOKUP_FROM else
+                   n * PF_GREEDY_OPS_PER_CELL_SHORT
+                   + PF_GREEDY_OPS_PER_COLUMN_SHORT)
+    elif pf == PF_DP:
+        per_col = n * (PF_DP_OPS_PER_CELL + PF_DP_OPS_PER_STATE * (T + 1))
+    else:
+        per_col = 0
+    matched, wstart, wend, _nb = cs.colstream_window(
+        cpT, nuT, scal, ctxT, W=W, n=n, max_typos=T,
+        no_prefilter=kw["no_prefilter"])
+    units = cs.colstream_window_units(cpT, nuT, wstart, wend, ctxT, W=W)
+    row_alive = alive.repeat_interleave(GROUP_ROWS, dim=1) > 0
+    dp_units = float(torch.where(matched & row_alive, units, 0).sum(
+        dtype=torch.float64))
+    ops = cols * per_col + dp_units * n * SW_OPS_PER_CELL
     return ops, in_bytes, out_bytes
 
 

@@ -82,6 +82,37 @@ def colstream_literal_supported(n: int) -> bool:
     return 1 <= n <= MAX_COLSTREAM_NEEDLE
 
 
+# the kernels' corpus tile (csrc/colstream_tile.cuh tile_geometry): at most
+# TILE_MAX_ROWS rows, TILE_BYTES of staged units (and codepoints' class
+# bytes) a block where 32 rows allow it; a block serves at most
+# BLOCK_COLUMNS / W queries (1 to MAX_BLOCK_QUERIES), and the queries
+# split further until the launch has TARGET_BLOCKS blocks
+TILE_MAX_ROWS = 128
+TILE_BYTES = 48 * 1024
+TARGET_BLOCKS = 1024
+BLOCK_COLUMNS = 512
+MAX_BLOCK_QUERIES = 32
+
+
+def tile_geometry(W: int, unit_bytes: int, n_groups: int, Q: int) -> dict:
+    """The launch geometry of the colstream kernels, as
+    ``csrc/colstream_tile.cuh`` computes it: ``rows`` a tile (the block's
+    threads: 128, 64 or 32, the most whose W columns of ``unit_bytes``
+    shared-memory bytes a unit — 1 a byte, 5 a codepoint: the unit and its
+    class byte — fit TILE_BYTES), ``qper`` queries a block, ``chunks``
+    blocks a tile, ``tiles`` and ``smem`` (dynamic shared memory bytes a
+    block)."""
+    rows = TILE_MAX_ROWS
+    while rows > 32 and rows * W * unit_bytes > TILE_BYTES:
+        rows //= 2
+    tiles = n_groups * (GROUP_ROWS // rows)
+    cap = min(max(BLOCK_COLUMNS // W, 1), MAX_BLOCK_QUERIES)
+    split = min(max(-(-TARGET_BLOCKS // tiles), -(-Q // cap)), Q)
+    qper = -(-Q // split)
+    return dict(rows=rows, qper=qper, chunks=-(-Q // qper), tiles=tiles,
+                smem=rows * W * unit_bytes)
+
+
 def _bonus_bits(first, last):
     """The bonus facts of a unit from its first and last byte, in the ctx
     plane's bit layout (``corpus.ctx_plane``)."""
@@ -131,32 +162,22 @@ def _alive_rows(scalars, flags, nG):
     return alive.repeat_interleave(GROUP_ROWS, dim=1)
 
 
-def match_units_colstream_plain(
-    cpT, nuT, scalars, flags=None, idxT=None, ctxT=None, *, W: int, n: int,
-    max_typos: int = 0, scoring: Tuple[int, ...], no_prefilter: bool = False,
-    idx_bits: int = 0,
+def colstream_window(
+    cpT, nuT, scalars, ctxT=None, *, W: int, n: int, max_typos: int = 0,
+    no_prefilter: bool = False,
 ):
-    """Plain PyTorch version of the colstream kernel: vectorized over
-    (query, row), Python loops over unit columns and needle units, line
-    for line after ``frizbee_tpu.ops.colstream._match_block``.
-
-    cpT (nG*W, 8, 128) int8 bytes or int32 codepoints, nuT (nG*8, 128)
-    int32, scalars (Q, 130) int32 (``kernels.pack_needle_scalars``;
-    [q, 0] is the live row count), flags (Q, nG) int32 or None, ctxT
-    (nG*W, 8, 128) int8 ctx plane or None (codepoint blocks only).
-    Returns int64 keys (Q, nG*1024) when ``idxT`` (nG*1024,) is given,
-    else the five int32 columns (matched, score, exact, end_col, greedy),
-    each (Q, nG*1024). Windows and end_col are byte offsets."""
-    (match_score, mismatch, gap_open, gap_ext, prefix_b, cap_b, case_b,
-     exact_b, delim_b) = (int(s) for s in scoring)
-    gop_extra = max(gap_open - gap_ext, 0)
-    nG = cpT.shape[0] // W
+    """Pass 1 of the fuzzy colstream match (the positional prefilter with
+    typo budget, after ``frizbee_tpu.ops.colstream._match_block``) for Q
+    queries over nG groups: (matched bool, wstart, wend, nb) int32, each
+    (Q, nG*1024). ``matched`` is the prefilter's verdict, [wstart, wend)
+    the start-1-trimmed byte window that pass 2's DP walks, ``nb`` the
+    row's byte count (its unit count on a byte row). Group liveness is not
+    applied. Arguments as :func:`match_units_colstream_plain`."""
     T = min(int(max_typos), n)
-    Q = scalars.shape[0]
     unicode = cpT.dtype != torch.int8
     column = _column_reader(cpT, nuT, W, ctxT)
     nu = nuT.reshape(-1)
-    shape = (Q, nu.shape[0])
+    shape = (scalars.shape[0], nu.shape[0])
     dev = cpT.device
     z = torch.zeros(shape, dtype=torch.int32, device=dev)
     fz = torch.zeros(shape, dtype=torch.bool, device=dev)
@@ -171,7 +192,6 @@ def match_units_colstream_plain(
 
     jmaxu = min(int(nu.max()), W) if nu.numel() else 0
 
-    # ---- pass 1: byte totals and the positional prefilter ---------------
     auto = (not no_prefilter) and n <= T
     run_pf = (not no_prefilter) and not auto
     ffound, efound = fz.clone(), fz.clone()
@@ -238,9 +258,68 @@ def match_units_colstream_plain(
         wend = torch.where(matched & efound, ebyte, nb)
     else:
         wstart_raw, wend = z, nb
+    return matched, torch.clamp(wstart_raw - 1, min=0), wend, nb
+
+
+def colstream_window_units(cpT, nuT, wstart, wend, ctxT=None, *, W: int):
+    """(Q, nG*1024) int32: the units of each row inside its byte window
+    [wstart, wend) (:func:`colstream_window`), the columns that pass 2's
+    DP walks."""
+    column = _column_reader(cpT, nuT, W, ctxT)
+    nu = nuT.reshape(-1)
+    jmaxu = min(int(nu.max()), W) if nu.numel() else 0
+    count = torch.zeros_like(wstart)
+    boff = torch.zeros_like(wstart)
+    for j in range(jmaxu):
+        _hay, valid, blen, _bits = column(j)
+        count = count + (valid & (boff >= wstart)
+                         & (boff + blen <= wend)).to(torch.int32)
+        boff = boff + blen
+    return count
+
+
+def match_units_colstream_plain(
+    cpT, nuT, scalars, flags=None, idxT=None, ctxT=None, *, W: int, n: int,
+    max_typos: int = 0, scoring: Tuple[int, ...], no_prefilter: bool = False,
+    idx_bits: int = 0,
+):
+    """Plain PyTorch version of the colstream kernel: vectorized over
+    (query, row), Python loops over unit columns and needle units, line
+    for line after ``frizbee_tpu.ops.colstream._match_block``: pass 1 is
+    :func:`colstream_window`, pass 2 the windowed Smith-Waterman.
+
+    cpT (nG*W, 8, 128) int8 bytes or int32 codepoints, nuT (nG*8, 128)
+    int32, scalars (Q, 130) int32 (``kernels.pack_needle_scalars``;
+    [q, 0] is the live row count), flags (Q, nG) int32 or None, ctxT
+    (nG*W, 8, 128) int8 ctx plane or None (codepoint blocks only).
+    Returns int64 keys (Q, nG*1024) when ``idxT`` (nG*1024,) is given,
+    else the five int32 columns (matched, score, exact, end_col, greedy),
+    each (Q, nG*1024). Windows and end_col are byte offsets."""
+    (match_score, mismatch, gap_open, gap_ext, prefix_b, cap_b, case_b,
+     exact_b, delim_b) = (int(s) for s in scoring)
+    gop_extra = max(gap_open - gap_ext, 0)
+    nG = cpT.shape[0] // W
+    unicode = cpT.dtype != torch.int8
+    column = _column_reader(cpT, nuT, W, ctxT)
+    nu = nuT.reshape(-1)
+    dev = cpT.device
+    orig = scalars[:, 2:2 + n]
+    flip = scalars[:, 2 + MAX_KERNEL_NEEDLE:2 + MAX_KERNEL_NEEDLE + n]
+
+    def orig_k(k):
+        return orig[:, k:k + 1]
+
+    def flip_k(k):
+        return flip[:, k:k + 1]
+
+    jmaxu = min(int(nu.max()), W) if nu.numel() else 0
+    matched, wstart, wend, nb = colstream_window(
+        cpT, nuT, scalars, ctxT, W=W, n=n, max_typos=max_typos,
+        no_prefilter=no_prefilter)
+    z = torch.zeros(matched.shape, dtype=torch.int32, device=dev)
+    fz = torch.zeros(matched.shape, dtype=torch.bool, device=dev)
 
     # ---- pass 2: windowed affine-gap SW (bonus schedule) ----------------
-    wstart = torch.clamp(wstart_raw - 1, min=0)
     include_exact = (wstart == 0) & (wend == nb)
     include_prefix = wstart == 0
     # a byte row's window ends at a unit column, so the walk stops at the
@@ -485,6 +564,9 @@ def match_units_colstream(
     nG = cpT.shape[0] // W
     Q = scalars.shape[0]
     total = nG * GROUP_ROWS
+    if any(t is not None and t.data_ptr() % 16 for t in (cpT, ctxT)):
+        raise ValueError("cpT and ctxT must be 16-byte aligned: the kernel "
+                         "stages them with 16-byte copies")
     _build.check_operands(cpT.device, (
         ("cpT", cpT, torch.int32 if unicode else torch.int8,
          (nG * W, 8, 128)),

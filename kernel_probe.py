@@ -1,7 +1,6 @@
-"""A/B of the row gather and the row-major match kernel on one CUDA card,
-each built from one of several kernel source directories and timed in
-turns on the launches that served batches make, with the seven serving
-batches served by each.
+"""A/B of the package's CUDA kernels on one card, each built from one of
+several kernel source directories and timed in turns on the launches that
+served batches make, with the seven serving batches served by each.
 
     python3 kernel_probe.py --variant parent=DIR \\
         --variant tree=frizbee_tpu_torch/csrc
@@ -10,16 +9,19 @@ Run it from the repository root, beside ``chip_smoke.py``, whose corpora,
 serving paths and timing helpers it uses. A variant is LABEL=DIR, where
 DIR holds the ``csrc`` sources of a kernel tree (for example those of an
 unpacked ``git archive`` of an earlier commit) whose C entry points take
-the package's arguments. The probe builds ``row_gather`` and
-``match_units`` from each, builds ``chip_smoke.py``'s serving corpora
-(1M ASCII rows, 1M rows for the 24-byte needle, 1M Arabic rows) and
-captures the launches of one batch of each serving path. Then, for
-``ROUNDS`` rounds, the variants in turn (first to last, then back):
+the package's arguments. The probe builds every kernel of ``KERNELS``
+from each, builds ``chip_smoke.py``'s serving corpora (1M ASCII rows, 1M
+rows for the 24-byte needle, 1M Arabic rows) and captures the launches of
+one batch of each serving path. Then, for ``ROUNDS`` rounds, the variants
+in turn (first to last, then back):
 
 - ``row_gather`` on each path's captured gathers: device ms beside
   ``torch.index_select`` on the same arguments and the byte bound;
-- ``match_units`` on the typo, long-needle and unicode-typo batches'
-  launches: device ms;
+- each match kernel on the launches of the batches it serves
+  (``MATCH_PATHS``: the column-stream fuzzy kernel on the fuzzy and
+  unicode fuzzy batches, the literal kernel on the literal and unicode
+  literal batches, ``match_units`` on the typo, long-needle and
+  unicode-typo batches): device ms;
 - each serving path as ``chip_smoke.py``'s serving phase drives it
   (warm-up, the median of 3 blocking batches, a depth-3 pipeline).
 
@@ -48,8 +50,19 @@ from frizbee_tpu_torch.ops import colstream as cs
 from frizbee_tpu_torch.ops import kernels as km
 
 ROUNDS = 10
-KERNELS = ("row_gather", "match_units")
-ROW_MAJOR_PATHS = ("typo", "long_needle", "unicode_typo")
+KERNELS = ("row_gather", "match_units", "colstream_fuzzy",
+           "colstream_literal")
+# match kernel -> (wrapper, plain version, the serving paths it is timed on)
+MATCH_PATHS = {
+    "match_units": (km.match_units, km.match_units_plain,
+                    ("typo", "long_needle", "unicode_typo")),
+    "colstream_fuzzy": (cs.match_units_colstream,
+                        cs.match_units_colstream_plain,
+                        ("fuzzy", "unicode_fuzzy")),
+    "colstream_literal": (cs.match_units_colstream,
+                          cs.match_units_colstream_literal_plain,
+                          ("literal", "unicode_literal")),
+}
 # serving metric (ms) -> the key of chip_smoke._serve that holds it (s)
 SERVING_METRICS = {"blocking_ms": "blocking_batch_seconds",
                    "pipelined_ms": "pipelined_batch_seconds"}
@@ -65,11 +78,17 @@ def _use(csrc: str) -> dict:
 
 def _summary(samples: dict, labels: list) -> dict:
     """Median of each variant's samples and, for two variants, the share
-    of rounds in which the second took less time than the first."""
+    of rounds in which the second took less time than the first and the
+    mean of the second minus the first over the rounds with its standard
+    error."""
     out = {"median": {v: float(np.median(samples[v])) for v in labels}}
     if len(labels) == 2:
         a, b = (np.asarray(samples[v]) for v in labels)
+        d = b - a
         out[f"{labels[1]}_faster_share"] = float(np.mean(b < a))
+        out["diff_mean"] = float(d.mean())
+        out["diff_se"] = (float(d.std(ddof=1) / np.sqrt(len(d)))
+                          if len(d) > 1 else None)
     return out
 
 
@@ -110,17 +129,17 @@ def main(argv=None) -> int:
     gathers = {p: [c for k, c in v if k == "row_gather"]
                for p, v in calls.items()}
     gathers = {p: g for p, g in gathers.items() if g}
-    rm = {p: [c for k, c in calls[p] if k == "match_units"]
-          for p in ROW_MAJOR_PATHS}
+    match = {(k, p): [c for name, c in calls[p] if name == k]
+             for k, (_f, _pl, kpaths) in MATCH_PATHS.items()
+             for p in kpaths}
     print("captured " + json.dumps(
-        {p: {"row_gather": len(gathers.get(p, ())),
-             "match_units": len(rm.get(p, ()))} for p in paths}),
-        flush=True)
+        {p: {k: sum(1 for name, _c in calls[p] if name == k)
+             for k in KERNELS} for p in paths}), flush=True)
     errs = {k: 0.0 for k in KERNELS}
     want_g = {p: [cs.row_gather_plain(*a) for a, _kw in g]
               for p, g in gathers.items()}
-    want_m = {p: [km.match_units_plain(*a, **kw) for a, kw in c]
-              for p, c in rm.items()}
+    want_m = {(k, p): [MATCH_PATHS[k][1](*a, **kw) for a, kw in c]
+              for (k, p), c in match.items()}
 
     def run(fn, cl):
         return [fn(*a, **kw) for a, kw in cl]
@@ -131,7 +150,7 @@ def main(argv=None) -> int:
         for x, w in zip(got, want):
             cs_._check_equal(errs, name, x, w, what)
 
-    gather_out, rm_out = {}, {}
+    gather_out, match_out = {}, {}
     for p, g in gathers.items():
         read = written = 0.0
         for (a, kw), w in zip(g, want_g[p]):
@@ -141,8 +160,9 @@ def main(argv=None) -> int:
                          "bound_ms": cs_._bound(read, written, 0.0)[0],
                          "index_select_ms": [],
                          "ms": {v: [] for v in labels}}
-    for p, c in rm.items():
-        rm_out[p] = {"launches": len(c), "ms": {v: [] for v in labels}}
+    for (k, p), c in match.items():
+        match_out.setdefault(k, {})[p] = {"launches": len(c),
+                                          "ms": {v: [] for v in labels}}
     serving = {p: {m: {v: [] for v in labels} for m in SERVING_METRICS}
                for p in paths}
 
@@ -156,10 +176,11 @@ def main(argv=None) -> int:
                 gather_out[p]["index_select_ms"].append(cs_._time_ms(
                     lambda: run(lambda d, i: torch.index_select(d, 0, i), g),
                     reps=10))
-            for p, c in rm.items():
-                held("match_units", km.match_units, c, want_m[p], f"{v} {p}")
-                rm_out[p]["ms"][v].append(
-                    cs_._time_ms(lambda: run(km.match_units, c)))
+            for (k, p), c in match.items():
+                fn = MATCH_PATHS[k][0]
+                held(k, fn, c, want_m[k, p], f"{v} {p}")
+                match_out[k][p]["ms"][v].append(
+                    cs_._time_ms(lambda: run(fn, c)))
             for p, (c, queries, cfg, kernels) in paths.items():
                 res = cs_._serve(p, c, queries, cfg, kernels, {})
                 for m, key in SERVING_METRICS.items():
@@ -172,8 +193,9 @@ def main(argv=None) -> int:
             **_summary(e["ms"], labels),
             "index_select_median": float(np.median(e["index_select_ms"]))}}
         for p, e in gather_out.items()}
-    out["match_units"] = {p: {**e, "summary": _summary(e["ms"], labels)}
-                          for p, e in rm_out.items()}
+    for k, per_path in match_out.items():
+        out[k] = {p: {**e, "summary": _summary(e["ms"], labels)}
+                  for p, e in per_path.items()}
     out["serving_ms"] = {p: {m: {"samples": s, **_summary(s, labels)}
                              for m, s in ms.items()}
                          for p, ms in serving.items()}
@@ -183,8 +205,8 @@ def main(argv=None) -> int:
     print(json.dumps({
         "max_abs_err": errs,
         "row_gather": {p: e["summary"] for p, e in out["row_gather"].items()},
-        "match_units": {p: e["summary"]
-                        for p, e in out["match_units"].items()},
+        **{k: {p: e["summary"] for p, e in out[k].items()}
+           for k in MATCH_PATHS},
         "serving_ms": {p: {m: {k: x for k, x in e.items() if k != "samples"}
                            for m, e in ms.items()}
                        for p, ms in out["serving_ms"].items()},
