@@ -20,24 +20,30 @@ Builds the package's CUDA kernels from ``frizbee_tpu_torch/csrc`` (one
    16-1024, Q = 1, 2, 17, 33, blocks that share a tile among queries,
    groups alive for one query or none, live counts ending mid-group,
    rows of 0 and W units, byte and codepoint rows, all four literal modes
-   at n = 1, 2 and 16, both output modes); the row
-   gather at 128-, 256-, 384- and 2048-word rows, 1, 7 and the capped
+   at n = 1, 2 and 16, both output modes); the int16-lane instantiations
+   of both DP kernels against their int16 plain versions at the same
+   serving shapes, at every row-major template boundary and colstream
+   tile boundary, and at the pairing boundaries (live counts 1, 2, 31,
+   33 and odd, rows of 0 and W units paired, one half matched and the
+   other rejected); the lane contract kernel against its plain model; the
+   row gather at 128-, 256-, 384- and 2048-word rows, 1, 7 and the capped
    finalize's or broad tournament's rows; and the unicode variant of each
    match kernel
    on every bucket of a 1M-row Arabic codepoint corpus at Q=16 (the
    colstream kernels with the ctx plane, the plain versions on a subset
    of groups; the row-major kernel at (n=8, T=4) through a row order and
    at (n=20, T=0)), and on a w512 block whose windows exceed 1024 bytes;
-2. serving phase, four batches of Q=32 through ``match_topk_batch``
+2. serving phase, five batches of Q=32 through ``match_topk_batch``
    (warm-up, blocking loop) and a depth-3 ``match_topk_batch_async``
    pipeline, each with every launch and route counter set to 0 just
    before and read just after, each asserting that its kernels launched:
    bench.py's fuzzy batch (1M partial-match rows, median length 64,
    k=2048; colstream fuzzy), a literal batch of 2-4-byte pieces under ^,
    $, ' and ^...$ (colstream literal), bench.py's queries at max_typos=4
-   (row-major), and 24-byte needles over a second 1M-row partial-match
-   corpus of that needle (row-major); each finalizes through the row
-   gather; then three unicode batches of Q=16 over the 1M-row Arabic
+   (row-major, int16 lanes), the same under a scoring whose cells exceed
+   int16 (row-major, int32 lanes), and 24-byte needles over a second
+   1M-row partial-match corpus of that needle (row-major, int16 lanes);
+   each finalizes through the row gather; then three unicode batches of Q=16 over the 1M-row Arabic
    corpus, recording their finalize routes: the 16 two-letter variants
    of "إن" (colstream fuzzy), the same under ', ^, $ and ^...$ (colstream
    literal), and 16 eight-codepoint needles at max_typos=4 (row-major);
@@ -47,7 +53,12 @@ Builds the package's CUDA kernels from ``frizbee_tpu_torch/csrc`` (one
    up, queued behind a device sleep so host launch overhead leaves no
    gaps) beside the bound this run's data needs, its plain version and,
    for the row gather (ASCII and unicode paths apart, and per path),
-   ``torch.index_select``;
+   ``torch.index_select``; the fuzzy batch's colstream launches driven
+   once more with ``int16_lanes=True`` (the int16 colstream kernel's
+   path); and, on the same captured launches in 10 alternating rounds,
+   the int16 and int32 instantiations of ``match_units`` (typo, long
+   needle) and of the colstream fuzzy kernel (fuzzy): medians, the share
+   of rounds the int16 one won, and the bound both share;
 4. profile phase: torch.profiler over blocking fuzzy batches, ASCII and
    unicode (wall time, device busy time, top kernels and host
    operations) and cProfile over one ASCII batch;
@@ -173,6 +184,16 @@ TILE_BOUNDARY_Q = (1, 2, 17, 33)
 TILE_BOUNDARY_FUZZY = ((1, 0), (16, 1), (5, 3), (2, None), (8, 0),
                        (2, 1), (3, 1), (16, 0), (7, 2))  # (n, T)
 TILE_BOUNDARY_LIT_N = (1, 2, 16)
+# the int16-lane kernels' pairing boundaries: live counts that leave an
+# odd row out, a single pair, a warp and a bit
+PAIR_COUNTS = (1, 2, 31, 33, 129, 603)
+PAIR_COLSTREAM_COUNTS = (1, 2, 33, 1025, 3 * 1024 - 37)
+# a user scoring whose cells exceed int16 at the typo batch's needles
+# (8 x 4008 + 20 > 30000): the reference serves it in int32 lanes, so the
+# row-major kernel's int32 byte instantiation keeps a serving path
+WIDE_SCORING = dict(match_score=4000)
+# rounds of the int16-against-int32 A/B on the captured launches
+AB_ROUNDS = 10
 
 
 def _queries(q, base="deadbeef"):
@@ -301,36 +322,35 @@ def kernel_phase(corpus, detail):
             flags = _flags(blk, nq, T)
             for fl in (flags, None):
                 for ix in (idxT, None):
-                    kw = dict(W=b.width, n=8, max_typos=T,
-                              scoring=DEFAULT_SCORING, no_prefilter=nopre,
-                              idx_bits=idx_bits)
-                    got = cs.match_units_colstream(cpT, nuT, scal, fl, ix,
-                                                   **kw)
-                    torch.cuda.synchronize()
-                    want = cs.match_units_colstream_plain(
-                        cpT, nuT, scal, fl, ix, **kw)
-                    pairs = [(got, want)] if ix is not None else list(
-                        zip(got, want))
-                    for g, w in pairs:
-                        err = _max_abs_err(g, w)
-                        errs["colstream_fuzzy"] = max(
-                            errs["colstream_fuzzy"], err)
-                        if err:
-                            raise AssertionError(
-                                f"colstream kernel != plain: w{b.width} "
-                                f"T={T} no_prefilter={nopre} "
-                                f"flags={fl is not None} "
-                                f"keys={ix is not None} err={err}"
-                            )
-                    checks += 1
-                    del got, want, pairs
+                    # the int16 instantiation with flags and keys, and
+                    # with neither
+                    i16s = (False, True) if (fl is None) == (ix is None) \
+                        else (False,)
+                    for i16 in i16s:
+                        kw = dict(W=b.width, n=8, max_typos=T,
+                                  scoring=DEFAULT_SCORING, no_prefilter=nopre,
+                                  idx_bits=idx_bits, int16_lanes=i16)
+                        got = cs.match_units_colstream(cpT, nuT, scal, fl,
+                                                       ix, **kw)
+                        torch.cuda.synchronize()
+                        want = cs.match_units_colstream_plain(
+                            cpT, nuT, scal, fl, ix, **kw)
+                        _check_equal(
+                            errs, "colstream_fuzzy_i16" if i16
+                            else "colstream_fuzzy", got, want,
+                            f"w{b.width} T={T} no_prefilter={nopre} "
+                            f"flags={fl is not None} keys={ix is not None} "
+                            f"int16_lanes={i16}")
+                        checks += 1
+                        del got, want
     gather_shapes = _gather_shapes(corpus)
     rg = _row_gather_checks(dev, errs, gather_shapes)
     lit = _literal_kernel_checks(corpus, errs)
     rm = _rowmajor_kernel_checks(corpus, errs)
     rmx = _rowmajor_boundary_checks(dev, errs)
     tbx = _tile_boundary_checks(dev, errs)
-    checks += rg + lit + rm + rmx + tbx
+    px = _pairing_checks(dev, errs)
+    checks += rg + lit + rm + rmx + tbx + px
     detail["kernel_checks"] = checks
     print(f"kernel phase: {checks} kernel-vs-plain checks bit-equal "
           f"(colstream fuzzy Q={Q} x {len(corpus.buckets)} buckets x "
@@ -342,7 +362,10 @@ def kernel_phase(corpus, detail):
           f"codepoints x columns, key-emit; colstream fuzzy and literal "
           f"{tbx} at the tile boundaries: W {TILE_BOUNDARY_W} and "
           f"{TILE_BOUNDARY_SHARED} x Q {TILE_BOUNDARY_Q} x bytes, "
-          f"codepoints x columns, key-emit; row_gather {rg}: C "
+          f"codepoints x columns, key-emit; int16 lanes of both at the "
+          f"serving shapes, the template and tile boundaries and {px} "
+          f"pairing boundaries: live counts {PAIR_COUNTS} / "
+          f"{PAIR_COLSTREAM_COUNTS}; row_gather {rg}: C "
           f"{GATHER_CHECK_C} x M 1, 7, served {gather_shapes})",
           flush=True)
     return errs
@@ -452,33 +475,132 @@ def _rowmajor_boundary_checks(dev, errs):
                 rows = torch.from_numpy(np.stack([
                     np.arange(B), rng.permutation(B)]).astype(np.int32)).to(
                         dev)
-                kw = dict(n=n, max_typos=T, scoring=scorings[(n + T) % 2],
-                          idx_bits=10)
-                scal = km.pack_needle_scalars(nq, B)
-                want = km.match_units_plain(cp, nu, scal, **kw)
-                scal[:, 0] = torch.tensor(counts)
-                what = (f"{'codepoints' if unicode else 'bytes'} n={n} "
-                        f"T={T}")
-                got = km.match_units(cp, nu, scal, **kw)
-                torch.cuda.synchronize()
-                want_cols = torch.zeros_like(want)
-                want_keys = torch.full((2, B), INT64_MAX, dtype=torch.int64,
-                                       device=dev)
-                for q, c in enumerate(counts):
-                    want_cols[q, :c] = want[q, :c]
-                    sel = rows[q, :c].to(torch.int64)
-                    w = want[q, sel]
-                    want_keys[q, :c] = km.pack_keys(
-                        w[:, 0], w[:, 1], w[:, 2], w[:, 3], w[:, 4], idx[sel],
-                        10)
-                _check_equal(errs, "match_units", got, want_cols,
-                             what + " columns")
-                got = km.match_units(cp, nu, scal, rows, idx, **kw)
-                torch.cuda.synchronize()
-                _check_equal(errs, "match_units", got, want_keys,
-                             what + " keys")
-                checks += 2
+                for i16 in (False, True) if not unicode else (False,):
+                    kw = dict(n=n, max_typos=T,
+                              scoring=scorings[(n + T) % 2], idx_bits=10,
+                              int16_lanes=i16)
+                    checks += _rowmajor_pair_check(
+                        errs, cp, nu, nq, idx, rows, counts, kw,
+                        f"{'codepoints' if unicode else 'bytes'} n={n} "
+                        f"T={T} int16_lanes={i16}")
     return checks
+
+
+def _rowmajor_pair_check(errs, cp, nu, nq, idx, rows, counts, kw, what):
+    """One bucket through match_units in columns mode (identity order)
+    and key-emit mode (``rows``), each query q at live count counts[q],
+    against the plain version's columns of every row; returns 2."""
+    from frizbee_tpu_torch.ops import kernels as km
+
+    B = cp.shape[0]
+    entry = "match_units_i16" if kw.get("int16_lanes") else "match_units"
+    scal = km.pack_needle_scalars(nq, B)
+    want = km.match_units_plain(cp, nu, scal, **kw)
+    scal[:, 0] = torch.tensor(counts)
+    got = km.match_units(cp, nu, scal, **kw)
+    torch.cuda.synchronize()
+    want_cols = torch.zeros_like(want)
+    want_keys = torch.full((len(counts), B), INT64_MAX, dtype=torch.int64,
+                           device=cp.device)
+    for q, c in enumerate(counts):
+        want_cols[q, :c] = want[q, :c]
+        sel = rows[q, :c].to(torch.int64)
+        w = want[q, sel]
+        want_keys[q, :c] = km.pack_keys(
+            w[:, 0], w[:, 1], w[:, 2], w[:, 3], w[:, 4], idx[sel],
+            kw["idx_bits"])
+    _check_equal(errs, entry, got, want_cols, what + " columns")
+    got = km.match_units(cp, nu, scal, rows, idx, **kw)
+    torch.cuda.synchronize()
+    _check_equal(errs, entry, got, want_keys, what + " keys")
+    return 2
+
+
+def _pairing_checks(dev, errs):
+    """The int16-lane kernels at their pairing boundaries. Row-major: on
+    :func:`_boundary_bucket`'s blocks (all matched, all rejected, mixed)
+    with a tenth of the rows emptied and a tenth filled to W units, live
+    counts PAIR_COUNTS for the two queries in turn, so a block's queue
+    ends on an odd row out, holds one pair or one row, or crosses a warp;
+    (n, T) at the greedy embedding and the DP, bytes, both modes.
+    Colstream: a 3-group bucket whose group 1 holds empty rows but for a
+    few W-unit ones (an empty row pairs with a full one) and whose group
+    2 holds rows of one length that alternate between carrying the needle
+    and not (a matched half beside a rejected one), live counts
+    PAIR_COLSTREAM_COUNTS, T = 0 and 1, both modes. Returns the number of
+    checks."""
+    from frizbee_tpu_torch.ops import colstream as cs
+    from frizbee_tpu_torch.ops import kernels as km
+
+    rng = np.random.default_rng(41)
+    B, W = RM_BOUNDARY_B, RM_BOUNDARY_W
+    checks = 0
+    for n, T in ((8, 0), (8, 4), (24, 0), (24, 4)):
+        cp_np, nu_np, needle = _boundary_bucket(rng, n, T, False)
+        r = rng.random(B)
+        nu_np = np.where(r < 0.1, 0, np.where(r > 0.9, W, nu_np))
+        nu_np = nu_np.astype(np.int32)
+        cp = torch.from_numpy(cp_np).to(dev)
+        nu = torch.from_numpy(nu_np).to(dev)
+        nq = torch.from_numpy(np.stack([needle, needle])).to(dev)
+        idx = torch.from_numpy(rng.permutation(B).astype(np.int32)).to(dev)
+        rows = torch.from_numpy(np.stack([
+            np.arange(B), rng.permutation(B)]).astype(np.int32)).to(dev)
+        for i in range(0, len(PAIR_COUNTS), 2):
+            counts = PAIR_COUNTS[i:i + 2]
+            kw = dict(n=n, max_typos=T, scoring=km.DEFAULT_SCORING,
+                      idx_bits=10, int16_lanes=True)
+            checks += _rowmajor_pair_check(
+                errs, cp, nu, nq, idx, rows, counts, kw,
+                f"pairing n={n} T={T} counts={counts}")
+
+    # the colstream bucket, built row by row (pack_corpus would cluster
+    # the rows): group 0 random rows; group 1 empty rows but for three of
+    # W units a 256-row tile (two carry the needle, one does not), so an
+    # empty row pairs with a full one; group 2 rows of 12 units, the even
+    # ones without the needle and the odd ones with it
+    needle, Wc, Bc = "dEadbeEf", 32, 3 * 1024
+    cpc = np.zeros((Bc, Wc), np.uint8)
+    nuc = np.zeros(Bc, np.int32)
+    for i in range(Bc - 37):
+        g, t = i // 1024, i % 256
+        if g == 0:
+            row = "".join(rng.choice(list("deabfx/_Q"),
+                                     int(rng.integers(0, Wc + 1))))
+        elif g == 1:
+            row = {5: "x" * 24 + needle, 77: "q" * Wc,
+                   200: needle + "_" * 24}.get(t, "")
+        else:
+            row = ("ab" + needle + "yz") if i % 2 else "abqqqqqqqqyz"
+        units = np.frombuffer(row.encode(), np.uint8)
+        cpc[i, :len(units)] = units
+        nuc[i] = len(units)
+    cpT = torch.from_numpy(np.ascontiguousarray(
+        cpc.view(np.int8).reshape(3, 1024, Wc).transpose(0, 2, 1)
+    ).reshape(3 * Wc, 8, 128)).to(dev)
+    nuT = torch.from_numpy(nuc.reshape(24, 128)).to(dev)
+    idxc = rng.permutation(Bc).astype(np.int32)
+    idxc[Bc - 37:] = -1
+    idxT = torch.from_numpy(idxc).to(dev)
+    idx_bits = 12
+    nq = torch.from_numpy(_needles([needle, needle.swapcase()])).to(dev)
+    for T in (0, 1):
+        for count in PAIR_COLSTREAM_COUNTS:
+            scal = km.pack_needle_scalars(nq, count)
+            kw = dict(W=Wc, n=len(needle), max_typos=T,
+                      scoring=km.DEFAULT_SCORING, idx_bits=idx_bits,
+                      int16_lanes=True)
+            for ix in (idxT, None):
+                got = cs.match_units_colstream(cpT, nuT, scal, None, ix, **kw)
+                torch.cuda.synchronize()
+                want = cs.match_units_colstream_plain(cpT, nuT, scal, None,
+                                                      ix, **kw)
+                _check_equal(errs, "colstream_fuzzy_i16", got, want,
+                             f"pairing T={T} count={count} "
+                             f"keys={ix is not None}")
+                checks += 1
+    return checks
+
 
 
 def _tile_boundary_bucket(rng, W, groups, unicode):
@@ -571,9 +693,15 @@ def _tile_boundary_checks(dev, errs):
                 return scal
 
             n, T = TILE_BOUNDARY_FUZZY[ci % len(TILE_BOUNDARY_FUZZY)]
-            runs = [("colstream_fuzzy" + name, scalars(n), dict(
-                W=W, n=n, max_typos=T or 0, no_prefilter=T is None,
-                scoring=DEFAULT_SCORING, idx_bits=idx_bits))]
+            fuzzy_kw = dict(W=W, n=n, max_typos=T or 0,
+                            no_prefilter=T is None, scoring=DEFAULT_SCORING,
+                            idx_bits=idx_bits)
+            runs = [("colstream_fuzzy" + name, scalars(n), fuzzy_kw)]
+            if not unicode:
+                # the int16 instantiation: its own geometry (two rows a
+                # thread) at every width
+                runs.append(("colstream_fuzzy_i16", scalars(n),
+                             dict(fuzzy_kw, int16_lanes=True)))
             lit = [(LITERAL_MODES[ci % 4], TILE_BOUNDARY_LIT_N[ci % 3])]
             if W == 32 and groups == 3:
                 lit = [(m, k) for m in LITERAL_MODES
@@ -794,21 +922,28 @@ def _rowmajor_kernel_checks(corpus, errs):
         order = torch.argsort(
             torch.rand((Q, b.size), generator=g, device=dev), dim=1
         ).to(torch.int32)
-        for queries, T, nopre in cases:
+        for ci, (queries, T, nopre) in enumerate(cases):
             nq = torch.from_numpy(_needles(queries)).to(dev)
             n = nq.shape[1] // 2
-            kw = dict(n=n, max_typos=T, scoring=km.DEFAULT_SCORING,
-                      no_prefilter=nopre, idx_bits=idx_bits)
-            for rows in (None, order):
+            # the int16 instantiation through the row order on every case
+            # and over all rows on the typo case
+            runs = [(None, False), (order, False), (order, True)]
+            if ci == 0:
+                runs.append((None, True))
+            for rows, i16 in runs:
+                kw = dict(n=n, max_typos=T, scoring=km.DEFAULT_SCORING,
+                          no_prefilter=nopre, idx_bits=idx_bits,
+                          int16_lanes=i16)
                 scal = km.pack_needle_scalars(
                     nq, b.size if rows is None else b.size // 3 + 17)
                 ix = None if rows is None else idx
                 got = km.match_units(cp, nu, scal, rows, ix, **kw)
                 torch.cuda.synchronize()
                 want = km.match_units_plain(cp, nu, scal, rows, ix, **kw)
-                _check_equal(errs, "match_units", got, want,
+                _check_equal(errs, "match_units_i16" if i16 else
+                             "match_units", got, want,
                              f"w{b.width} n={n} T={T} no_prefilter={nopre}"
-                             f" order={rows is not None}")
+                             f" order={rows is not None} int16_lanes={i16}")
                 checks += 1
                 del got, want
         del order
@@ -904,11 +1039,14 @@ def _serve(label, corpus, queries, cfg, kernels, detail):
 
 
 def _paths(corpus, long_corpus, ucorpus):
-    """The seven serving paths: label -> (corpus, queries, config, the
-    kernels the path must launch). The unicode batches record their
-    finalize route without requiring one: most Arabic groups stay alive
-    for any needle, so the capped route and its row gather may not run."""
+    """The eight serving paths: label -> (corpus, queries, config, the
+    kernels the path must launch). The ASCII row-major batches take the
+    int16-lane instantiation, but typo_wide, whose scoring's cells exceed
+    int16, takes the int32 one. The unicode batches record their finalize
+    route without requiring one: most Arabic groups stay alive for any
+    needle, so the capped route and its row gather may not run."""
     from frizbee_tpu_torch import Config
+    from frizbee_tpu_torch.config import Scoring
 
     return {
         "fuzzy": (corpus, _queries(Q), Config(),
@@ -916,9 +1054,12 @@ def _paths(corpus, long_corpus, ucorpus):
         "literal": (corpus, _literal_queries(Q), Config(),
                     ("colstream_literal", "row_gather")),
         "typo": (corpus, _queries(Q), Config(max_typos=TYPO_BUDGET),
-                 ("match_units", "row_gather")),
+                 ("match_units_i16", "row_gather")),
+        "typo_wide": (corpus, _queries(Q), Config(
+            max_typos=TYPO_BUDGET, scoring=Scoring(**WIDE_SCORING)),
+            ("match_units", "row_gather")),
         "long_needle": (long_corpus, _queries(Q, LONG_NEEDLE), Config(),
-                        ("match_units", "row_gather")),
+                        ("match_units_i16", "row_gather")),
         "unicode_fuzzy": (ucorpus, _unicode_queries(UQ), Config(),
                           ("colstream_fuzzy",)),
         "unicode_literal": (ucorpus, _unicode_queries(UQ, kind="literal"),
@@ -929,7 +1070,7 @@ def _paths(corpus, long_corpus, ucorpus):
 
 
 def serving_phase(paths, detail):
-    """The seven serving paths, each read on its own."""
+    """The eight serving paths, each read on its own."""
     serving = {
         label: _serve(label, c, queries, cfg, kernels, detail)
         for label, (c, queries, cfg, kernels) in paths.items()
@@ -940,6 +1081,17 @@ def serving_phase(paths, detail):
         "no literal query matched")
     assert typo["row_major_routes"]["compacted"] == typo["batches"]
     assert typo["match_counts"][0] >= main["match_counts"][0]
+    # the ASCII row-major batches went through the int16 instantiation
+    # alone, the wide-scoring one through the int32 one alone, with the
+    # same matches as the typo batch
+    for label in ("typo", "long_needle"):
+        launched = serving[label]["launches"]
+        assert launched["match_units"] == 0, (label, launched)
+        assert launched["match_units_i16"] > 0, (label, launched)
+    wide = serving["typo_wide"]
+    assert wide["launches"]["match_units_i16"] == 0
+    assert wide["launches"]["match_units"] > 0
+    assert wide["match_counts"] == typo["match_counts"]
     assert serving["long_needle"]["match_counts"][0] > 0, (
         "no match for the long needle")
     ufuzzy, utypo = serving["unicode_fuzzy"], serving["unicode_typo"]
@@ -1174,6 +1326,14 @@ def _gather_work(args, _kw, out):
     return 0.0, out.numel() * 4 + rows.numel() * 4, out.numel() * 4
 
 
+def _contract_work(args, _kw, out):
+    """The contract launch: its inputs read and outputs written once, an
+    operation per output element."""
+    read = sum(a.numel() * a.element_size() for a in args)
+    written = sum(o.numel() * o.element_size() for o in out)
+    return float(sum(o.numel() for o in out)), float(read), float(written)
+
+
 def _replay(entry, name, calls, errs):
     """Time the captured launches ``calls`` ((args, kwargs) of the
     wrapper) of one serving batch on the kernel, on its plain version and
@@ -1181,6 +1341,7 @@ def _replay(entry, name, calls, errs):
     bit-equal to the plain version's. Returns the timing entry's numbers
     and the work this run's data needs."""
     from frizbee_tpu_torch.ops import colstream as cs
+    from frizbee_tpu_torch.ops import contract as ct
     from frizbee_tpu_torch.ops import kernels as km
 
     kernel, plain, work, library = {
@@ -1192,6 +1353,13 @@ def _replay(entry, name, calls, errs):
                               _colstream_work, None),
         "match_units": (km.match_units, km.match_units_plain,
                         _match_units_work, None),
+        "match_units_i16": (km.match_units, km.match_units_plain,
+                            _match_units_work, None),
+        "colstream_fuzzy_i16": (cs.match_units_colstream,
+                                cs.match_units_colstream_plain,
+                                _colstream_work, None),
+        "lane_contract": (ct.lane_contract, ct.contract_plain,
+                          _contract_work, None),
         "row_gather": (cs.row_gather, cs.row_gather_plain, _gather_work,
                        lambda data, rows: torch.index_select(data, 0, rows)),
     }[name]
@@ -1220,9 +1388,10 @@ def _replay(entry, name, calls, errs):
 
 
 KERNELS = (
-    # entry, kernel, source, TPU kernel it replaces, serving paths it
-    # runs on (the unicode launches of the match kernels are entries of
-    # their own)
+    # entry, kernel (its launch counter), source, TPU kernel it replaces,
+    # paths it runs on (the unicode launches of the match kernels are
+    # entries of their own; fuzzy_int16 drives the fuzzy batch's colstream
+    # launches with int16 lanes, contract the contract phase)
     ("colstream_fuzzy", "colstream_fuzzy",
      "frizbee_tpu_torch/csrc/colstream_fuzzy.cu",
      "frizbee_tpu/ops/colstream.py:954", ("fuzzy",)),
@@ -1237,7 +1406,16 @@ KERNELS = (
      "frizbee_tpu/ops/colstream.py:749",
      ("unicode_fuzzy", "unicode_literal", "unicode_typo")),
     ("match_units", "match_units", "frizbee_tpu_torch/csrc/match_units.cu",
+     "frizbee_tpu/ops/kernels.py:632", ("typo_wide",)),
+    ("match_units_i16", "match_units_i16",
+     "frizbee_tpu_torch/csrc/match_units.cu",
      "frizbee_tpu/ops/kernels.py:632", ("typo", "long_needle")),
+    ("colstream_fuzzy_i16", "colstream_fuzzy_i16",
+     "frizbee_tpu_torch/csrc/colstream_fuzzy.cu",
+     "frizbee_tpu/ops/colstream.py:954", ("fuzzy_int16",)),
+    ("lane_contract", "lane_contract",
+     "frizbee_tpu_torch/csrc/lane_contract.cu",
+     "tests/test_kernel_contract.py:52", ("contract",)),
     ("colstream_fuzzy_unicode", "colstream_fuzzy",
      "frizbee_tpu_torch/csrc/colstream_fuzzy.cu",
      "frizbee_tpu/ops/colstream.py:954", ("unicode_fuzzy",)),
@@ -1262,17 +1440,103 @@ def _capture(corpus, queries, cfg):
     return calls
 
 
+def _drive(label, calls, serving):
+    """A path of launches: every launch counter set to 0, the captured
+    ``calls`` ((counter, (args, kwargs)) of the wrapper) run through
+    their wrappers once, the counters read into ``serving[label]``."""
+    from frizbee_tpu_torch.ops import _build
+    from frizbee_tpu_torch.ops import colstream as cs
+
+    for k in _build.LAUNCHES:
+        _build.LAUNCHES[k] = 0
+    for _name, (a, kw) in calls:
+        cs.match_units_colstream(*a, **kw)
+    torch.cuda.synchronize()
+    serving[label] = {"launches": dict(_build.LAUNCHES)}
+
+
+def ab_phase(calls, detail):
+    """Row 8's timing half: the int32 and int16 instantiations of
+    ``match_units`` on the typo and long-needle batches' launches and of
+    the colstream fuzzy kernel on the fuzzy batch's, in AB_ROUNDS rounds
+    that alternate which goes first, each held bit-equal to the other
+    first. Medians, the share of rounds the int16 one was faster, and the
+    bound both share (the same work counted for both)."""
+    from frizbee_tpu_torch.ops import colstream as cs
+    from frizbee_tpu_torch.ops import kernels as km
+
+    cases = {
+        "match_units typo": ("typo", "match_units_i16", km.match_units,
+                             _match_units_work),
+        "match_units long_needle": ("long_needle", "match_units_i16",
+                                    km.match_units, _match_units_work),
+        "colstream_fuzzy fuzzy": ("fuzzy", "colstream_fuzzy",
+                                  cs.match_units_colstream, _colstream_work),
+    }
+    out = {}
+    for label, (path, name, fn, work) in cases.items():
+        base = [c for k, c in calls[path] if k == name]
+        variants = {
+            lanes: [(a, dict(kw, int16_lanes=lanes == "int16"))
+                    for a, kw in base]
+            for lanes in ("int32", "int16")}
+
+        def run(v):
+            return [fn(*a, **kw) for a, kw in variants[v]]
+
+        r32, r16 = run("int32"), run("int16")
+        torch.cuda.synchronize()
+        for x, y in zip(r32, r16):
+            pairs = [(x, y)] if torch.is_tensor(x) else list(zip(x, y))
+            for g, w in pairs:
+                assert torch.equal(g, w), f"{label}: int16 != int32"
+        ops = in_b = out_b = 0.0
+        for (a, kw), res in zip(variants["int32"], r32):
+            o, i, w = work(a, kw, res)
+            ops, in_b, out_b = ops + o, in_b + i, out_b + w
+        del r32, r16
+        bound_ms, bound_by = _bound(in_b, out_b, ops)
+        ms = {"int32": [], "int16": []}
+        for r in range(AB_ROUNDS):
+            for v in (("int32", "int16") if r % 2 == 0
+                      else ("int16", "int32")):
+                ms[v].append(_time_ms(lambda: run(v)))
+        med = {v: float(np.median(t)) for v, t in ms.items()}
+        out[label] = {
+            "launches": len(base), "ms": ms,
+            "median_ms": med,
+            "int16_won_share": float(np.mean(
+                np.array(ms["int16"]) < np.array(ms["int32"]))),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_share": {v: bound_ms / m for v, m in med.items()},
+        }
+        print(f"int16/int32 A/B, {label}: " + json.dumps(
+            {k: v for k, v in out[label].items() if k != "ms"}), flush=True)
+    detail["int16_ab"] = out
+    return out
+
+
 def timing_phase(paths, serving, errs, detail):
     """Each kernel's time at its serving shapes: the launches of one batch
     of each path it runs on, captured and replayed, beside their bound,
     their plain version and, for the row gather, ``torch.index_select``.
-    The captures run after the serving phase has read its counters."""
+    The captures run after the serving phase has read its counters. The
+    int16 colstream kernel's path drives the fuzzy batch's colstream
+    launches with int16 lanes (counted on their own); then the int16/int32
+    A/B on the same launches."""
     calls = {label: _capture(c, queries, cfg)
              for label, (c, queries, cfg, _k) in paths.items()}
+    calls["fuzzy_int16"] = [
+        ("colstream_fuzzy_i16", (a, dict(kw, int16_lanes=True)))
+        for k, (a, kw) in calls["fuzzy"] if k == "colstream_fuzzy"]
+    _drive("fuzzy_int16", calls["fuzzy_int16"], serving)
     paths_q = {label: p[1] for label, p in paths.items()}
+    paths_q["fuzzy_int16"] = paths_q["fuzzy"]
     entries = []
-    detail["timing"] = {}
+    detail.setdefault("timing", {})
     for entry, name, source, replaces, paths in KERNELS:
+        if entry == "lane_contract":
+            continue  # its entry comes from the contract phase
         per_path = {p: [c for k, c in calls[p] if k == name] for p in paths}
         assert any(per_path.values()), f"{entry}: no launch captured"
         nums, work = _replay(entry, name, sum(per_path.values(), []), errs)
@@ -1293,7 +1557,58 @@ def timing_phase(paths, serving, errs, detail):
             "max_abs_err": errs[entry],
             **nums,
         })
+    ab_phase(calls, detail)
     return entries
+
+
+def contract_phase(dev, errs, detail):
+    """The lane contract kernel on its own path: every launch counter set
+    to 0, one launch over ``contract.contract_inputs``, the counters read;
+    its outputs held bit-equal to ``contract.contract_plain`` (a mismatch
+    names the outputs, rows and values that differ), then timed. Returns
+    its ``kernels`` entry."""
+    from frizbee_tpu_torch.ops import _build
+    from frizbee_tpu_torch.ops import contract as ct
+    from frizbee_tpu_torch.ops.kernels import DEFAULT_SCORING
+
+    ins = ct.contract_inputs(seed=1, device=dev)
+    for k in _build.LAUNCHES:
+        _build.LAUNCHES[k] = 0
+    got = ct.lane_contract(*ins, DEFAULT_SCORING)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    want = ct.contract_plain(*ins, DEFAULT_SCORING)
+    mism = {}
+    for name, g, w, x in zip(("units", "pairs", "keys", "words", "rows"),
+                             got, want, ins):
+        bad = g != w
+        if bad.any():
+            rows = bad.reshape(bad.shape[0], -1).any(dim=1).nonzero()[:8, 0]
+            mism[name] = {
+                "count": int(bad.sum()),
+                "columns": (bad.reshape(bad.shape[0], -1).any(dim=0)
+                            .nonzero()[:, 0].tolist()),
+                "inputs": x[rows].tolist(), "got": g[rows].tolist(),
+                "want": w[rows].tolist()}
+    detail["contract"] = {"launches": launches["lane_contract"],
+                          "mismatches": mism,
+                          "sizes": [int(t.shape[0]) for t in ins]}
+    if mism:
+        print("contract phase: MISMATCH " + json.dumps(mism), flush=True)
+    _check_equal(errs, "lane_contract", got, want, "contract")
+    assert launches["lane_contract"] == 1, launches
+    nums, work = _replay("lane_contract", "lane_contract",
+                         [(ins, dict(scoring=DEFAULT_SCORING))], errs)
+    detail.setdefault("timing", {})["lane_contract"] = {**nums, **work}
+    print(f"contract phase: lane_contract bit-equal to its plain model on "
+          f"{detail['contract']['sizes'][:5]} units, byte pairs, keys, "
+          f"s16x2 words and rows (int32 and int16 walks) "
+          + json.dumps(nums), flush=True)
+    return {"name": "lane_contract", "route": "cuda",
+            "source": "frizbee_tpu_torch/csrc/lane_contract.cu",
+            "replaces": "tests/test_kernel_contract.py:52",
+            "launches": launches["lane_contract"],
+            "max_abs_err": errs["lane_contract"], **nums}
 
 
 def cpu_parity_phase(detail):
@@ -1303,6 +1618,7 @@ def cpu_parity_phase(detail):
     mixed-script codepoint corpus."""
     from frizbee_tpu_torch import Config, UnicodeMatching, datagen
     from frizbee_tpu_torch import match_topk_batch, pack_corpus
+    from frizbee_tpu_torch.config import Scoring
     from frizbee_tpu_torch.matcher import Matcher, _dispatch_batch_groups
 
     n_rows, q = 20_000, 8
@@ -1316,6 +1632,8 @@ def cpu_parity_phase(detail):
         (f"typo T={TYPO_BUDGET}", hay, _queries(q),
          Config(max_typos=TYPO_BUDGET)),
         ("long needle", long_hay, _queries(q, LONG_NEEDLE), Config()),
+        (f"typo T={TYPO_BUDGET} wide scores", hay, _queries(q),
+         Config(max_typos=TYPO_BUDGET, scoring=Scoring(**WIDE_SCORING))),
     ]
     # (label, rows, queries, config[, codepoint units, must match])
     for script in ("arabic", "korean"):
@@ -1448,11 +1766,15 @@ def main():
     unicode_kernel_phase(ucorpus, errs, detail)
     phases["kernel_unicode"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    contract_entry = contract_phase(corpus.device, errs, detail)
+    phases["contract"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     paths = _paths(corpus, long_corpus, ucorpus)
     serving = serving_phase(paths, detail)
     phases["serving"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     entries = timing_phase(paths, serving, errs, detail)
+    entries.append(contract_entry)
     phases["timing"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     profile_phase("fuzzy", corpus, _queries(Q), detail, host_profile=True)

@@ -183,10 +183,10 @@ class Scoring:
 def score_fits_in_u8(needle_len: int, scoring: Scoring) -> bool:
     """True when every matrix cell fits a u8; the reference uses this to pick
     double-width SIMD backends (reference: src/smith_waterman/mod.rs:92-116).
-    The TPU engine's analogous dispatch predicate is
-    ``ops.kernels.score_fits_int16`` (int16 is the narrow lane width the
-    VPU offers); this u8 variant is kept for API parity and host-side
-    introspection."""
+    The port's analogous dispatch predicate is this package's
+    ``ops.kernels.score_fits_int16`` (int16 is the narrow lane width of the
+    DP kernels' packed s16x2 instantiations); this u8 variant is kept for
+    API parity and host-side introspection."""
     max_constant = max(
         scoring.match_score + scoring.mismatch_penalty,
         scoring.gap_open_penalty,

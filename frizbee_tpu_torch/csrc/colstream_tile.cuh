@@ -46,7 +46,8 @@ constexpr int kMaxBlockQueries = 32;
 constexpr int kColstreamNeedle = 16;
 
 struct TileGeometry {
-  int rows;    // rows of a tile = threads of a block
+  int rows;    // threads of a block (the rows of a tile where a thread
+               // walks one)
   int qper;    // queries a block serves
   int chunks;  // blocks of one tile
   int tiles;   // tiles of the launch
@@ -54,11 +55,15 @@ struct TileGeometry {
 };
 
 // unit_bytes: shared-memory bytes a unit (1 a byte; 5 a codepoint: the
-// unit and its class byte)
-inline TileGeometry tile_geometry(int W, int unit_bytes, int n_groups, int Q) {
+// unit and its class byte); rows_per_thread: rows a thread walks (2 in
+// the int16-lane fuzzy kernel, whose threads walk a pair)
+inline TileGeometry tile_geometry(int W, int unit_bytes, int n_groups, int Q,
+                                  int rows_per_thread = 1) {
   int rows = kTileMaxRows;
-  while (rows > 32 && rows * W * unit_bytes > kTileBytes) rows /= 2;
-  const int tiles = n_groups * (kGroupRows / rows);
+  while (rows > 32 && rows * rows_per_thread * W * unit_bytes > kTileBytes)
+    rows /= 2;
+  const int tile_rows = rows * rows_per_thread;
+  const int tiles = n_groups * (kGroupRows / tile_rows);
   int cap = kBlockColumns / W;
   cap = cap < 1 ? 1 : (cap > kMaxBlockQueries ? kMaxBlockQueries : cap);
   int split = (kTargetBlocks + tiles - 1) / tiles;
@@ -66,7 +71,7 @@ inline TileGeometry tile_geometry(int W, int unit_bytes, int n_groups, int Q) {
   split = split > Q ? Q : split;
   const int qper = (Q + split - 1) / split;
   return TileGeometry{rows, qper, (Q + qper - 1) / qper, tiles,
-                      rows * W * unit_bytes};
+                      tile_rows * W * unit_bytes};
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -96,10 +101,12 @@ __device__ __forceinline__ void stage_wait() {
 }
 
 // The block's share of one launch and its tile: which rows, which queries.
+// A tile is ``rows`` rows (blockDim.x by default); slot is the group slot
+// of the tile's row threadIdx.x.
 struct TileBlock {
   int g, r0, q0, q1, slot;
-  __device__ TileBlock(int chunks, int qper, int Q) {
-    const int rows = blockDim.x;
+  __device__ TileBlock(int chunks, int qper, int Q) : TileBlock(chunks, qper, Q, blockDim.x) {}
+  __device__ TileBlock(int chunks, int qper, int Q, int rows) {
     const int tile = blockIdx.x / chunks;
     q0 = (blockIdx.x - tile * chunks) * qper;
     q1 = min(q0 + qper, Q);
@@ -125,8 +132,8 @@ struct TileBlock {
 __device__ __forceinline__ void stage_tile(uint8_t* s_tile, int* s_cols,
                                            const void* cpT, const int8_t* ctxT,
                                            const TileBlock& tb, int W,
-                                           int unit_size, int len, int col_cap) {
-  const int rows = blockDim.x;
+                                           int unit_size, int len, int col_cap,
+                                           int rows) {
   const int wmax = __reduce_max_sync(0xFFFFFFFFu, len);
   if ((threadIdx.x & 31) == 0) atomicMax(s_cols, wmax);
   __syncthreads();
@@ -137,6 +144,14 @@ __device__ __forceinline__ void stage_tile(uint8_t* s_tile, int* s_cols,
   if (ctxT != nullptr)
     stage_plane(s_tile + rows * W * unit_size,
                 reinterpret_cast<const uint8_t*>(ctxT) + first, 1, ncols, rows);
+}
+
+// The same for a tile of blockDim.x rows, a row a thread.
+__device__ __forceinline__ void stage_tile(uint8_t* s_tile, int* s_cols,
+                                           const void* cpT, const int8_t* ctxT,
+                                           const TileBlock& tb, int W,
+                                           int unit_size, int len, int col_cap) {
+  stage_tile(s_tile, s_cols, cpT, ctxT, tb, W, unit_size, len, col_cap, blockDim.x);
 }
 
 // Orders the tile's rows by length (len: the thread's own row's
@@ -164,6 +179,33 @@ __device__ __forceinline__ int sort_rows_by_length(int* s_key, int len) {
   return s_key[t] & 0xFF;
 }
 
+// The same for a tile of 2 x blockDim.x rows, two a thread: thread t
+// gives the lengths of its rows t (len0) and t + blockDim.x (len1), and
+// s_key (2 x blockDim.x entries) ends sorted; the rows at sorted
+// positions 2t and 2t + 1, of about one length, are s_key[2t] & 0xFF and
+// s_key[2t + 1] & 0xFF.
+__device__ __forceinline__ void sort_row_pairs_by_length(int* s_key, int len0, int len1) {
+  const int t = threadIdx.x, half = blockDim.x, rows = 2 * half;
+  s_key[t] = (len0 << 8) | t;
+  s_key[t + half] = (len1 << 8) | (t + half);
+  __syncthreads();
+  for (int k = 2; k <= rows; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = t; i < rows; i += half) {
+        const int p = i ^ j;
+        if (p > i) {
+          const int x = s_key[i], y = s_key[p];
+          if ((x > y) == ((i & k) == 0)) {
+            s_key[i] = y;
+            s_key[p] = x;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
 // One row of the staged tile: column j's unit and, on a codepoint row, its
 // class byte (prepare()): whether the unit earns the capitalization (bit
 // 0) and delimiter (bit 1) bonus after the row's unit before it, and its
@@ -178,8 +220,10 @@ struct TileRow {
   const uint8_t* units;  // the row's unit in column 0
   uint8_t* cls;          // the row's class byte in column 0 (codepoints)
   int rows;
-  __device__ TileRow(uint8_t* s_tile, int W, int r) {
-    rows = blockDim.x;
+  __device__ TileRow(uint8_t* s_tile, int W, int r) : TileRow(s_tile, W, r, blockDim.x) {}
+  // row r of a tile of ``nrows`` rows
+  __device__ TileRow(uint8_t* s_tile, int W, int r, int nrows) {
+    rows = nrows;
     units = s_tile + r * (UNICODE ? 4 : 1);
     cls = s_tile + rows * W * 4 + r;
   }

@@ -49,15 +49,21 @@ __device__ __forceinline__ int byte_ctx(int c) {
   return bonus_bits(c, c) | (1 << kCtxBlenShift);
 }
 
+// The UTF-8 length, lead byte and last byte of a codepoint.
+__device__ __forceinline__ int utf8_blen(int c) {
+  return 1 + (c >= 0x80) + (c >= 0x800) + (c >= 0x10000);
+}
+__device__ __forceinline__ int utf8_first(int c) {
+  return c < 0x80 ? c
+         : c < 0x800 ? (0xC0 | (c >> 6))
+         : c < 0x10000 ? (0xE0 | (c >> 12))
+                       : (0xF0 | (c >> 18));
+}
+__device__ __forceinline__ int utf8_last(int c) { return c < 0x80 ? c : (0x80 | (c & 0x3F)); }
+
 // The UTF-8 lead and last byte and length of a codepoint, derived.
 __device__ __forceinline__ int codepoint_ctx(int c) {
-  const int blen = 1 + (c >= 0x80) + (c >= 0x800) + (c >= 0x10000);
-  const int first = c < 0x80 ? c
-                    : c < 0x800 ? (0xC0 | (c >> 6))
-                    : c < 0x10000 ? (0xE0 | (c >> 12))
-                                  : (0xF0 | (c >> 18));
-  const int last = c < 0x80 ? c : (0x80 | (c & 0x3F));
-  return bonus_bits(first, last) | (blen << kCtxBlenShift);
+  return bonus_bits(utf8_first(c), utf8_last(c)) | (utf8_blen(c) << kCtxBlenShift);
 }
 
 __device__ __forceinline__ int ctx_blen(int ctx) { return (ctx >> kCtxBlenShift) & 7; }

@@ -65,10 +65,31 @@
 // needle unit) cell of each matched row's trimmed window plus ~6 + 3(T+1)
 // per column of every live row's prefilter, against W bytes (4W for
 // codepoints) per live row.
+//
+// The int16-lane instantiation (PAIRS; the reference's int16_lanes=True,
+// byte rows where ops/kernels.score_fits_int16 holds) runs pass 1 per row
+// as above and pass 2 two rows a thread, in the s16x2 halves of 32-bit
+// registers (lanes16.cuh): every row that runs pass 2 goes to the queue
+// (the block's behind the typo-budget prefilter, each warp's own behind
+// the greedy embedding), and its thread t takes queue entries 2t (low
+// half) and 2t + 1 (high half), neighbours in the survivor order, so of
+// about one length. The pair walks the union of its two trimmed windows;
+// each half takes the needle masks of its byte only inside its own window
+// (outside it a half's cells stay 0 before the window and never reach its
+// best after it), its own first-column and context bonus, and its own
+// best and end column (best2:
+// a DPX max and the halves it changed; the predicates of __vibmax_s16x2
+// left every end column at 0 here, measured on an H100: PERF.md). Per
+// (column, needle unit) the pair costs three prmt half masks (unit match,
+// case match, the previous column's match), three selects and three DPX
+// add-max (__viaddmax_s16x2 and its relu form), where two int32 rows cost
+// two of each bit test and select and four DPX. Scores, exact and the key
+// are unpacked to 32 bits at the end. An odd row out runs with an idle
+// high half.
 
 #include <type_traits>
 
-#include "kernel_common.cuh"
+#include "lanes16.cuh"
 
 namespace {
 
@@ -107,7 +128,7 @@ __device__ __forceinline__ int hash_slot(int c) {
   return (int)(((unsigned)c * 2654435761u) >> 24);
 }
 
-template <int NMAX, int TMAX, bool UNICODE>
+template <int NMAX, int TMAX, bool UNICODE, bool PAIRS>
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks<NMAX>)
     match_units_kernel(const void* __restrict__ cp, const int* __restrict__ n_units,
                        const int* __restrict__ scalars, const int* __restrict__ rows,
@@ -121,6 +142,7 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks<NMAX>)
   __shared__ Mask s_occ[256];                        // units it matches
   __shared__ Mask s_eq[256];                         // units it equals (orig)
   __shared__ int s_key[UNICODE ? kHashSlots : 1];
+  __shared__ uint8_t s_ctx[PAIRS ? 256 : 1];         // byte -> byte_ctx
   __shared__ int s_row[kMaxThreads];
   __shared__ int4 s_queue[kMaxThreads];              // slot, wstart, wend, nb
   __shared__ int s_warp_n[kMaxThreads / 32];
@@ -182,6 +204,7 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks<NMAX>)
       }
       s_occ[c] = occ;
       s_eq[c] = eq;
+      if constexpr (PAIRS) s_ctx[c] = (uint8_t)byte_ctx(c);
     }
   }
   s_row[tid] = i < count ? (rows != nullptr ? rows[out_i] : i) : -1;
@@ -293,6 +316,164 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks<NMAX>)
 #pragma unroll
       for (int c = 0; c < 8; ++c) cols_out[out_i * 8 + c] = 0;
     }
+  }
+
+  if constexpr (PAIRS) {
+    // ---- pass 2, two rows a thread: every row that runs pass 2 (every
+    // live row in columns mode, the matched ones in key-emit mode) goes to
+    // the queue in row order, its matched flag in bit 16 of the slot
+    // Behind the typo-budget prefilter the queue is the block's, so its
+    // pairs fill whole warps; behind the greedy embedding each warp queues
+    // its own rows and pairs them, with no block barrier (which cost more
+    // than it saved there in the int32 kernel: PERF.md).
+    if (keys_out != nullptr && live && !matched) keys_out[out_i] = kKeySentinel;
+    const bool run_row = live && (matched || keys_out == nullptr);
+    const unsigned ballot = __ballot_sync(0xFFFFFFFFu, run_row);
+    const int warp = tid >> 5, lane = tid & 31;
+    int base = 0, m = 0, qt = tid;  // queue offset, length, this thread's pair
+    if constexpr (TMAX > 0) {
+      if (lane == 0) s_warp_n[warp] = __popc(ballot);
+      __syncthreads();
+      for (int w = 0; w < (rb >> 5); ++w) {
+        const int c = s_warp_n[w];
+        base += w < warp ? c : 0;
+        m += c;
+      }
+    } else {
+      base = tid & ~31;
+      m = __popc(ballot);
+      qt = lane;
+    }
+    if (run_row)
+      s_queue[base + __popc(ballot & ((1u << lane) - 1u))] =
+          make_int4(tid | (matched ? 0x10000 : 0), wstart_raw, wend, nb);
+    if constexpr (TMAX > 0) {
+      __syncthreads();
+      base = 0;
+    } else {
+      __syncwarp();
+    }
+    if (2 * qt >= m) return;
+    const bool two = 2 * qt + 1 < m;
+    const int4 e0 = s_queue[base + 2 * qt];
+    const int4 e1 = two ? s_queue[base + 2 * qt + 1] : e0;
+    const uint32_t* hay0 = s_hay + (e0.x & 0xFFFF) * stride;
+    const uint32_t* hay1 = s_hay + (e1.x & 0xFFFF) * stride;
+    // the trimmed windows [ws, we) in columns (a byte row's bytes); the
+    // idle half of an odd row out has none
+    const int ws0 = max(e0.y - 1, 0), we0 = e0.z;
+    const int ws1 = max(e1.y - 1, 0), we1 = two ? e1.z : 0;
+    int jlo = W, jhi = 0;
+    if (ws0 < we0) { jlo = ws0; jhi = we0; }
+    if (ws1 < we1) { jlo = min(jlo, ws1); jhi = max(jhi, we1); }
+    const int gop_extra = max(sc.gap_open - sc.gap_ext, 0);
+    const int mis = min(sc.mismatch, frizbee::kInt16ScoreLimit);
+    const uint32_t nge = frizbee::pack2(-sc.gap_ext, -sc.gap_ext);
+    const uint32_t ngeo = frizbee::pack2(-(sc.gap_ext + gop_extra),
+                                         -(sc.gap_ext + gop_extra));
+    const uint32_t neg_mm = frizbee::pack2(-mis, -mis);
+    using Bits = frizbee::PairBits<Mask, (NMAX <= 16)>;
+    // needles of up to 16 units keep each unit's left-gap cost for the
+    // next column in registers; longer ones rebuild it from the previous
+    // column's bits (po), as registers would spill
+    constexpr bool kGapRegs = NMAX <= 16;
+    uint32_t h[NMAX], gl[kGapRegs ? NMAX : 1];
+#pragma unroll
+    for (int k = 0; k < NMAX; ++k) h[k] = 0;
+    if constexpr (kGapRegs) {
+#pragma unroll
+      for (int k = 0; k < NMAX; ++k) gl[k] = nge;
+    }
+    Bits po;  // the previous column's unit matches
+    uint32_t best = 0;
+    int end0 = 0, end1 = 0;
+    int p0 = 0, p1 = 0;  // the previous column's byte facts of each half
+    for (int j = jlo; j < jhi; ++j) {
+      const bool a0 = j >= ws0 && j < we0, a1 = j >= ws1 && j < we1;
+      const int c0 = unit_of(hay0, j), c1 = unit_of(hay1, j);
+      const Bits pm(a0 ? s_occ[c0] : Mask(0), a1 ? s_occ[c1] : Mask(0));
+      const Bits pe(a0 ? s_eq[c0] : Mask(0), a1 ? s_eq[c1] : Mask(0));
+      // each half's bonus: the prefix bonus (or none) on its window's
+      // first column, else the context bonus after the byte before
+      const int f0 = s_ctx[c0], f1 = s_ctx[c1];
+      int b0 = 0, b1 = 0;
+      if (a0) b0 = j == ws0 ? (ws0 == 0 ? sc.prefix : 0) : context_bonus(f0, p0, sc);
+      if (a1) b1 = j == ws1 ? (ws1 == 0 ? sc.prefix : 0) : context_bonus(f1, p1, sc);
+      p0 = f0;
+      p1 = f1;
+      const uint32_t base_hit = frizbee::pack2(sc.match + b0, sc.match + b1);
+      const uint32_t case_hit =
+          frizbee::pack2(sc.match + sc.case_b + b0, sc.match + sc.case_b + b1);
+      // unit 0: no diagonal or up source. gu: the up move's gap after unit
+      // k-1 at this column, which is also unit k-1's left gap at the next
+      uint32_t mo = pm.mask(0);
+      uint32_t gu = frizbee::sel2(mo, ngeo, nge);
+      uint32_t gl0;
+      if constexpr (kGapRegs) {
+        gl0 = gl[0];
+        gl[0] = gu;
+      } else {
+        gl0 = frizbee::sel2(po.mask(0), ngeo, nge);
+      }
+      uint32_t cur = __viaddmax_s16x2(
+          h[0], gl0, frizbee::hit2(mo, pe.mask(0), case_hit, base_hit, 0u));
+      uint32_t diag_in = h[0];
+      h[0] = cur;
+#pragma unroll
+      for (int k = 1; k < NMAX; ++k) {
+        if (k >= n) break;
+        mo = pm.mask(k);
+        const uint32_t d = frizbee::hit2(mo, pe.mask(k), case_hit, base_hit, neg_mm);
+        const uint32_t gk = frizbee::sel2(mo, ngeo, nge);
+        uint32_t glk;
+        if constexpr (kGapRegs) {
+          glk = gl[k];
+          gl[k] = gk;
+        } else {
+          glk = frizbee::sel2(po.mask(k), ngeo, nge);
+        }
+        cur = frizbee::cell2(diag_in, d, cur, gu, h[k], glk);
+        diag_in = h[k];
+        h[k] = cur;
+        gu = gk;
+      }
+      // unit n-1's cell, inside each half's window, against its best
+      int raised;
+      best = frizbee::best2(best, cur & ((a0 ? 0xFFFFu : 0u) | (a1 ? 0xFFFF0000u : 0u)),
+                            &raised);
+      if (raised & 1) end0 = j;
+      if (raised & 2) end1 = j;
+      if constexpr (!kGapRegs) po = pm;
+    }
+    // each half's outputs, unpacked to 32 bits
+    auto finish = [&](const int4& e, const uint32_t* hay, int ws, int score, int end) {
+      const int sl = e.x & 0xFFFF;
+      const bool mt = (e.x >> 16) != 0;
+      const int row = s_row[sl];
+      const int nu = n_units[row];
+      bool eq = nu == n;
+      for (int k = 0; k < n && eq; ++k) eq = (k < W ? unit_of(hay, k) : 0) == scal[2 + k];
+      const int end_col = score > 0 ? end : ws;
+      const int exact = (ws == 0 && e.z == e.w && eq) ? 1 : 0;
+      if (exact) score = min(score + sc.exact, 0xFFFF);
+      const int greedy = (mt && (e.z - ws) > kMaxHaystackLen) ? 1 : 0;
+      const long long o_i = (long long)q * B + i0 + sl;
+      if (keys_out != nullptr) {
+        keys_out[o_i] = frizbee::pack_key(true, score, exact, end_col, greedy, idx[row],
+                                          idx_bits);
+      } else {
+        int* o = cols_out + o_i * 8;
+        o[0] = mt ? 1 : 0;
+        o[1] = score;
+        o[2] = exact;
+        o[3] = end_col;
+        o[4] = greedy;
+        o[5] = o[6] = o[7] = 0;
+      }
+    };
+    finish(e0, hay0, ws0, frizbee::lo16(best), end0);
+    if (two) finish(e1, hay1, ws1, frizbee::hi16(best), end1);
+    return;
   }
 
   // ---- who runs pass 2: in columns mode every live row, rejected or
@@ -440,9 +621,9 @@ struct Launch {
   int* cols_out;
 };
 
-template <int NMAX, int TMAX, bool UNICODE>
+template <int NMAX, int TMAX, bool UNICODE, bool PAIRS>
 int launch(const Launch& a) {
-  auto kernel = match_units_kernel<NMAX, TMAX, UNICODE>;
+  auto kernel = match_units_kernel<NMAX, TMAX, UNICODE, PAIRS>;
   if (a.smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)a.smem);
@@ -456,20 +637,20 @@ int launch(const Launch& a) {
 
 // the instantiation for a needle ceiling: TMAX = 0 serves no prefilter
 // and the greedy embedding, else the least of 1, 2, 4, 8 >= T
-template <int NMAX, bool UNICODE>
+template <int NMAX, bool UNICODE, bool PAIRS>
 int launch_t(const Launch& a) {
-  if (a.pf_mode != kPfDp) return launch<NMAX, 0, UNICODE>(a);
-  if (a.T <= 1) return launch<NMAX, 1, UNICODE>(a);
-  if (a.T <= 2) return launch<NMAX, 2, UNICODE>(a);
-  if (a.T <= 4) return launch<NMAX, 4, UNICODE>(a);
-  return launch<NMAX, 8, UNICODE>(a);
+  if (a.pf_mode != kPfDp) return launch<NMAX, 0, UNICODE, PAIRS>(a);
+  if (a.T <= 1) return launch<NMAX, 1, UNICODE, PAIRS>(a);
+  if (a.T <= 2) return launch<NMAX, 2, UNICODE, PAIRS>(a);
+  if (a.T <= 4) return launch<NMAX, 4, UNICODE, PAIRS>(a);
+  return launch<NMAX, 8, UNICODE, PAIRS>(a);
 }
 
-template <bool UNICODE>
+template <bool UNICODE, bool PAIRS>
 int launch_n(const Launch& a) {
-  if (a.n <= 16) return launch_t<16, UNICODE>(a);
-  if (a.n <= 32) return launch_t<32, UNICODE>(a);
-  return launch_t<64, UNICODE>(a);
+  if (a.n <= 16) return launch_t<16, UNICODE, PAIRS>(a);
+  if (a.n <= 32) return launch_t<32, UNICODE, PAIRS>(a);
+  return launch_t<64, UNICODE, PAIRS>(a);
 }
 
 }  // namespace
@@ -478,19 +659,22 @@ int launch_n(const Launch& a) {
 // aligned, W a multiple of 4) or, when unicode != 0, int32 codepoints; W
 // <= 1024; n_units (B,) int32; scalars (Q, 130) int32 with [q, 0] = query
 // q's live count; rows (Q, B) int32 or null (identity); idx (B,) int32
-// corpus indices (key-emit mode) or null; scoring (9,) host int32. Writes
+// corpus indices (key-emit mode) or null; scoring (9,) host int32;
+// int16_lanes != 0 runs the int16-lane instantiation (byte rows; the
+// caller has checked the scoring against score_fits_int16). Writes
 // keys_out (Q, B) int64 when non-null, else cols_out (Q, B, 8) int32 =
 // matched, score, exact, end_col, greedy, 0, 0, 0. Returns the error of
 // the shared-memory opt-in, else cudaGetLastError() after the launch.
 extern "C" int match_units_launch(
     const void* cp, const void* n_units, const void* scalars, const void* rows,
     const void* idx, int Q, int B, int W, int n, int T, int pf_mode,
-    int unicode, const void* scoring, int idx_bits, void* keys_out,
-    void* cols_out, void* stream) {
+    int unicode, int int16_lanes, const void* scoring, int idx_bits,
+    void* keys_out, void* cols_out, void* stream) {
   if (Q == 0 || B == 0) return 0;
   if (n < 1 || n > kMaxNeedle || T < 0 || T > kMaxTypos || W < 4 || W % 4 ||
       W > kMaxHaystackLen || (keys_out != nullptr && idx == nullptr) ||
-      (pf_mode == kPfDp && (T == 0 || T >= n)))
+      (pf_mode == kPfDp && (T == 0 || T >= n)) ||
+      (int16_lanes != 0 && unicode != 0))
     return (int)cudaErrorInvalidValue;
   const bool u = unicode != 0;
   const int rb = block_rows(W, u);
@@ -501,7 +685,9 @@ extern "C" int match_units_launch(
                  static_cast<const int*>(rows), static_cast<const int*>(idx), B, W,
                  n, T, pf_mode, frizbee::scoring_from(scoring), idx_bits,
                  static_cast<long long*>(keys_out), static_cast<int*>(cols_out)};
-  const int rc = u ? launch_n<true>(a) : launch_n<false>(a);
+  const int rc = u             ? launch_n<true, false>(a)
+                 : int16_lanes ? launch_n<false, true>(a)
+                               : launch_n<false, false>(a);
   if (rc != 0) return rc;
   return (int)cudaGetLastError();
 }

@@ -40,8 +40,8 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "colstream_fuzzy": (
         "colstream_fuzzy_launch",
-        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P,
-         _P],
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P,
+         _P, _P],
     ),
     "colstream_literal": (
         "colstream_literal_launch",
@@ -54,9 +54,20 @@ SIGNATURES = {
     ),
     "match_units": (
         "match_units_launch",
-        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P],
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P,
+         _P],
+    ),
+    "lane_contract": (
+        "lane_contract_launch",
+        [_P, _I, _P, _I, _P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P,
+         _P],
     ),
 }
+
+# launch counters beside the libraries': the int16-lane instantiations of
+# the two DP kernels count apart from their int32 siblings, so a run can
+# tell which one served
+INSTANTIATIONS = ("match_units_i16", "colstream_fuzzy_i16")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -170,23 +181,23 @@ def scoring_arg(scoring):
     return sc, ctypes.cast(sc, ctypes.c_void_p)
 
 
-def launch(name: str, device, *args, call=None) -> None:
+def launch(name: str, device, *args, call=None, count=None) -> None:
     """Call kernel ``name``'s C entry point on ``device`` and count the
-    launch in ``LAUNCHES``; raises when the launch is refused. ``call`` is
-    the wrapper's (args, kwargs), kept in ``CAPTURE`` when that is a
-    list."""
+    launch in ``LAUNCHES[count or name]``; raises when the launch is
+    refused. ``call`` is the wrapper's (args, kwargs), kept in ``CAPTURE``
+    (under the same counter name) when that is a list."""
     with torch.cuda.device(device):
         rc = entry(name)(*args)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-    LAUNCHES[name] += 1
+    LAUNCHES[count or name] += 1
     if CAPTURE is not None:
-        CAPTURE.append((name, call))
+        CAPTURE.append((count or name, call))
 
 
 # Kernel launches per kernel (plain-version calls never count): a run
 # sets them to 0, drives a path and reads which kernels it went through
-LAUNCHES = {name: 0 for name in SIGNATURES}
+LAUNCHES = {name: 0 for name in (*SIGNATURES, *INSTANTIATIONS)}
 
 # None, or a list to which every launch appends (kernel name, (args,
 # kwargs) of its wrapper call): a run can then replay exactly the

@@ -41,6 +41,7 @@ from .kernels import (
     INT64_MAX,
     MAX_KERNEL_NEEDLE,
     MAX_KERNEL_TYPOS,
+    int16_lanes_fit,
     match_units,
     pack_needle_scalars,
 )
@@ -64,6 +65,13 @@ FINALIZE_ROUTES = {
 # row runs) or compacted (each query's stage-1 survivors first; the
 # kernel reads only them)
 ROW_MAJOR_ROUTES = {"in_place": 0, "compacted": 0}
+
+# Row-major kernel instantiations taken, per bucket launch: int16 lanes
+# where the reference's predicate holds (byte rows, score_fits_int16),
+# else int32. The record of the choice on CPU tensors, whose plain
+# versions count no launch; on the card the launch counters
+# (_build.LAUNCHES "match_units_i16" and "match_units") say the same.
+ROW_MAJOR_LANES = {"int16": 0, "int32": 0}
 
 
 def _to_int32(v: torch.Tensor) -> torch.Tensor:
@@ -247,7 +255,9 @@ def _row_major_flow(bits8, buckets_rm, needles_q, *, T, no_prefilter,
     Q queries, in key-emit mode. With stage 1, each query's live count is
     its survivor count (written into the scalars on the device) and the
     kernel reads rows through the survivor order; without, every row
-    runs in bucket order."""
+    runs in bucket order. Each bucket takes the int16-lane instantiation
+    where ``kernels.int16_lanes_fit`` holds, as the reference's serving
+    path does (``int16_lanes=(not unicode) and score_fits_int16``)."""
     Q, n2 = needles_q.shape
     nlen = n2 // 2
     scal = pack_needle_scalars(needles_q, 0)
@@ -268,9 +278,11 @@ def _row_major_flow(bits8, buckets_rm, needles_q, *, T, no_prefilter,
             order = _survivor_order(s1, nu, W)
         else:
             sc[:, 0] = B
+        int16 = int16_lanes_fit(cp.dtype != torch.int8, scoring, nlen, W)
+        ROW_MAJOR_LANES["int16" if int16 else "int32"] += 1
         keys.append(match_units(
             cp, nu, sc, order, idx, n=nlen, max_typos=T, scoring=scoring,
-            no_prefilter=no_prefilter, idx_bits=idx_bits,
+            no_prefilter=no_prefilter, idx_bits=idx_bits, int16_lanes=int16,
         ))
     ROW_MAJOR_ROUTES["compacted" if use_stage1 else "in_place"] += 1
     out = _serve_keys(

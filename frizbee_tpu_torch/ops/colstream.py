@@ -47,8 +47,10 @@ from ..corpus import (
 from . import _build
 from ._build import ptr, stream
 from .kernels import (
+    INT16_SCORE_LIMIT,
     INT64_MAX,
     MAX_KERNEL_NEEDLE,
+    check_int16_lanes,
     is_delim,
     is_lower,
     is_upper,
@@ -94,23 +96,27 @@ BLOCK_COLUMNS = 512
 MAX_BLOCK_QUERIES = 32
 
 
-def tile_geometry(W: int, unit_bytes: int, n_groups: int, Q: int) -> dict:
+def tile_geometry(W: int, unit_bytes: int, n_groups: int, Q: int,
+                  rows_per_thread: int = 1) -> dict:
     """The launch geometry of the colstream kernels, as
-    ``csrc/colstream_tile.cuh`` computes it: ``rows`` a tile (the block's
-    threads: 128, 64 or 32, the most whose W columns of ``unit_bytes``
-    shared-memory bytes a unit — 1 a byte, 5 a codepoint: the unit and its
-    class byte — fit TILE_BYTES), ``qper`` queries a block, ``chunks``
-    blocks a tile, ``tiles`` and ``smem`` (dynamic shared memory bytes a
-    block)."""
-    rows = TILE_MAX_ROWS
-    while rows > 32 and rows * W * unit_bytes > TILE_BYTES:
-        rows //= 2
+    ``csrc/colstream_tile.cuh`` computes it: ``threads`` a block (128, 64
+    or 32, the most whose ``rows_per_thread`` rows of W columns of
+    ``unit_bytes`` shared-memory bytes a unit — 1 a byte, 5 a codepoint:
+    the unit and its class byte — fit TILE_BYTES), ``rows`` a tile
+    (threads x rows_per_thread: 2 in the int16-lane fuzzy kernel, whose
+    threads walk two rows), ``qper`` queries a block, ``chunks`` blocks a
+    tile, ``tiles`` and ``smem`` (dynamic shared memory bytes a block)."""
+    threads = TILE_MAX_ROWS
+    while (threads > 32
+           and threads * rows_per_thread * W * unit_bytes > TILE_BYTES):
+        threads //= 2
+    rows = threads * rows_per_thread
     tiles = n_groups * (GROUP_ROWS // rows)
     cap = min(max(BLOCK_COLUMNS // W, 1), MAX_BLOCK_QUERIES)
     split = min(max(-(-TARGET_BLOCKS // tiles), -(-Q // cap)), Q)
     qper = -(-Q // split)
-    return dict(rows=rows, qper=qper, chunks=-(-Q // qper), tiles=tiles,
-                smem=rows * W * unit_bytes)
+    return dict(threads=threads, rows=rows, qper=qper, chunks=-(-Q // qper),
+                tiles=tiles, smem=rows * W * unit_bytes)
 
 
 def _bonus_bits(first, last):
@@ -281,7 +287,7 @@ def colstream_window_units(cpT, nuT, wstart, wend, ctxT=None, *, W: int):
 def match_units_colstream_plain(
     cpT, nuT, scalars, flags=None, idxT=None, ctxT=None, *, W: int, n: int,
     max_typos: int = 0, scoring: Tuple[int, ...], no_prefilter: bool = False,
-    idx_bits: int = 0,
+    idx_bits: int = 0, int16_lanes: bool = False,
 ):
     """Plain PyTorch version of the colstream kernel: vectorized over
     (query, row), Python loops over unit columns and needle units, line
@@ -294,12 +300,21 @@ def match_units_colstream_plain(
     (nG*W, 8, 128) int8 ctx plane or None (codepoint blocks only).
     Returns int64 keys (Q, nG*1024) when ``idxT`` (nG*1024,) is given,
     else the five int32 columns (matched, score, exact, end_col, greedy),
-    each (Q, nG*1024). Windows and end_col are byte offsets."""
+    each (Q, nG*1024). Windows and end_col are byte offsets.
+
+    ``int16_lanes`` (byte rows, ``kernels.score_fits_int16``) runs pass 2
+    — scores, the gap carries, offsets, flags, best and end — in
+    ``torch.int16``, as the reference's ``_match_block(int16_lanes=True)``
+    does."""
     (match_score, mismatch, gap_open, gap_ext, prefix_b, cap_b, case_b,
      exact_b, delim_b) = (int(s) for s in scoring)
     gop_extra = max(gap_open - gap_ext, 0)
     nG = cpT.shape[0] // W
     unicode = cpT.dtype != torch.int8
+    if int16_lanes:
+        check_int16_lanes(unicode, scoring, n, W)
+        mismatch = min(mismatch, INT16_SCORE_LIMIT)
+    dt = torch.int16 if int16_lanes else torch.int32
     column = _column_reader(cpT, nuT, W, ctxT)
     nu = nuT.reshape(-1)
     dev = cpT.device
@@ -316,8 +331,13 @@ def match_units_colstream_plain(
     matched, wstart, wend, nb = colstream_window(
         cpT, nuT, scalars, ctxT, W=W, n=n, max_typos=max_typos,
         no_prefilter=no_prefilter)
-    z = torch.zeros(matched.shape, dtype=torch.int32, device=dev)
+    z = torch.zeros(matched.shape, dtype=dt, device=dev)
     fz = torch.zeros(matched.shape, dtype=torch.bool, device=dev)
+
+    def const(mask, v):
+        # v where mask holds, else 0, in the DP's lane type
+        return torch.where(mask, torch.tensor(v, dtype=dt, device=dev),
+                           torch.tensor(0, dtype=dt, device=dev))
 
     # ---- pass 2: windowed affine-gap SW (bonus schedule) ----------------
     include_exact = (wstart == 0) & (wend == nb)
@@ -326,37 +346,33 @@ def match_units_colstream_plain(
     # furthest matched window end; a codepoint row's at a byte offset
     sw_bound = jmaxu if unicode else min(
         int(torch.where(matched, wend, 0).max()), jmaxu)
+    wstart_d, wend_d = wstart.to(dt), wend.to(dt)
+    orig_d, flip_d = orig.to(dt), flip.to(dt)
     h = [z] * n
     mm_bits, pctx, seen_first, best, end_b, boff = z, z, z, z, z, z
     for j in range(sw_bound):
-        hay, valid, blen, bits = column(j)
-        active = valid & (boff >= wstart) & (boff + blen <= wend)
+        hay, valid, blen, bits = (t.to(dt) for t in column(j))
+        valid = valid > 0
+        active = valid & (boff >= wstart_d) & (boff + blen <= wend_d)
         is_first = active & (seen_first == 0)
-        seen_first = seen_first | active.to(torch.int32)
+        seen_first = seen_first | active.to(dt)
         cap_mask = ((bits & CTX_UPPER_FIRST) > 0) & ((pctx & 1) > 0) \
             & ~is_first
         delim_mask = ((pctx & 2) > 0) & ((bits & CTX_DELIM_FIRST) == 0) \
             & ~is_first
-        bonus = (
-            torch.where(cap_mask, cap_b, 0)
-            + torch.where(delim_mask, delim_b, 0)
-            + torch.where(is_first & include_prefix, prefix_b, 0)
-        )
+        bonus = (const(cap_mask, cap_b) + const(delim_mask, delim_b)
+                 + const(is_first & include_prefix, prefix_b))
         # [lower(last byte), delim(last byte)] for the next column
         pctx = torch.where(valid, (bits >> 2) & 3, 0)
         diag_in, up_src, mm_prev = z, z, fz
         h_new, mm_new = [], z
         for k in range(n):
-            occ = active & ((hay == orig_k(k)) | (hay == flip_k(k)))
-            hit = (
-                match_score + bonus
-                + torch.where(active & (hay == orig_k(k)), case_b, 0)
-            )
+            ok, fk = orig_d[:, k:k + 1], flip_d[:, k:k + 1]
+            occ = active & ((hay == ok) | (hay == fk))
+            hit = match_score + bonus + const(active & (hay == ok), case_b)
             left = h[k] - gap_ext
             if gop_extra:
-                left = left - torch.where(
-                    ((mm_bits >> k) & 1) > 0, gop_extra, 0
-                )
+                left = left - const(((mm_bits >> k) & 1) > 0, gop_extra)
             if k == 0:
                 cur = torch.maximum(torch.where(occ, hit, 0), left)
             else:
@@ -365,12 +381,12 @@ def match_units_colstream_plain(
                 )
                 up = up_src - gap_ext
                 if gop_extra:
-                    up = up - torch.where(mm_prev, gop_extra, 0)
+                    up = up - const(mm_prev, gop_extra)
                 up = torch.clamp(up, min=0)
                 cur = torch.maximum(torch.maximum(diag, up), left)
             diag_in, up_src, mm_prev = h[k], cur, occ
             h_new.append(cur)
-            mm_new = mm_new | (occ.to(torch.int32) << k)
+            mm_new = mm_new | (occ.to(dt) << k)
             if k == n - 1:
                 masked = torch.where(active, cur, 0)
                 end_b = torch.where(masked > best, boff, end_b)
@@ -382,8 +398,8 @@ def match_units_colstream_plain(
     neq = fz
     for j in range(min(n, W)):
         neq = neq | (column(j)[0] != orig_k(j))
-    score = torch.clamp(best, min=0)
-    end_col = torch.where(score > 0, end_b, wstart)
+    score = torch.clamp(best.to(torch.int32), min=0)
+    end_col = torch.where(score > 0, end_b.to(torch.int32), wstart)
     exact = include_exact & (nu == n)[None, :] & ~neq
     score = torch.where(exact, torch.clamp(score + exact_b, max=0xFFFF), score)
     score = torch.where(matched, score, 0)
@@ -522,6 +538,7 @@ def match_units_colstream(
     cpT, nuT, scalars, flags=None, idxT=None, ctxT=None, *, W: int, n: int,
     max_typos: int = 0, scoring: Tuple[int, ...], no_prefilter: bool = False,
     idx_bits: int = 0, mode: str = FUZZY_MODE, needle_byte_len: int = 0,
+    int16_lanes: bool = False,
 ):
     """Fused match over nG groups of 1024 rows for Q queries in one
     launch (grid = groups x queries): fuzzy mode (default) or a literal
@@ -534,10 +551,17 @@ def match_units_colstream(
     group holds no stage-1 survivor, so the kernel writes zeros (or
     INT64_MAX keys) without running the DP. Key-emit mode (``idxT``
     given) writes the serving sort key directly: ascending order is
-    (matched first, score desc, index asc)."""
+    (matched first, score desc, index asc).
+
+    ``int16_lanes`` (fuzzy mode on byte rows where
+    ``kernels.score_fits_int16`` holds, else ValueError) selects the
+    int16-lane instantiation, two rows a thread: the same results, counted
+    in ``_build.LAUNCHES["colstream_fuzzy_i16"]``."""
     literal = mode != FUZZY_MODE
     if literal and mode not in LITERAL_MODES:
         raise ValueError(f"unknown match mode {mode!r}")
+    if int16_lanes and literal:
+        raise ValueError("int16 lanes serve fuzzy mode only")
     if cpT.device.type == "cpu":
         if literal:
             return match_units_colstream_literal_plain(
@@ -548,7 +572,7 @@ def match_units_colstream(
         return match_units_colstream_plain(
             cpT, nuT, scalars, flags, idxT, ctxT, W=W, n=n,
             max_typos=max_typos, scoring=scoring, no_prefilter=no_prefilter,
-            idx_bits=idx_bits,
+            idx_bits=idx_bits, int16_lanes=int16_lanes,
         )
     if cpT.device.type != "cuda":
         raise ValueError(f"unsupported device {cpT.device}")
@@ -561,6 +585,8 @@ def match_units_colstream(
     unicode = cpT.dtype != torch.int8
     if not unicode and ctxT is not None:
         raise ValueError("a ctx plane goes with codepoint blocks only")
+    if int16_lanes:
+        check_int16_lanes(unicode, scoring, n, W)
     nG = cpT.shape[0] // W
     Q = scalars.shape[0]
     total = nG * GROUP_ROWS
@@ -599,12 +625,14 @@ def match_units_colstream(
         _build.launch(
             "colstream_fuzzy", cpT.device,
             ptr(cpT), ptr(ctxT), ptr(nuT), ptr(scalars), ptr(flags),
-            ptr(idxT), Q, nG, W, n, int(unicode), T,
+            ptr(idxT), Q, nG, W, n, int(unicode), int(int16_lanes), T,
             prefilter_mode(n, T, no_prefilter), sc_ptr, idx_bits,
             ptr(keys), ptr(cols), stream(cpT),
             call=(call_args, dict(W=W, n=n, max_typos=max_typos,
                                   scoring=scoring, no_prefilter=no_prefilter,
-                                  idx_bits=idx_bits)),
+                                  idx_bits=idx_bits,
+                                  int16_lanes=int16_lanes)),
+            count="colstream_fuzzy_i16" if int16_lanes else None,
         )
     return keys if keys is not None else tuple(cols)
 

@@ -10,9 +10,13 @@ what the column-stream kernels cannot hold in registers: fuzzy needles of
 17-64 units and typo budgets of 4-8. Rows stay in the bucket's (B, W)
 row-major layout, so the serving flow can hand the kernel a per-query
 survivor order and a live count instead of gathering rows: rows past the
-count are never read. The reference's narrow-bucket segment packing and
-int16 lanes exist only for the TPU's 128-lane vectors and are not ported;
-the results are the same per row (pinned in tests/test_torch_rowmajor.py).
+count are never read. The reference's narrow-bucket segment packing exists
+only for the TPU's 128-lane vectors and is not ported; the results are the
+same per row (pinned in tests/test_torch_rowmajor.py). Its int16 lanes are
+ported as the ``int16_lanes`` instantiation: on the card, two rows a thread
+in the s16x2 halves of 32-bit registers (Hopper's DPX add-max); in the
+plain version, DP state in ``torch.int16``. ASCII rows only, and only where
+:func:`score_fits_int16` holds (pinned in tests/test_torch_int16_lanes.py).
 """
 
 from __future__ import annotations
@@ -31,8 +35,48 @@ DEFAULT_SCORING = (12, 6, 5, 1, 12, 4, 4, 8, 4)
 
 INT64_MAX = (1 << 63) - 1
 
+# int16-lane DP: every cell stays below this (score_fits_int16), and a
+# mismatch or gap cost beyond it takes a cell to the relu floor all the
+# same, so the int16 DP clamps those costs to it
+INT16_SCORE_LIMIT = 30000
+
 # Prefilter modes of the CUDA kernels
 PF_NONE, PF_GREEDY, PF_DP = 0, 1, 2
+
+
+def score_fits_int16(scoring, n: int, width: int) -> bool:
+    """True when every DP intermediate provably fits int16 lanes: the
+    largest cell, n * (match + matching_case + max(cap, delim)) + prefix +
+    exact (context bonuses exclude each other per unit), plus the gap
+    scan's W * (gap_extend + gap_open') stays below INT16_SCORE_LIMIT.
+    The port's copy of ``frizbee_tpu.ops.kernels.score_fits_int16``."""
+    (match_score, _mismatch, gap_open, gap_ext, prefix_b, cap_b, case_b,
+     exact_b, delim_b) = scoring
+    per_char = match_score + case_b + max(cap_b, delim_b)
+    bound = n * per_char + prefix_b + exact_b
+    qmax = width * (gap_ext + max(gap_open - gap_ext, 0))
+    return bound + qmax < INT16_SCORE_LIMIT
+
+
+def int16_lanes_fit(unicode: bool, scoring, n: int, width: int) -> bool:
+    """Whether the int16-lane instantiations serve these rows: byte rows
+    (codepoints exceed int16), a scoring of non-negative costs and bonuses
+    (a row's cells before its window stay 0 only then) that
+    :func:`score_fits_int16` admits at this needle length and width. The
+    serving dispatch's predicate, after the reference's
+    ``(not unicode) and score_fits_int16(scoring, nlen, width)``."""
+    return (not unicode and all(int(s) >= 0 for s in scoring)
+            and score_fits_int16(scoring, n, width))
+
+
+def check_int16_lanes(unicode: bool, scoring, n: int, width: int) -> None:
+    """Raise ValueError unless :func:`int16_lanes_fit` holds."""
+    if unicode:
+        raise ValueError("int16 lanes hold byte rows only, not codepoints")
+    if not int16_lanes_fit(unicode, scoring, n, width):
+        raise ValueError(
+            f"scoring {tuple(scoring)} does not fit int16 lanes at needle "
+            f"length {n} and width {width}")
 
 
 def prefilter_mode(n: int, T: int, no_prefilter: bool) -> int:
@@ -252,7 +296,8 @@ def window_units(hay_in, nu, wstart_raw, wend):
     return _window_active(valid, boff, blen, wstart, wend).sum(dim=1)
 
 
-def _match_rows_plain(hay_in, nu, orig, flip, *, n, T, scoring, no_prefilter):
+def _match_rows_plain(hay_in, nu, orig, flip, *, n, T, scoring, no_prefilter,
+                      int16_lanes=False):
     """Row-major fused match of R rows (R, W) — int8 bytes or int32
     codepoints — with unit counts nu (R,) against one needle
     (``orig``/``flip`` lists of n ints), line for line after
@@ -263,7 +308,12 @@ def _match_rows_plain(hay_in, nu, orig, flip, *, n, T, scoring, no_prefilter):
     (``cummax(c + q) - q``). Windows and end_col are byte offsets.
     Returns (matched, score, exact, end_col, greedy) int32, each (R,). As
     in the reference, rows the prefilter rejects still carry the full-row
-    DP's score, exact and end_col."""
+    DP's score, exact and end_col.
+
+    ``int16_lanes`` (byte rows, :func:`score_fits_int16`) runs the SW DP
+    — scores, gap carries, the scan, byte offsets, best and end — in
+    ``torch.int16``, as the reference's int16 ``acc`` does: a scoring past
+    the bound would show as a wrapped result, not pass silently."""
     (match_score, mismatch, gap_open, gap_ext, prefix_b, cap_b, case_b,
      exact_b, delim_b) = (int(s) for s in scoring)
     gop_extra = max(gap_open - gap_ext, 0)
@@ -271,6 +321,9 @@ def _match_rows_plain(hay_in, nu, orig, flip, *, n, T, scoring, no_prefilter):
     S = W
     BIG = S + 1
     i32 = torch.int32
+    acc = torch.int16 if int16_lanes else i32
+    if int16_lanes:
+        mismatch = min(mismatch, INT16_SCORE_LIMIT)
     hay, valid, col, (fb, prev_b, boff, blen, n_bytes) = _unit_grid(
         hay_in, nu)
     dev = hay_in.device
@@ -280,37 +333,40 @@ def _match_rows_plain(hay_in, nu, orig, flip, *, n, T, scoring, no_prefilter):
         hay, valid, col, boff, blen, n_bytes, orig, flip, n=n, T=T,
         no_prefilter=no_prefilter)
 
+    def const(mask, v):
+        # v where mask holds, else 0, in the DP's lane type
+        return torch.where(mask, torch.tensor(v, dtype=acc, device=dev),
+                           torch.tensor(0, dtype=acc, device=dev))
+
     # ---- windowed affine-gap Smith-Waterman, start-1 trim
     wstart = torch.clamp(wstart_raw - 1, min=0)
     include_exact = (wstart == 0) & (wend == n_bytes)
-    active = _window_active(valid, boff, blen, wstart, wend)
+    hay_a, boff_a, blen_a = hay.to(acc), boff.to(acc), blen.to(acc)
+    wstart_a, wend_a = wstart.to(acc), wend.to(acc)
+    active = _window_active(valid, boff_a, blen_a, wstart_a, wend_a)
     first_unit = _lane_min(torch.where(active, col, BIG))
     is_first = active & (col == first_unit[:, None])
     cap_mask = is_upper(fb) & is_lower(prev_b) & ~is_first
     delim_mask = is_delim(prev_b) & ~is_delim(fb) & ~is_first
-    bonus = (
-        torch.where(cap_mask, cap_b, 0)
-        + torch.where(delim_mask, delim_b, 0)
-        + torch.where(is_first & (wstart == 0)[:, None], prefix_b, 0)
-    )
-    prev_row = torch.zeros((R, W), dtype=i32, device=dev)
+    bonus = (const(cap_mask, cap_b) + const(delim_mask, delim_b)
+             + const(is_first & (wstart == 0)[:, None], prefix_b))
+    prev_row = torch.zeros((R, W), dtype=acc, device=dev)
     prev_mm = torch.zeros((R, W), dtype=torch.bool, device=dev)
     neq = torch.zeros(R, dtype=torch.bool, device=dev)
     for k in range(n):
-        match = active & ((hay == orig[k]) | (hay == flip[k]))
-        exactc = active & (hay == orig[k])
+        match = active & ((hay_a == orig[k]) | (hay_a == flip[k]))
+        exactc = active & (hay_a == orig[k])
         diag_base = _shift_right(prev_row, 0)
         diag = torch.where(
             match,
-            diag_base + match_score + bonus + torch.where(exactc, case_b, 0),
+            diag_base + match_score + bonus + const(exactc, case_b),
             torch.clamp(diag_base - mismatch, min=0),
         )
-        up = torch.clamp(
-            prev_row - gap_ext - torch.where(prev_mm, gop_extra, 0), min=0
-        )
+        up = torch.clamp(prev_row - gap_ext - const(prev_mm, gop_extra),
+                         min=0)
         c = torch.maximum(diag, up)
-        p = gap_ext + torch.where(match, gop_extra, 0)
-        q = _shift_right(torch.cumsum(p, dim=1, dtype=i32), 0)
+        p = gap_ext + const(match, gop_extra)
+        q = _shift_right(torch.cumsum(p, dim=1, dtype=acc), 0)
         prev_row = torch.cummax(c + q, dim=1).values - q
         # exact: haystack unit k against needle unit k, case-sensitive
         hk = hay[:, k] if k < W else zero
@@ -319,8 +375,9 @@ def _match_rows_plain(hay_in, nu, orig, flip, *, n, T, scoring, no_prefilter):
     prev_row = torch.where(active, prev_row, 0)
     score = torch.clamp(_lane_max(prev_row), min=0)
     end_unit = _lane_min(torch.where(prev_row == score[:, None], col, BIG))
-    end_b = _lane_gather(boff, torch.clamp(end_unit, max=S - 1))
-    end_col = torch.where(score > 0, end_b, wstart)
+    end_b = _lane_gather(boff_a, torch.clamp(end_unit, max=S - 1))
+    end_col = torch.where(score > 0, end_b, wstart_a).to(i32)
+    score = score.to(i32)
     exact = include_exact & (nu == n) & ~neq
     score = torch.where(exact, torch.clamp(score + exact_b, max=0xFFFF),
                         score)
@@ -332,10 +389,13 @@ def _match_rows_plain(hay_in, nu, orig, flip, *, n, T, scoring, no_prefilter):
 def match_units_plain(
     cp, n_units, scalars, rows=None, idx=None, *, n: int, max_typos: int = 0,
     scoring, no_prefilter: bool = False, idx_bits: int = 0,
+    int16_lanes: bool = False,
 ):
     """Plain PyTorch version of :func:`match_units`: a loop over queries,
     each running :func:`_match_rows_plain` on its live rows."""
-    B, _W = cp.shape
+    B, W = cp.shape
+    if int16_lanes:
+        check_int16_lanes(cp.dtype != torch.int8, scoring, n, W)
     Q = scalars.shape[0]
     nu = n_units.reshape(-1)
     T = min(int(max_typos), n)
@@ -357,7 +417,7 @@ def match_units_plain(
         flip = sc[q, 2 + MAX_KERNEL_NEEDLE:2 + MAX_KERNEL_NEEDLE + n].tolist()
         cols = _match_rows_plain(
             cp[sel], nu[sel], orig, flip, n=n, T=T, scoring=scoring,
-            no_prefilter=no_prefilter,
+            no_prefilter=no_prefilter, int16_lanes=int16_lanes,
         )
         if idx is None:
             out[q, :count, :5] = torch.stack(cols, dim=1)
@@ -369,6 +429,7 @@ def match_units_plain(
 def match_units(
     cp, n_units, scalars, rows=None, idx=None, *, n: int, max_typos: int = 0,
     scoring, no_prefilter: bool = False, idx_bits: int = 0,
+    int16_lanes: bool = False,
 ):
     """Row-major fused prefilter + Smith-Waterman for Q queries over one
     bucket in one launch (grid = row blocks x queries).
@@ -384,11 +445,16 @@ def match_units(
     Returns (Q, B, 8) int32 columns per logical row — matched, score,
     exact, end_col, greedy, 0, 0, 0 (``frizbee_tpu``'s ``match_units``
     layout) — or, when ``idx`` (B,) int32 corpus indices is given, (Q, B)
-    int64 serving keys (:func:`pack_keys`; INT64_MAX past the count)."""
+    int64 serving keys (:func:`pack_keys`; INT64_MAX past the count).
+
+    ``int16_lanes`` selects the int16-lane instantiation (byte rows where
+    :func:`score_fits_int16` holds, else ValueError): the same results,
+    counted in ``_build.LAUNCHES["match_units_i16"]``."""
     if cp.device.type == "cpu":
         return match_units_plain(
             cp, n_units, scalars, rows, idx, n=n, max_typos=max_typos,
             scoring=scoring, no_prefilter=no_prefilter, idx_bits=idx_bits,
+            int16_lanes=int16_lanes,
         )
     if cp.device.type != "cuda":
         raise ValueError(f"unsupported device {cp.device}")
@@ -398,6 +464,8 @@ def match_units(
     B, W = cp.shape
     Q = scalars.shape[0]
     unicode = cp.dtype != torch.int8
+    if int16_lanes:
+        check_int16_lanes(unicode, scoring, n, W)
     if W % 4 or W > MAX_HAYSTACK_LEN or cp.data_ptr() % 4:
         raise ValueError(f"row-major kernel wants a 4-byte aligned width "
                          f"<= {MAX_HAYSTACK_LEN}, got {W}")
@@ -419,10 +487,13 @@ def match_units(
         "match_units", cp.device,
         _build.ptr(cp), _build.ptr(n_units), _build.ptr(scalars),
         _build.ptr(rows), _build.ptr(idx), Q, B, W, n, T,
-        prefilter_mode(n, T, no_prefilter), int(unicode), sc_ptr, idx_bits,
-        _build.ptr(keys), _build.ptr(cols), _build.stream(cp),
+        prefilter_mode(n, T, no_prefilter), int(unicode), int(int16_lanes),
+        sc_ptr, idx_bits, _build.ptr(keys), _build.ptr(cols),
+        _build.stream(cp),
         call=((cp, n_units, scalars, rows, idx),
               dict(n=n, max_typos=max_typos, scoring=scoring,
-                   no_prefilter=no_prefilter, idx_bits=idx_bits)),
+                   no_prefilter=no_prefilter, idx_bits=idx_bits,
+                   int16_lanes=int16_lanes)),
+        count="match_units_i16" if int16_lanes else None,
     )
     return keys if keys is not None else cols

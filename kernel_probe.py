@@ -1,6 +1,6 @@
 """A/B of the package's CUDA kernels on one card, each built from one of
 several kernel source directories and timed in turns on the launches that
-served batches make, with the seven serving batches served by each.
+served batches make, with the eight serving batches served by each.
 
     python3 kernel_probe.py --variant parent=DIR \\
         --variant tree=frizbee_tpu_torch/csrc
@@ -9,7 +9,10 @@ Run it from the repository root, beside ``chip_smoke.py``, whose corpora,
 serving paths and timing helpers it uses. A variant is LABEL=DIR, where
 DIR holds the ``csrc`` sources of a kernel tree (for example those of an
 unpacked ``git archive`` of an earlier commit) whose C entry points take
-the package's arguments. The probe builds every kernel of ``KERNELS``
+the package's arguments; sources from before the int16 lanes, whose
+entry points lack the ``int16_lanes`` parameter, are built from a copy
+with that parameter added and unused (``ABI_ADDED``), so they serve the
+int16-lane requests in int32 lanes, as they did. The probe builds every kernel of ``KERNELS``
 from each, builds ``chip_smoke.py``'s serving corpora (1M ASCII rows, 1M
 rows for the 24-byte needle, 1M Arabic rows) and captures the launches of
 one batch of each serving path. Then, for ``ROUNDS`` rounds, the variants
@@ -20,7 +23,8 @@ in turn (first to last, then back):
 - each match kernel on the launches of the batches it serves
   (``MATCH_PATHS``: the column-stream fuzzy kernel on the fuzzy and
   unicode fuzzy batches, the literal kernel on the literal and unicode
-  literal batches, ``match_units`` on the typo, long-needle and
+  literal batches, ``match_units``'s int16-lane instantiation on the typo
+  and long-needle batches and its int32 one on the wide-scoring typo and
   unicode-typo batches): device ms;
 - each serving path as ``chip_smoke.py``'s serving phase drives it
   (warm-up, the median of 3 blocking batches, a depth-3 pipeline).
@@ -36,6 +40,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -55,7 +60,9 @@ KERNELS = ("row_gather", "match_units", "colstream_fuzzy",
 # match kernel -> (wrapper, plain version, the serving paths it is timed on)
 MATCH_PATHS = {
     "match_units": (km.match_units, km.match_units_plain,
-                    ("typo", "long_needle", "unicode_typo")),
+                    ("typo_wide", "unicode_typo")),
+    "match_units_i16": (km.match_units, km.match_units_plain,
+                        ("typo", "long_needle")),
     "colstream_fuzzy": (cs.match_units_colstream,
                         cs.match_units_colstream_plain,
                         ("fuzzy", "unicode_fuzzy")),
@@ -63,9 +70,39 @@ MATCH_PATHS = {
                           cs.match_units_colstream_literal_plain,
                           ("literal", "unicode_literal")),
 }
+# entry-point parameters added since earlier kernel trees: (source, the
+# text it replaces, its replacement); a tree whose source never names the
+# parameter gets it, unused
+ABI_ADDED = (
+    ("match_units.cu", "int unicode, const void* scoring",
+     "int unicode, int /* int16_lanes */, const void* scoring"),
+    ("colstream_fuzzy.cu", "int unicode, int T,",
+     "int unicode, int /* int16_lanes */, int T,"),
+)
 # serving metric (ms) -> the key of chip_smoke._serve that holds it (s)
 SERVING_METRICS = {"blocking_ms": "blocking_batch_seconds",
                    "pipelined_ms": "pipelined_batch_seconds"}
+
+
+def _adapt(label: str, csrc: str) -> str:
+    """``csrc``, or, where its entry points predate a parameter of
+    ``ABI_ADDED``, a copy under the build directory with it added."""
+    todo = []
+    for name, old, new in ABI_ADDED:
+        with open(os.path.join(csrc, name)) as fh:
+            src = fh.read()
+        if "int16_lanes" not in src:
+            if src.count(old) != 1:
+                raise ValueError(f"{csrc}/{name}: cannot add int16_lanes")
+            todo.append((name, src.replace(old, new)))
+    if not todo:
+        return csrc
+    dst = os.path.join(_build.BUILD_DIR, f"variant_{label}")
+    shutil.copytree(csrc, dst, dirs_exist_ok=True)
+    for name, src in todo:
+        with open(os.path.join(dst, name), "w") as fh:
+            fh.write(src)
+    return dst
 
 
 def _use(csrc: str) -> dict:
@@ -101,7 +138,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("kernel_probe: no CUDA device", file=sys.stderr)
         return 1
-    variants = dict(v.split("=", 1) for v in args.variant)
+    variants = {label: _adapt(label, d) for label, d in
+                (v.split("=", 1) for v in args.variant)}
     labels = list(variants)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -135,7 +173,7 @@ def main(argv=None) -> int:
     print("captured " + json.dumps(
         {p: {k: sum(1 for name, _c in calls[p] if name == k)
              for k in KERNELS} for p in paths}), flush=True)
-    errs = {k: 0.0 for k in KERNELS}
+    errs = {k: 0.0 for k in (*KERNELS, *MATCH_PATHS)}
     want_g = {p: [cs.row_gather_plain(*a) for a, _kw in g]
               for p, g in gathers.items()}
     want_m = {(k, p): [MATCH_PATHS[k][1](*a, **kw) for a, kw in c]
