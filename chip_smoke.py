@@ -40,9 +40,11 @@ Builds the package's CUDA kernels from ``frizbee_tpu_torch/csrc`` (one
    bench.py's fuzzy batch (1M partial-match rows, median length 64,
    k=2048; colstream fuzzy), a literal batch of 2-4-byte pieces under ^,
    $, ' and ^...$ (colstream literal), bench.py's queries at max_typos=4
-   (row-major, int16 lanes), the same under a scoring whose cells exceed
-   int16 (row-major, int32 lanes), and 24-byte needles over a second
-   1M-row partial-match corpus of that needle (row-major, int16 lanes);
+   (row-major), the same under a scoring whose cells exceed int16
+   (row-major), and 24-byte needles over a second 1M-row partial-match
+   corpus of that needle (row-major); the card serves the row-major
+   batches in int32 lanes (``kernels.INT16_CUDA_OK`` is False), asserted
+   through the launch counters;
    each finalizes through the row gather; then three unicode batches of Q=16 over the 1M-row Arabic
    corpus, recording their finalize routes: the 16 two-letter variants
    of "إن" (colstream fuzzy), the same under ', ^, $ and ^...$ (colstream
@@ -53,16 +55,28 @@ Builds the package's CUDA kernels from ``frizbee_tpu_torch/csrc`` (one
    up, queued behind a device sleep so host launch overhead leaves no
    gaps) beside the bound this run's data needs, its plain version and,
    for the row gather (ASCII and unicode paths apart, and per path),
-   ``torch.index_select``; the fuzzy batch's colstream launches driven
-   once more with ``int16_lanes=True`` (the int16 colstream kernel's
-   path); and, on the same captured launches in 10 alternating rounds,
+   ``torch.index_select``; the fuzzy batch's colstream launches and the
+   typo and long-needle batches' row-major launches driven once more with
+   ``int16_lanes=True`` (the int16 kernels' paths); and, on the same
+   captured launches in 10 alternating rounds,
    the int16 and int32 instantiations of ``match_units`` (typo, long
    needle) and of the colstream fuzzy kernel (fuzzy): medians, the share
    of rounds the int16 one won, and the bound both share;
-4. profile phase: torch.profiler over blocking fuzzy batches, ASCII and
+4. probes phase: the reference's kernel probes
+   (``frizbee_tpu_torch/probes/``) at its shapes, each a path of its own
+   with the counters set to 0 just before and read just after, each of
+   their checks asserted: the broad top-k tournament at R 64 and 128
+   against the full sort and ``torch.topk``, with the gather alone; the
+   transposed recurrence's check (K-linearity) and its comparison with
+   ``match_units``; the ten colstream bisect stages and the whole
+   colstream kernel at 2048 rows, then timed at 1M rows. Each probe
+   kernel is then held bit-equal to its plain version on that probe's
+   inputs and timed beside its bound and plain version (the row gather
+   beside ``torch.index_select``);
+5. profile phase: torch.profiler over blocking fuzzy batches, ASCII and
    unicode (wall time, device busy time, top kernels and host
    operations) and cProfile over one ASCII batch;
-5. card-versus-CPU phase: at 20k rows, Q=8, the (Q, 1+k, 2) serving
+6. card-versus-CPU phase: at 20k rows, Q=8, the (Q, 1+k, 2) serving
    arrays and the decoded top-k on the card equal the CPU's for fuzzy
    T=0 and T=1, literal, T=4 and long-needle batches, for Arabic and
    Korean codepoint corpora (fuzzy T=0, T=1, literal, T=4), and for ASCII
@@ -94,14 +108,15 @@ Q = 32
 TOP_K = 2048
 DEPTH, RUNS = 3, 10
 
-# H100 SXM peaks: device memory rate (NVIDIA data sheet), and the 32-bit
-# integer ALU rate = 64 operations per SM per clock (add, compare,
-# min/max, bitwise on sm_90: CUDA C++ guide's throughput table; the 128
-# lanes per SM are the float32 pipe) x 132 SMs x 1.98 GHz
+# H100 SXM peaks: device memory rate (NVIDIA data sheet), and the rate
+# at which the card can issue instructions = 4 schedulers per SM x 32
+# lanes (one warp instruction each a clock) x 132 SMs x 1.98 GHz. The
+# kernels' operations are mixed integer instructions that the card
+# spreads over its ALU and FMA pipes (64 lanes an SM each for int32), so
+# no one pipe's rate bounds them, but every instruction takes an issue
+# slot
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 64 * 132 * 1.98e9
-# cycles of torch.cuda._sleep per second at the H100 SXM's boost clock
-SLEEP_CYCLES_PER_S = 1.98e9
+ISSUE_OPS_PER_S = 128 * 132 * 1.98e9
 INT64_MAX = (1 << 63) - 1  # the key of an unmatched row
 # int32 operations of the colstream fuzzy kernel, each instruction one
 # (corpus loads are counted as bytes): the T=0 greedy embedding per
@@ -144,6 +159,45 @@ LIT_OPS_PER_REST = 3
 RM_PF_OPS_PER_COLUMN = 6
 RM_PF_OPS_PER_STATE = 3
 RM_SW_OPS_PER_CELL = 11
+# the probe kernels: the fewest int32 instructions their C expressions
+# need for what reaches an output (a compare may fold one predicate in, a
+# predicated add replaces a select, a DPX add-max-relu is one; loads are
+# counted as bytes). The transposed recurrence, per cell: the compare,
+# the miss's relu(diag_in - 6), the match's predicated +12, cur as one
+# add-max over prev - 1 and diag, and half a 3-input max (VIMNMX3) into
+# best (the reference's srow/left never reaches its output and is not run)
+TRANSPOSED_OPS_PER_CELL = 4.5
+# the bisect stages: (per needle-unit cell, per column) of a row's walk
+# over all W columns. A: the cell as the transposed one less the best
+# (the valid test folded into the compare), per column the valid test and
+# the best max. B: per cell the orig and flip tests under the window (3),
+# the diagonal with its hoisted bonus and the exact bonus (3), the up
+# move's mismatch cost and add-max (2), the left move's match-bit test,
+# cost and add-max (3), the match bit (1); per column the window and
+# first-unit tests, the byte classes of the unit and the previous one,
+# the bonus, the exact test, the last unit's end column and the carries
+# (39). C and C2: per cell the chain's position test under valid, the two
+# unit compares and the or into the advance (4); per column the start and
+# tail tracking with the carries (14), C2 only the advance and the count
+# (4). C1: per cell two compares or-ed into the hit (2). The bisect2
+# stages advance on the first unit's hit alone, so only units 0 and n-1
+# reach an output: both_outcarries tracks start and tail (22 a column);
+# the other four write zeros or carries never set, leaving the first
+# unit's test, the advance and the count (7).
+BISECT_OPS = {
+    "a_simple+outs": (4, 2),
+    "b_full_sw": (12, 39),
+    "c_pf_t0": (4, 14),
+    "c1_no_advance": (2, 14),
+    "c2_only_advance": (4, 4),
+    "fstart_only_outz": (0, 7),
+    "tail_only_outz": (0, 7),
+    "both_outz": (0, 7),
+    "none_outcarries": (0, 7),
+    "both_outcarries": (0, 22),
+}
+# the 1M-row fuzzy shape the bisect stages are timed at (1024 groups)
+PROBE_BISECT_ROWS = 1 << 20
 
 LITERAL_WRAP = (("'", ""), ("^", ""), ("", "$"), ("^", "$"))
 TYPO_BUDGET = 4
@@ -249,30 +303,6 @@ def _long_corpus(num_samples, seed=42):
         median_length=MEDIAN_LEN, std_dev_length=MEDIAN_LEN // 4,
         num_samples=num_samples,
     ))
-
-
-def _time_ms(fn, reps=5, warm=2):
-    """Mean device time of fn() in ms, CUDA events around ``reps`` calls.
-    The calls queue behind a device sleep that outlasts their enqueue, so
-    the host's launch overhead leaves no gaps between them on the card
-    (a small launch can be quicker on the card than its Python wrapper
-    on the host)."""
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    host_s = time.perf_counter() - t0
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    torch.cuda._sleep(int(2 * reps * host_s * SLEEP_CYCLES_PER_S) + 10_000)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def _max_abs_err(a, b):
@@ -1040,11 +1070,13 @@ def _serve(label, corpus, queries, cfg, kernels, detail):
 
 def _paths(corpus, long_corpus, ucorpus):
     """The eight serving paths: label -> (corpus, queries, config, the
-    kernels the path must launch). The ASCII row-major batches take the
-    int16-lane instantiation, but typo_wide, whose scoring's cells exceed
-    int16, takes the int32 one. The unicode batches record their finalize
-    route without requiring one: most Arabic groups stay alive for any
-    needle, so the capped route and its row gather may not run."""
+    kernels the path must launch). Every row-major batch takes the int32
+    instantiation on the card (``kernels.INT16_CUDA_OK`` is False), the
+    typo and long-needle batches too, though their rows fit int16 lanes
+    (which the CPU's plain versions take). The unicode batches record
+    their finalize route without requiring one: most Arabic groups stay
+    alive for any needle, so the capped route and its row gather may not
+    run."""
     from frizbee_tpu_torch import Config
     from frizbee_tpu_torch.config import Scoring
 
@@ -1054,12 +1086,12 @@ def _paths(corpus, long_corpus, ucorpus):
         "literal": (corpus, _literal_queries(Q), Config(),
                     ("colstream_literal", "row_gather")),
         "typo": (corpus, _queries(Q), Config(max_typos=TYPO_BUDGET),
-                 ("match_units_i16", "row_gather")),
+                 ("match_units", "row_gather")),
         "typo_wide": (corpus, _queries(Q), Config(
             max_typos=TYPO_BUDGET, scoring=Scoring(**WIDE_SCORING)),
             ("match_units", "row_gather")),
         "long_needle": (long_corpus, _queries(Q, LONG_NEEDLE), Config(),
-                        ("match_units_i16", "row_gather")),
+                        ("match_units", "row_gather")),
         "unicode_fuzzy": (ucorpus, _unicode_queries(UQ), Config(),
                           ("colstream_fuzzy",)),
         "unicode_literal": (ucorpus, _unicode_queries(UQ, kind="literal"),
@@ -1081,17 +1113,14 @@ def serving_phase(paths, detail):
         "no literal query matched")
     assert typo["row_major_routes"]["compacted"] == typo["batches"]
     assert typo["match_counts"][0] >= main["match_counts"][0]
-    # the ASCII row-major batches went through the int16 instantiation
-    # alone, the wide-scoring one through the int32 one alone, with the
+    # every ASCII row-major batch went through the int32 instantiation
+    # alone (the card's int16 gate is shut), the wide-scoring one with the
     # same matches as the typo batch
-    for label in ("typo", "long_needle"):
+    for label in ("typo", "long_needle", "typo_wide"):
         launched = serving[label]["launches"]
-        assert launched["match_units"] == 0, (label, launched)
-        assert launched["match_units_i16"] > 0, (label, launched)
-    wide = serving["typo_wide"]
-    assert wide["launches"]["match_units_i16"] == 0
-    assert wide["launches"]["match_units"] > 0
-    assert wide["match_counts"] == typo["match_counts"]
+        assert launched["match_units_i16"] == 0, (label, launched)
+        assert launched["match_units"] > 0, (label, launched)
+    assert serving["typo_wide"]["match_counts"] == typo["match_counts"]
     assert serving["long_needle"]["match_counts"][0] > 0, (
         "no match for the long needle")
     ufuzzy, utypo = serving["unicode_fuzzy"], serving["unicode_typo"]
@@ -1195,9 +1224,9 @@ def _time_once_ms(fn):
 
 def _bound(in_bytes, out_bytes, ops):
     """(bound ms, what bounds it): the larger of bytes over the memory
-    rate and int32 operations over the ALU rate."""
+    rate and int32 operations over the issue rate."""
     t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S
-    t_ops = ops / INT32_OPS_PER_S
+    t_ops = ops / ISSUE_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -1326,6 +1355,27 @@ def _gather_work(args, _kw, out):
     return 0.0, out.numel() * 4 + rows.numel() * 4, out.numel() * 4
 
 
+def _transposed_work(args, kw, out):
+    """The transposed recurrence: every row walks W columns of n cells;
+    each unit read once (4 bytes), each row's best written once."""
+    cpT, scal = args
+    cells = float(cpT.numel()) * kw["n"]
+    return (cells * TRANSPOSED_OPS_PER_CELL,
+            float(cpT.numel() * 4 + scal.numel() * 4), float(out.numel() * 4))
+
+
+def _bisect_work(args, kw, out):
+    """A bisect stage: every row walks all W columns (n cells each), its
+    units read once (4 bytes), its unit count read and five planes
+    written."""
+    stage, cpT, nuT, scal = args
+    per_cell, per_col = BISECT_OPS[stage]
+    cols = float(cpT.numel())
+    return (cols * (per_cell * kw["n"] + per_col),
+            float((cpT.numel() + nuT.numel() + scal.numel()) * 4),
+            float(out.numel() * 4))
+
+
 def _contract_work(args, _kw, out):
     """The contract launch: its inputs read and outputs written once, an
     operation per output element."""
@@ -1343,6 +1393,9 @@ def _replay(entry, name, calls, errs):
     from frizbee_tpu_torch.ops import colstream as cs
     from frizbee_tpu_torch.ops import contract as ct
     from frizbee_tpu_torch.ops import kernels as km
+    from frizbee_tpu_torch.probes import colstream_bisect as pb
+    from frizbee_tpu_torch.probes import device_ms
+    from frizbee_tpu_torch.probes import transposed as pt
 
     kernel, plain, work, library = {
         "colstream_fuzzy": (cs.match_units_colstream,
@@ -1360,6 +1413,10 @@ def _replay(entry, name, calls, errs):
                                 _colstream_work, None),
         "lane_contract": (ct.lane_contract, ct.contract_plain,
                           _contract_work, None),
+        "probe_transposed": (pt.transposed_best, pt.transposed_best_plain,
+                             _transposed_work, None),
+        "probe_colstream_bisect": (pb.bisect_stage, pb.bisect_stage_plain,
+                                   _bisect_work, None),
         "row_gather": (cs.row_gather, cs.row_gather_plain, _gather_work,
                        lambda data, rows: torch.index_select(data, 0, rows)),
     }[name]
@@ -1378,20 +1435,21 @@ def _replay(entry, name, calls, errs):
     del got, want
     bound_ms, bound_by = _bound(in_bytes, out_bytes, ops)
     return {
-        "ms": _time_ms(lambda: run(kernel)),
+        "ms": device_ms(lambda: run(kernel)),
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": (None if library is None
-                       else _time_ms(lambda: run(library))),
+                       else device_ms(lambda: run(library))),
     }, {"launches": len(calls), "ops": ops, "bytes": in_bytes + out_bytes}
 
 
 KERNELS = (
     # entry, kernel (its launch counter), source, TPU kernel it replaces,
     # paths it runs on (the unicode launches of the match kernels are
-    # entries of their own; fuzzy_int16 drives the fuzzy batch's colstream
-    # launches with int16 lanes, contract the contract phase)
+    # entries of their own; fuzzy_int16, typo_int16 and long_needle_int16
+    # drive those batches' colstream or row-major launches with int16
+    # lanes, contract the contract phase)
     ("colstream_fuzzy", "colstream_fuzzy",
      "frizbee_tpu_torch/csrc/colstream_fuzzy.cu",
      "frizbee_tpu/ops/colstream.py:954", ("fuzzy",)),
@@ -1406,10 +1464,10 @@ KERNELS = (
      "frizbee_tpu/ops/colstream.py:749",
      ("unicode_fuzzy", "unicode_literal", "unicode_typo")),
     ("match_units", "match_units", "frizbee_tpu_torch/csrc/match_units.cu",
-     "frizbee_tpu/ops/kernels.py:632", ("typo_wide",)),
+     "frizbee_tpu/ops/kernels.py:632", ("typo", "typo_wide", "long_needle")),
     ("match_units_i16", "match_units_i16",
      "frizbee_tpu_torch/csrc/match_units.cu",
-     "frizbee_tpu/ops/kernels.py:632", ("typo", "long_needle")),
+     "frizbee_tpu/ops/kernels.py:632", ("typo_int16", "long_needle_int16")),
     ("colstream_fuzzy_i16", "colstream_fuzzy_i16",
      "frizbee_tpu_torch/csrc/colstream_fuzzy.cu",
      "frizbee_tpu/ops/colstream.py:954", ("fuzzy_int16",)),
@@ -1442,33 +1500,39 @@ def _capture(corpus, queries, cfg):
 
 def _drive(label, calls, serving):
     """A path of launches: every launch counter set to 0, the captured
-    ``calls`` ((counter, (args, kwargs)) of the wrapper) run through
-    their wrappers once, the counters read into ``serving[label]``."""
+    ``calls`` ((counter, (args, kwargs)) of the wrapper) of a match
+    kernel run through their wrappers once, the counters read into
+    ``serving[label]``."""
     from frizbee_tpu_torch.ops import _build
     from frizbee_tpu_torch.ops import colstream as cs
+    from frizbee_tpu_torch.ops import kernels as km
 
     for k in _build.LAUNCHES:
         _build.LAUNCHES[k] = 0
-    for _name, (a, kw) in calls:
-        cs.match_units_colstream(*a, **kw)
+    for name, (a, kw) in calls:
+        fn = (km.match_units if name.startswith("match_units")
+              else cs.match_units_colstream)
+        fn(*a, **kw)
     torch.cuda.synchronize()
     serving[label] = {"launches": dict(_build.LAUNCHES)}
 
 
 def ab_phase(calls, detail):
     """Row 8's timing half: the int32 and int16 instantiations of
-    ``match_units`` on the typo and long-needle batches' launches and of
+    ``match_units`` on the typo and long-needle batches' served (int32)
+    launches and of
     the colstream fuzzy kernel on the fuzzy batch's, in AB_ROUNDS rounds
     that alternate which goes first, each held bit-equal to the other
     first. Medians, the share of rounds the int16 one was faster, and the
     bound both share (the same work counted for both)."""
     from frizbee_tpu_torch.ops import colstream as cs
     from frizbee_tpu_torch.ops import kernels as km
+    from frizbee_tpu_torch.probes import device_ms
 
     cases = {
-        "match_units typo": ("typo", "match_units_i16", km.match_units,
+        "match_units typo": ("typo", "match_units", km.match_units,
                              _match_units_work),
-        "match_units long_needle": ("long_needle", "match_units_i16",
+        "match_units long_needle": ("long_needle", "match_units",
                                     km.match_units, _match_units_work),
         "colstream_fuzzy fuzzy": ("fuzzy", "colstream_fuzzy",
                                   cs.match_units_colstream, _colstream_work),
@@ -1500,7 +1564,7 @@ def ab_phase(calls, detail):
         for r in range(AB_ROUNDS):
             for v in (("int32", "int16") if r % 2 == 0
                       else ("int16", "int32")):
-                ms[v].append(_time_ms(lambda: run(v)))
+                ms[v].append(device_ms(lambda: run(v)))
         med = {v: float(np.median(t)) for v, t in ms.items()}
         out[label] = {
             "launches": len(base), "ms": ms,
@@ -1521,17 +1585,21 @@ def timing_phase(paths, serving, errs, detail):
     of each path it runs on, captured and replayed, beside their bound,
     their plain version and, for the row gather, ``torch.index_select``.
     The captures run after the serving phase has read its counters. The
-    int16 colstream kernel's path drives the fuzzy batch's colstream
-    launches with int16 lanes (counted on their own); then the int16/int32
-    A/B on the same launches."""
+    int16 kernels' paths drive the fuzzy batch's colstream launches and
+    the typo and long-needle batches' row-major launches with int16 lanes
+    (counted on their own; serving takes int32 lanes on the card); then
+    the int16/int32 A/B on the same launches."""
     calls = {label: _capture(c, queries, cfg)
              for label, (c, queries, cfg, _k) in paths.items()}
-    calls["fuzzy_int16"] = [
-        ("colstream_fuzzy_i16", (a, dict(kw, int16_lanes=True)))
-        for k, (a, kw) in calls["fuzzy"] if k == "colstream_fuzzy"]
-    _drive("fuzzy_int16", calls["fuzzy_int16"], serving)
     paths_q = {label: p[1] for label, p in paths.items()}
-    paths_q["fuzzy_int16"] = paths_q["fuzzy"]
+    for path, name in (("fuzzy", "colstream_fuzzy"), ("typo", "match_units"),
+                       ("long_needle", "match_units")):
+        label = f"{path}_int16"
+        calls[label] = [
+            (f"{name}_i16", (a, dict(kw, int16_lanes=True)))
+            for k, (a, kw) in calls[path] if k == name]
+        _drive(label, calls[label], serving)
+        paths_q[label] = paths_q[path]
     entries = []
     detail.setdefault("timing", {})
     for entry, name, source, replaces, paths in KERNELS:
@@ -1609,6 +1677,134 @@ def contract_phase(dev, errs, detail):
             "replaces": "tests/test_kernel_contract.py:52",
             "launches": launches["lane_contract"],
             "max_abs_err": errs["lane_contract"], **nums}
+
+
+# the probe kernels' sources, and the TPU kernel each bisect stage replaces
+# (bisect2's five all come from its make_stage)
+PROBE_TRANSPOSED_SOURCE = "frizbee_tpu_torch/csrc/probe_transposed.cu"
+PROBE_BISECT_SOURCE = "frizbee_tpu_torch/csrc/probe_colstream_bisect.cu"
+PROBE_BISECT_REPLACES = {
+    "a_simple+outs": "benchmarks/probe_colstream_bisect.py:63",
+    "b_full_sw": "benchmarks/probe_colstream_bisect.py:88",
+    "c_pf_t0": "benchmarks/probe_colstream_bisect.py:173",
+    "c1_no_advance": "benchmarks/probe_colstream_bisect.py:236",
+    "c2_only_advance": "benchmarks/probe_colstream_bisect.py:272",
+}
+
+
+def _probe_records(label, records):
+    """A probe's records, each printed; fails at the first whose check
+    (``ok``, ``correct``, ``*_equal``) is false."""
+    out = []
+    for rec in records:
+        out.append(rec)
+        print(f"probes phase, {label}: " + json.dumps(rec), flush=True)
+        bad = [k for k, v in rec.items() if v is False
+               and (k in ("ok", "correct") or k.endswith("_equal"))]
+        assert not bad, f"probe {label} failed its check: {rec}"
+    return out
+
+
+def probes_phase(dev, errs, detail):
+    """The reference's kernel probes on the card, each a path of its own
+    (every launch counter set to 0 just before, read just after): the
+    broad top-k tournament at R 64 and 128 against the full sort and
+    ``torch.topk`` with the gather timed alone, the transposed
+    recurrence's check and its comparison with the row-major kernel, and
+    every colstream bisect stage (with the whole colstream kernel) at the
+    reference's 2048 rows and again timed at 1M rows. Each probe's own
+    checks must pass. Then each probe kernel, on that probe's inputs, is
+    held bit-equal to its plain version and timed beside its bound and
+    plain version: the transposed kernel at the check's timing shape and
+    the comparison's largest, each bisect stage at 1M rows, the row
+    gather of the tournament's timing (beside ``torch.index_select``).
+    Returns the ``kernels`` entries."""
+    from collections import Counter
+    from itertools import chain
+
+    from frizbee_tpu_torch.ops import _build
+    from frizbee_tpu_torch.probes import broad_topk
+    from frizbee_tpu_torch.probes import colstream_bisect as pb
+    from frizbee_tpu_torch.probes import transposed as pt
+
+    groups = PROBE_BISECT_ROWS // pb.GROUP_ROWS
+    paths = {
+        "broad_topk": lambda: broad_topk.run(dev),
+        "transposed_check": lambda: pt.check(dev),
+        "transposed_compare": lambda: pt.compare(dev),
+        "colstream_bisect": lambda: chain(
+            pb.run(dev), pb.run(dev, groups=groups, timed=True)),
+    }
+    records, launches = {}, {}
+    stage_launches = Counter()
+    for label, fn in paths.items():
+        for k in _build.LAUNCHES:
+            _build.LAUNCHES[k] = 0
+        # the bisect stages share one launch counter: the capture tells
+        # them apart
+        _build.CAPTURE = [] if label == "colstream_bisect" else None
+        try:
+            records[label] = _probe_records(label, fn())
+            torch.cuda.synchronize()
+        finally:
+            captured, _build.CAPTURE = _build.CAPTURE, None
+        launches[label] = dict(_build.LAUNCHES)
+        if label == "colstream_bisect":
+            stage_launches.update(a[0] for name, (a, _kw) in captured
+                                  if name == "probe_colstream_bisect")
+        del captured
+    assert launches["broad_topk"]["row_gather"] > 0, launches
+    for label in ("transposed_check", "transposed_compare"):
+        assert launches[label]["probe_transposed"] > 0, launches
+    assert launches["transposed_compare"]["match_units"] > 0, launches
+    bis = launches["colstream_bisect"]
+    assert bis["colstream_fuzzy"] > 0, bis
+    assert sum(stage_launches.values()) == bis["probe_colstream_bisect"]
+    assert all(stage_launches[s] > 0 for s in pb.STAGES), stage_launches
+    detail["probes"] = {"records": records, "launches": launches,
+                        "bisect_stage_launches": dict(stage_launches)}
+
+    entries = []
+
+    def entry(name, kernel, calls, source, replaces, n_launches):
+        errs.setdefault(name, 0.0)
+        nums, work = _replay(name, kernel, calls, errs)
+        detail.setdefault("timing", {})[name] = {**nums, **work}
+        print(f"probes phase: {name} " + json.dumps(detail["timing"][name]),
+              flush=True)
+        entries.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": n_launches,
+                        "max_abs_err": errs[name], **nums})
+
+    needle, _hay, lin = pt.check_inputs(dev)
+    entry("probe_transposed", "probe_transposed",
+          [((pt.to_blocks(lin), pt.needle_scalars(needle, lin.shape[0], dev)),
+            dict(W=lin.shape[1], n=pt.N))],
+          PROBE_TRANSPOSED_SOURCE, "benchmarks/probe_transposed_check.py:96",
+          launches["transposed_check"]["probe_transposed"])
+    del lin
+    *_, (needle, hay) = pt.compare_inputs(dev)
+    entry("probe_transposed_compare", "probe_transposed",
+          [((pt.to_blocks(hay), pt.needle_scalars(needle, hay.shape[0], dev)),
+            dict(W=hay.shape[1], n=pt.N))],
+          PROBE_TRANSPOSED_SOURCE, "benchmarks/probe_transposed.py:95",
+          launches["transposed_compare"]["probe_transposed"])
+    del hay
+    cpT, nuT, scal = pb.to_colstream(*pb.bisect_inputs(groups), dev)
+    for stage in pb.STAGES:
+        entry(f"probe_bisect_{stage}", "probe_colstream_bisect",
+              [((stage, cpT, nuT, scal), dict(W=pb.W, n=pb.N))],
+              PROBE_BISECT_SOURCE,
+              PROBE_BISECT_REPLACES.get(
+                  stage, "benchmarks/probe_colstream_bisect2.py:57"),
+              stage_launches[stage])
+    del cpT, nuT, scal
+    entry("row_gather_broad_topk", "row_gather",
+          [(broad_topk.gather_args(dev), {})],
+          "frizbee_tpu_torch/csrc/row_gather.cu",
+          "benchmarks/probe_broad_topk.py:93",
+          launches["broad_topk"]["row_gather"])
+    return entries
 
 
 def cpu_parity_phase(detail):
@@ -1776,6 +1972,9 @@ def main():
     entries = timing_phase(paths, serving, errs, detail)
     entries.append(contract_entry)
     phases["timing"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    entries += probes_phase(corpus.device, errs, detail)
+    phases["probes"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     profile_phase("fuzzy", corpus, _queries(Q), detail, host_profile=True)
     profile_phase("unicode_fuzzy", ucorpus, _unicode_queries(UQ), detail)

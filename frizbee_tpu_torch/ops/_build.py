@@ -62,6 +62,14 @@ SIGNATURES = {
         [_P, _I, _P, _I, _P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P,
          _P],
     ),
+    "probe_transposed": (
+        "probe_transposed_launch",
+        [_P, _P, _P, _I, _I, _I, _P],
+    ),
+    "probe_colstream_bisect": (
+        "probe_colstream_bisect_launch",
+        [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    ),
 }
 
 # launch counters beside the libraries': the int16-lane instantiations of

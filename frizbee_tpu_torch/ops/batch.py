@@ -41,7 +41,7 @@ from .kernels import (
     INT64_MAX,
     MAX_KERNEL_NEEDLE,
     MAX_KERNEL_TYPOS,
-    int16_lanes_fit,
+    int16_lanes_dispatch,
     match_units,
     pack_needle_scalars,
 )
@@ -67,10 +67,11 @@ FINALIZE_ROUTES = {
 ROW_MAJOR_ROUTES = {"in_place": 0, "compacted": 0}
 
 # Row-major kernel instantiations taken, per bucket launch: int16 lanes
-# where the reference's predicate holds (byte rows, score_fits_int16),
-# else int32. The record of the choice on CPU tensors, whose plain
-# versions count no launch; on the card the launch counters
-# (_build.LAUNCHES "match_units_i16" and "match_units") say the same.
+# where kernels.int16_lanes_dispatch holds (byte rows, score_fits_int16,
+# and the CPU, or the card once INT16_CUDA_OK), else int32. The record of
+# the choice on CPU tensors, whose plain versions count no launch; on the
+# card the launch counters (_build.LAUNCHES "match_units_i16" and
+# "match_units") say the same: int32 while INT16_CUDA_OK is False.
 ROW_MAJOR_LANES = {"int16": 0, "int32": 0}
 
 
@@ -100,14 +101,14 @@ def _broad_topk_ok(total, fetch_rows):
     )
 
 
-def _broad_topk(keys, *, fetch_rows):
+def _broad_topk(keys, *, fetch_rows, R=BROAD_TOPK_R):
     """Exact top-``fetch_rows`` smallest int64 keys per query of (Q, total)
     without the full-width sort: a block-min tournament. Valid keys are
     unique (they embed the row index), so the S smallest R-slot block
     minima hold every top-S key; those blocks are gathered (int64 keys
-    viewed as int32 pairs, one 256-word row per block) and sorted."""
+    viewed as int32 pairs, one 2R-word row per block) and sorted. Serving
+    takes R = BROAD_TOPK_R; ``probes/broad_topk.py`` times 64 and 128."""
     Q, total = keys.shape
-    R = BROAD_TOPK_R
     NB = total // R
     S = min(fetch_rows, NB)
     bm = keys.reshape(Q, NB, R).amin(dim=2)
@@ -256,8 +257,11 @@ def _row_major_flow(bits8, buckets_rm, needles_q, *, T, no_prefilter,
     its survivor count (written into the scalars on the device) and the
     kernel reads rows through the survivor order; without, every row
     runs in bucket order. Each bucket takes the int16-lane instantiation
-    where ``kernels.int16_lanes_fit`` holds, as the reference's serving
-    path does (``int16_lanes=(not unicode) and score_fits_int16``)."""
+    where ``kernels.int16_lanes_dispatch`` holds, as the reference's
+    serving path does (``(not unicode) and score_fits_int16(...) and
+    (interpret or INT16_MOSAIC_OK)``): on CPU tensors where the rows fit,
+    and on the card only once ``kernels.INT16_CUDA_OK`` is set, which it
+    is not, so the card serves these batches in int32 lanes."""
     Q, n2 = needles_q.shape
     nlen = n2 // 2
     scal = pack_needle_scalars(needles_q, 0)
@@ -278,7 +282,8 @@ def _row_major_flow(bits8, buckets_rm, needles_q, *, T, no_prefilter,
             order = _survivor_order(s1, nu, W)
         else:
             sc[:, 0] = B
-        int16 = int16_lanes_fit(cp.dtype != torch.int8, scoring, nlen, W)
+        int16 = int16_lanes_dispatch(cp.device, cp.dtype != torch.int8,
+                                     scoring, nlen, W)
         ROW_MAJOR_LANES["int16" if int16 else "int32"] += 1
         keys.append(match_units(
             cp, nu, sc, order, idx, n=nlen, max_typos=T, scoring=scoring,

@@ -40,6 +40,15 @@ INT64_MAX = (1 << 63) - 1
 # same, so the int16 DP clamps those costs to it
 INT16_SCORE_LIMIT = 30000
 
+# The card serves int16 lanes only once they are proven faster there: the
+# counterpart of the reference's INT16_MOSAIC_OK. In 10 alternating rounds
+# on the same launches on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6,
+# the int16 rows' A/B) match_units' int16 instantiation was
+# faster in 0 of 10 on the typo batch (3.4691 against 3.4561 ms) and on the
+# long-needle batch (0.8460 against 0.7119 ms), so serving stays int32 on
+# the card; the int16 kernels stay built and held to their plain versions.
+INT16_CUDA_OK = False
+
 # Prefilter modes of the CUDA kernels
 PF_NONE, PF_GREEDY, PF_DP = 0, 1, 2
 
@@ -67,6 +76,17 @@ def int16_lanes_fit(unicode: bool, scoring, n: int, width: int) -> bool:
     ``(not unicode) and score_fits_int16(scoring, nlen, width)``."""
     return (not unicode and all(int(s) >= 0 for s in scoring)
             and score_fits_int16(scoring, n, width))
+
+
+def int16_lanes_dispatch(device, unicode: bool, scoring, n: int,
+                         width: int) -> bool:
+    """Whether the serving flow launches the int16-lane instantiation:
+    :func:`int16_lanes_fit`, and the device is the CPU or
+    ``INT16_CUDA_OK`` holds. The reference's dispatch is ``(not unicode)
+    and score_fits_int16(...) and (interpret or INT16_MOSAIC_OK)``; the
+    CPU's plain versions stand where its interpret mode does."""
+    return (int16_lanes_fit(unicode, scoring, n, width)
+            and (torch.device(device).type == "cpu" or INT16_CUDA_OK))
 
 
 def check_int16_lanes(unicode: bool, scoring, n: int, width: int) -> None:

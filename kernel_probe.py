@@ -23,9 +23,9 @@ in turn (first to last, then back):
 - each match kernel on the launches of the batches it serves
   (``MATCH_PATHS``: the column-stream fuzzy kernel on the fuzzy and
   unicode fuzzy batches, the literal kernel on the literal and unicode
-  literal batches, ``match_units``'s int16-lane instantiation on the typo
-  and long-needle batches and its int32 one on the wide-scoring typo and
-  unicode-typo batches): device ms;
+  literal batches, ``match_units`` on the typo, long-needle,
+  wide-scoring typo and unicode-typo batches, which the card serves in
+  int32 lanes): device ms;
 - each serving path as ``chip_smoke.py``'s serving phase drives it
   (warm-up, the median of 3 blocking batches, a depth-3 pipeline).
 
@@ -53,6 +53,7 @@ from frizbee_tpu_torch import datagen, pack_corpus
 from frizbee_tpu_torch.ops import _build
 from frizbee_tpu_torch.ops import colstream as cs
 from frizbee_tpu_torch.ops import kernels as km
+from frizbee_tpu_torch.probes import device_ms
 
 ROUNDS = 10
 KERNELS = ("row_gather", "match_units", "colstream_fuzzy",
@@ -60,9 +61,7 @@ KERNELS = ("row_gather", "match_units", "colstream_fuzzy",
 # match kernel -> (wrapper, plain version, the serving paths it is timed on)
 MATCH_PATHS = {
     "match_units": (km.match_units, km.match_units_plain,
-                    ("typo_wide", "unicode_typo")),
-    "match_units_i16": (km.match_units, km.match_units_plain,
-                        ("typo", "long_needle")),
+                    ("typo", "typo_wide", "long_needle", "unicode_typo")),
     "colstream_fuzzy": (cs.match_units_colstream,
                         cs.match_units_colstream_plain,
                         ("fuzzy", "unicode_fuzzy")),
@@ -210,15 +209,15 @@ def main(argv=None) -> int:
             for p, g in gathers.items():
                 held("row_gather", cs.row_gather, g, want_g[p], f"{v} {p}")
                 gather_out[p]["ms"][v].append(
-                    cs_._time_ms(lambda: run(cs.row_gather, g), reps=10))
-                gather_out[p]["index_select_ms"].append(cs_._time_ms(
+                    device_ms(lambda: run(cs.row_gather, g), reps=10))
+                gather_out[p]["index_select_ms"].append(device_ms(
                     lambda: run(lambda d, i: torch.index_select(d, 0, i), g),
                     reps=10))
             for (k, p), c in match.items():
                 fn = MATCH_PATHS[k][0]
                 held(k, fn, c, want_m[k, p], f"{v} {p}")
                 match_out[k][p]["ms"][v].append(
-                    cs_._time_ms(lambda: run(fn, c)))
+                    device_ms(lambda: run(fn, c)))
             for p, (c, queries, cfg, kernels) in paths.items():
                 res = cs_._serve(p, c, queries, cfg, kernels, {})
                 for m, key in SERVING_METRICS.items():

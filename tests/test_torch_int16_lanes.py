@@ -351,6 +351,28 @@ def test_int16_lanes_refused_on_codepoints_and_unfit_scorings():
     assert tk.int16_lanes_fit(False, tk.DEFAULT_SCORING, 64, 1024)
 
 
+def test_int16_dispatch_gate(monkeypatch):
+    """The serving dispatch's int16 predicate, after the reference's
+    ``... and (interpret or INT16_MOSAIC_OK)``: int16 lanes for CPU tensors
+    where the rows fit, int32 on the card while ``INT16_CUDA_OK`` is False
+    (as the reference's ``INT16_MOSAIC_OK`` is), int16 there once set."""
+    assert jk.INT16_MOSAIC_OK is False
+    assert tk.INT16_CUDA_OK is False
+    args = (False, tk.DEFAULT_SCORING, 8, 64)
+    assert tk.int16_lanes_dispatch(torch.device("cpu"), *args)
+    assert tk.int16_lanes_dispatch("cpu", *args)
+    assert not tk.int16_lanes_dispatch(torch.device("cuda"), *args)
+    assert not tk.int16_lanes_dispatch(torch.device("cuda", 0), *args)
+    assert not tk.int16_lanes_dispatch("cpu", True, tk.DEFAULT_SCORING, 8,
+                                       64)
+    assert not tk.int16_lanes_dispatch(
+        "cpu", False, (12, 6, 5000, 1000, 12, 4, 4, 8, 4), 8, 64)
+    monkeypatch.setattr(tk, "INT16_CUDA_OK", True)
+    assert tk.int16_lanes_dispatch(torch.device("cuda"), *args)
+    assert not tk.int16_lanes_dispatch("cuda", True, tk.DEFAULT_SCORING, 8,
+                                       64)
+
+
 @pytest.mark.parametrize("W", [16, 32, 64, 128, 256, 512, 1024])
 def test_int16_colstream_tile_geometry(W):
     """The int16 colstream kernel's tile: two rows a thread, so a block of

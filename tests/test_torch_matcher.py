@@ -144,14 +144,16 @@ def _port_files():
 
 
 def test_port_imports_no_jax_and_no_reference():
-    """The port runs where JAX is absent: no file of the package, and
-    neither chip_smoke.py nor kernel_probe.py, imports jax or
-    frizbee_tpu."""
+    """The port runs where JAX is absent: no file of the package (its
+    probes included), and neither chip_smoke.py nor kernel_probe.py,
+    imports jax, frizbee_tpu or the reference's benchmarks."""
     files = list(_port_files())
     assert len(files) > 10
     scanned = {os.path.relpath(p, ROOT) for p in files}
     for rel in ("ops/literal.py", "ops/kernels.py", "ops/batch.py",
-                "engine.py", "corpus.py"):
+                "engine.py", "corpus.py", "probes/__init__.py",
+                "probes/broad_topk.py", "probes/transposed.py",
+                "probes/colstream_bisect.py"):
         assert os.path.join("frizbee_tpu_torch", rel) in scanned
     for path in files:
         with open(path) as fh:
@@ -165,6 +167,7 @@ def test_port_imports_no_jax_and_no_reference():
                 continue
             for name in names:
                 root = name.split(".")[0]
-                assert root not in ("jax", "jaxlib", "frizbee_tpu"), (
+                assert root not in ("jax", "jaxlib", "frizbee_tpu",
+                                    "benchmarks"), (
                     f"{path} imports {name}"
                 )
