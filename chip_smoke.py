@@ -23,9 +23,12 @@ Builds the package's CUDA kernels from ``frizbee_tpu_torch/csrc`` (one
    at n = 1, 2 and 16, both output modes); the int16-lane instantiations
    of both DP kernels against their int16 plain versions at the same
    serving shapes, at every row-major template boundary and colstream
-   tile boundary, and at the pairing boundaries (live counts 1, 2, 31,
-   33 and odd, rows of 0 and W units paired, one half matched and the
-   other rejected); the lane contract kernel against its plain model; the
+   tile boundary, and at the pairing boundaries that
+   ``frizbee_tpu_torch/ops/pairing.py`` builds (pass-2 queues of every
+   length mod 4, a full doubled queue, a 1-column window paired with a
+   W-column one, matched rows all in one half of a tile's length order,
+   an empty row beside a full one, a matched half beside a rejected
+   one); the lane contract kernel against its plain model; the
    row gather at 128-, 256-, 384- and 2048-word rows, 1, 7 and the capped
    finalize's or broad tournament's rows; and the unicode variant of each
    match kernel
@@ -42,8 +45,9 @@ Builds the package's CUDA kernels from ``frizbee_tpu_torch/csrc`` (one
    $, ' and ^...$ (colstream literal), bench.py's queries at max_typos=4
    (row-major), the same under a scoring whose cells exceed int16
    (row-major), and 24-byte needles over a second 1M-row partial-match
-   corpus of that needle (row-major); the card serves the row-major
-   batches in int32 lanes (``kernels.INT16_CUDA_OK`` is False), asserted
+   corpus of that needle (row-major); the typo and long-needle batches
+   take the int16-lane instantiation alone and the wide-scoring one the
+   int32 instantiation alone (``kernels.INT16_CUDA_OK`` is set), asserted
    through the launch counters;
    each finalizes through the row gather; then three unicode batches of Q=16 over the 1M-row Arabic
    corpus, recording their finalize routes: the 16 two-letter variants
@@ -55,10 +59,10 @@ Builds the package's CUDA kernels from ``frizbee_tpu_torch/csrc`` (one
    up, queued behind a device sleep so host launch overhead leaves no
    gaps) beside the bound this run's data needs, its plain version and,
    for the row gather (ASCII and unicode paths apart, and per path),
-   ``torch.index_select``; the fuzzy batch's colstream launches and the
-   typo and long-needle batches' row-major launches driven once more with
-   ``int16_lanes=True`` (the int16 kernels' paths); and, on the same
-   captured launches in 10 alternating rounds,
+   ``torch.index_select``; the fuzzy batch's colstream launches driven
+   once more with ``int16_lanes=True`` and the typo and long-needle
+   batches' row-major launches with int32 lanes (paths of their own);
+   and, on the same captured launches in 10 alternating rounds,
    the int16 and int32 instantiations of ``match_units`` (typo, long
    needle) and of the colstream fuzzy kernel (fuzzy): medians, the share
    of rounds the int16 one won, and the bound both share;
@@ -238,10 +242,6 @@ TILE_BOUNDARY_Q = (1, 2, 17, 33)
 TILE_BOUNDARY_FUZZY = ((1, 0), (16, 1), (5, 3), (2, None), (8, 0),
                        (2, 1), (3, 1), (16, 0), (7, 2))  # (n, T)
 TILE_BOUNDARY_LIT_N = (1, 2, 16)
-# the int16-lane kernels' pairing boundaries: live counts that leave an
-# odd row out, a single pair, a warp and a bit
-PAIR_COUNTS = (1, 2, 31, 33, 129, 603)
-PAIR_COLSTREAM_COUNTS = (1, 2, 33, 1025, 3 * 1024 - 37)
 # a user scoring whose cells exceed int16 at the typo batch's needles
 # (8 x 4008 + 20 > 30000): the reference serves it in int32 lanes, so the
 # row-major kernel's int32 byte instantiation keeps a serving path
@@ -394,8 +394,7 @@ def kernel_phase(corpus, detail):
           f"{TILE_BOUNDARY_SHARED} x Q {TILE_BOUNDARY_Q} x bytes, "
           f"codepoints x columns, key-emit; int16 lanes of both at the "
           f"serving shapes, the template and tile boundaries and {px} "
-          f"pairing boundaries: live counts {PAIR_COUNTS} / "
-          f"{PAIR_COLSTREAM_COUNTS}; row_gather {rg}: C "
+          f"pairing boundaries (ops/pairing); row_gather {rg}: C "
           f"{GATHER_CHECK_C} x M 1, 7, served {gather_shapes})",
           flush=True)
     return errs
@@ -547,90 +546,58 @@ def _rowmajor_pair_check(errs, cp, nu, nq, idx, rows, counts, kw, what):
 
 
 def _pairing_checks(dev, errs):
-    """The int16-lane kernels at their pairing boundaries. Row-major: on
-    :func:`_boundary_bucket`'s blocks (all matched, all rejected, mixed)
-    with a tenth of the rows emptied and a tenth filled to W units, live
-    counts PAIR_COUNTS for the two queries in turn, so a block's queue
-    ends on an odd row out, holds one pair or one row, or crosses a warp;
-    (n, T) at the greedy embedding and the DP, bytes, both modes.
-    Colstream: a 3-group bucket whose group 1 holds empty rows but for a
-    few W-unit ones (an empty row pairs with a full one) and whose group
-    2 holds rows of one length that alternate between carrying the needle
-    and not (a matched half beside a rejected one), live counts
-    PAIR_COLSTREAM_COUNTS, T = 0 and 1, both modes. Returns the number of
+    """The int16-lane kernels at their pairing boundaries, on the inputs
+    ``ops/pairing`` builds (which the CPU tests hold to the reference).
+    Row-major: its 640-row bucket (all-matched, all-rejected and mixed
+    rows; empty, full, 1- and 128-unit rows) at (n, T)
+    ``pairing.ROWMAJOR_NT`` (the greedy embedding and the DP), the two
+    queries at live counts ``pairing.ROWMAJOR_COUNTS`` (queues of every
+    length mod 4, a warp, the int32 and the doubled block crossed, a
+    1-unit row paired with a 128-unit one), both modes. Colstream: its
+    five-group bucket (an empty row beside a full one, a matched row
+    beside a rejected one, tiles of 1, 2, 3, 5, 7, 65, 127 and 128
+    matched rows, matched rows all in one half of the length order, a
+    1-column window beside a 32-column one) at (n, T)
+    ``pairing.COLSTREAM_NT``, three queries at live counts
+    ``pairing.COLSTREAM_COUNTS``, both modes. Returns the number of
     checks."""
     from frizbee_tpu_torch.ops import colstream as cs
     from frizbee_tpu_torch.ops import kernels as km
+    from frizbee_tpu_torch.ops import pairing as pc
 
-    rng = np.random.default_rng(41)
-    B, W = RM_BOUNDARY_B, RM_BOUNDARY_W
     checks = 0
-    for n, T in ((8, 0), (8, 4), (24, 0), (24, 4)):
-        cp_np, nu_np, needle = _boundary_bucket(rng, n, T, False)
-        r = rng.random(B)
-        nu_np = np.where(r < 0.1, 0, np.where(r > 0.9, W, nu_np))
-        nu_np = nu_np.astype(np.int32)
-        cp = torch.from_numpy(cp_np).to(dev)
-        nu = torch.from_numpy(nu_np).to(dev)
-        nq = torch.from_numpy(np.stack([needle, needle])).to(dev)
-        idx = torch.from_numpy(rng.permutation(B).astype(np.int32)).to(dev)
-        rows = torch.from_numpy(np.stack([
-            np.arange(B), rng.permutation(B)]).astype(np.int32)).to(dev)
-        for i in range(0, len(PAIR_COUNTS), 2):
-            counts = PAIR_COUNTS[i:i + 2]
+    for n, T in pc.ROWMAJOR_NT:
+        c = {k: torch.from_numpy(v).to(dev)
+             for k, v in pc.rowmajor_case(pc.SEED, n, T).items()}
+        nq = torch.stack([c["needle"], c["needle"]])
+        for counts in pc.ROWMAJOR_COUNTS:
             kw = dict(n=n, max_typos=T, scoring=km.DEFAULT_SCORING,
                       idx_bits=10, int16_lanes=True)
             checks += _rowmajor_pair_check(
-                errs, cp, nu, nq, idx, rows, counts, kw,
+                errs, c["cp"], c["nu"], nq, c["idx"], c["rows"], counts, kw,
                 f"pairing n={n} T={T} counts={counts}")
 
-    # the colstream bucket, built row by row (pack_corpus would cluster
-    # the rows): group 0 random rows; group 1 empty rows but for three of
-    # W units a 256-row tile (two carry the needle, one does not), so an
-    # empty row pairs with a full one; group 2 rows of 12 units, the even
-    # ones without the needle and the odd ones with it
-    needle, Wc, Bc = "dEadbeEf", 32, 3 * 1024
-    cpc = np.zeros((Bc, Wc), np.uint8)
-    nuc = np.zeros(Bc, np.int32)
-    for i in range(Bc - 37):
-        g, t = i // 1024, i % 256
-        if g == 0:
-            row = "".join(rng.choice(list("deabfx/_Q"),
-                                     int(rng.integers(0, Wc + 1))))
-        elif g == 1:
-            row = {5: "x" * 24 + needle, 77: "q" * Wc,
-                   200: needle + "_" * 24}.get(t, "")
-        else:
-            row = ("ab" + needle + "yz") if i % 2 else "abqqqqqqqqyz"
-        units = np.frombuffer(row.encode(), np.uint8)
-        cpc[i, :len(units)] = units
-        nuc[i] = len(units)
-    cpT = torch.from_numpy(np.ascontiguousarray(
-        cpc.view(np.int8).reshape(3, 1024, Wc).transpose(0, 2, 1)
-    ).reshape(3 * Wc, 8, 128)).to(dev)
-    nuT = torch.from_numpy(nuc.reshape(24, 128)).to(dev)
-    idxc = rng.permutation(Bc).astype(np.int32)
-    idxc[Bc - 37:] = -1
-    idxT = torch.from_numpy(idxc).to(dev)
-    idx_bits = 12
-    nq = torch.from_numpy(_needles([needle, needle.swapcase()])).to(dev)
-    for T in (0, 1):
-        for count in PAIR_COLSTREAM_COUNTS:
-            scal = km.pack_needle_scalars(nq, count)
-            kw = dict(W=Wc, n=len(needle), max_typos=T,
-                      scoring=km.DEFAULT_SCORING, idx_bits=idx_bits,
+    c = {k: torch.from_numpy(v).to(dev)
+         for k, v in pc.colstream_case(pc.SEED).items()}
+    for n, T in pc.COLSTREAM_NT:
+        nq = torch.from_numpy(_needles(pc.COLSTREAM_QUERIES[n])).to(dev)
+        for counts in pc.COLSTREAM_COUNTS:
+            scal = km.pack_needle_scalars(nq, 0)
+            scal[:, 0] = torch.tensor(counts)
+            kw = dict(W=pc.COLSTREAM_W, n=n, max_typos=T,
+                      scoring=km.DEFAULT_SCORING, idx_bits=13,
                       int16_lanes=True)
-            for ix in (idxT, None):
-                got = cs.match_units_colstream(cpT, nuT, scal, None, ix, **kw)
+            for ix in (c["idxT"], None):
+                got = cs.match_units_colstream(c["cpT"], c["nuT"], scal, None,
+                                               ix, **kw)
                 torch.cuda.synchronize()
-                want = cs.match_units_colstream_plain(cpT, nuT, scal, None,
-                                                      ix, **kw)
+                want = cs.match_units_colstream_plain(c["cpT"], c["nuT"],
+                                                      scal, None, ix, **kw)
                 _check_equal(errs, "colstream_fuzzy_i16", got, want,
-                             f"pairing T={T} count={count} "
+                             f"pairing n={n} T={T} counts={counts} "
                              f"keys={ix is not None}")
                 checks += 1
     return checks
-
 
 
 def _tile_boundary_bucket(rng, W, groups, unicode):
@@ -1070,10 +1037,11 @@ def _serve(label, corpus, queries, cfg, kernels, detail):
 
 def _paths(corpus, long_corpus, ucorpus):
     """The eight serving paths: label -> (corpus, queries, config, the
-    kernels the path must launch). Every row-major batch takes the int32
-    instantiation on the card (``kernels.INT16_CUDA_OK`` is False), the
-    typo and long-needle batches too, though their rows fit int16 lanes
-    (which the CPU's plain versions take). The unicode batches record
+    kernels the path must launch). The typo and long-needle batches take
+    the int16-lane instantiation of the row-major kernel (their rows fit
+    int16 lanes and ``kernels.INT16_CUDA_OK`` is set), the wide-scoring
+    typo batch and the unicode one the int32 instantiation. The unicode
+    batches record
     their finalize route without requiring one: most Arabic groups stay
     alive for any needle, so the capped route and its row gather may not
     run."""
@@ -1086,12 +1054,12 @@ def _paths(corpus, long_corpus, ucorpus):
         "literal": (corpus, _literal_queries(Q), Config(),
                     ("colstream_literal", "row_gather")),
         "typo": (corpus, _queries(Q), Config(max_typos=TYPO_BUDGET),
-                 ("match_units", "row_gather")),
+                 ("match_units_i16", "row_gather")),
         "typo_wide": (corpus, _queries(Q), Config(
             max_typos=TYPO_BUDGET, scoring=Scoring(**WIDE_SCORING)),
             ("match_units", "row_gather")),
         "long_needle": (long_corpus, _queries(Q, LONG_NEEDLE), Config(),
-                        ("match_units", "row_gather")),
+                        ("match_units_i16", "row_gather")),
         "unicode_fuzzy": (ucorpus, _unicode_queries(UQ), Config(),
                           ("colstream_fuzzy",)),
         "unicode_literal": (ucorpus, _unicode_queries(UQ, kind="literal"),
@@ -1113,13 +1081,17 @@ def serving_phase(paths, detail):
         "no literal query matched")
     assert typo["row_major_routes"]["compacted"] == typo["batches"]
     assert typo["match_counts"][0] >= main["match_counts"][0]
-    # every ASCII row-major batch went through the int32 instantiation
-    # alone (the card's int16 gate is shut), the wide-scoring one with the
-    # same matches as the typo batch
-    for label in ("typo", "long_needle", "typo_wide"):
+    # the typo and long-needle batches went through the int16-lane
+    # instantiation alone (the reference's predicate, the card's gate
+    # open), the wide-scoring one through the int32 instantiation alone,
+    # with the same matches as the typo batch
+    for label, lanes in (("typo", "match_units_i16"),
+                         ("long_needle", "match_units_i16"),
+                         ("typo_wide", "match_units")):
         launched = serving[label]["launches"]
-        assert launched["match_units_i16"] == 0, (label, launched)
-        assert launched["match_units"] > 0, (label, launched)
+        other = ({"match_units", "match_units_i16"} - {lanes}).pop()
+        assert launched[lanes] > 0 and launched[other] == 0, (label,
+                                                              launched)
     assert serving["typo_wide"]["match_counts"] == typo["match_counts"]
     assert serving["long_needle"]["match_counts"][0] > 0, (
         "no match for the long needle")
@@ -1447,9 +1419,10 @@ def _replay(entry, name, calls, errs):
 KERNELS = (
     # entry, kernel (its launch counter), source, TPU kernel it replaces,
     # paths it runs on (the unicode launches of the match kernels are
-    # entries of their own; fuzzy_int16, typo_int16 and long_needle_int16
-    # drive those batches' colstream or row-major launches with int16
-    # lanes, contract the contract phase)
+    # entries of their own; fuzzy_int16 drives the fuzzy batch's colstream
+    # launches with int16 lanes, typo_int32 and long_needle_int32 those
+    # batches' row-major launches with int32 lanes, contract the contract
+    # phase)
     ("colstream_fuzzy", "colstream_fuzzy",
      "frizbee_tpu_torch/csrc/colstream_fuzzy.cu",
      "frizbee_tpu/ops/colstream.py:954", ("fuzzy",)),
@@ -1464,10 +1437,11 @@ KERNELS = (
      "frizbee_tpu/ops/colstream.py:749",
      ("unicode_fuzzy", "unicode_literal", "unicode_typo")),
     ("match_units", "match_units", "frizbee_tpu_torch/csrc/match_units.cu",
-     "frizbee_tpu/ops/kernels.py:632", ("typo", "typo_wide", "long_needle")),
+     "frizbee_tpu/ops/kernels.py:632",
+     ("typo_wide", "typo_int32", "long_needle_int32")),
     ("match_units_i16", "match_units_i16",
      "frizbee_tpu_torch/csrc/match_units.cu",
-     "frizbee_tpu/ops/kernels.py:632", ("typo_int16", "long_needle_int16")),
+     "frizbee_tpu/ops/kernels.py:632", ("typo", "long_needle")),
     ("colstream_fuzzy_i16", "colstream_fuzzy_i16",
      "frizbee_tpu_torch/csrc/colstream_fuzzy.cu",
      "frizbee_tpu/ops/colstream.py:954", ("fuzzy_int16",)),
@@ -1519,7 +1493,7 @@ def _drive(label, calls, serving):
 
 def ab_phase(calls, detail):
     """Row 8's timing half: the int32 and int16 instantiations of
-    ``match_units`` on the typo and long-needle batches' served (int32)
+    ``match_units`` on the typo and long-needle batches' served (int16)
     launches and of
     the colstream fuzzy kernel on the fuzzy batch's, in AB_ROUNDS rounds
     that alternate which goes first, each held bit-equal to the other
@@ -1539,7 +1513,7 @@ def ab_phase(calls, detail):
     }
     out = {}
     for label, (path, name, fn, work) in cases.items():
-        base = [c for k, c in calls[path] if k == name]
+        base = [c for k, c in calls[path] if k.removesuffix("_i16") == name]
         variants = {
             lanes: [(a, dict(kw, int16_lanes=lanes == "int16"))
                     for a, kw in base]
@@ -1585,19 +1559,21 @@ def timing_phase(paths, serving, errs, detail):
     of each path it runs on, captured and replayed, beside their bound,
     their plain version and, for the row gather, ``torch.index_select``.
     The captures run after the serving phase has read its counters. The
-    int16 kernels' paths drive the fuzzy batch's colstream launches and
-    the typo and long-needle batches' row-major launches with int16 lanes
-    (counted on their own; serving takes int32 lanes on the card); then
-    the int16/int32 A/B on the same launches."""
+    fuzzy batch's colstream launches are driven again with int16 lanes
+    (which no serving path takes), the typo and long-needle batches'
+    row-major launches with int32 lanes (which they no longer take), each
+    a path of its own; then the int16/int32 A/B on the same launches."""
     calls = {label: _capture(c, queries, cfg)
              for label, (c, queries, cfg, _k) in paths.items()}
     paths_q = {label: p[1] for label, p in paths.items()}
-    for path, name in (("fuzzy", "colstream_fuzzy"), ("typo", "match_units"),
-                       ("long_needle", "match_units")):
-        label = f"{path}_int16"
+    for path, name, lanes in (("fuzzy", "colstream_fuzzy", "int16"),
+                              ("typo", "match_units", "int32"),
+                              ("long_needle", "match_units", "int32")):
+        label = f"{path}_{lanes}"
         calls[label] = [
-            (f"{name}_i16", (a, dict(kw, int16_lanes=True)))
-            for k, (a, kw) in calls[path] if k == name]
+            (name + ("_i16" if lanes == "int16" else ""),
+             (a, dict(kw, int16_lanes=lanes == "int16")))
+            for k, (a, kw) in calls[path] if k.removesuffix("_i16") == name]
         _drive(label, calls[label], serving)
         paths_q[label] = paths_q[path]
     entries = []

@@ -361,37 +361,41 @@ __global__ void __launch_bounds__(frizbee::kTileMaxRows, kMinBlocks<N>)
   }
 }
 
-// The int16-lane instantiation (byte rows): two rows a thread. A block of
-// ``half`` threads stages a tile of 2 x half rows (tile_geometry with two
-// rows a thread) and sorts them by length; thread t walks the rows at
-// sorted positions 2t and 2t + 1, so the two halves of its registers hold
-// rows of about one length. Pass 1 runs per row as in the kernel above,
-// one row after the other (one walk stepping both rows, and a byte table
-// of the context facts, measured no faster on an H100: PERF.md). Pass 2
-// runs the pair in the s16x2 halves of 32-bit registers (lanes16.cuh)
-// over the union of the two trimmed windows: each half takes the needle
-// masks of its byte only inside its own window, its own first column and
-// context bonus, and its own best and end column (best2); a half the
-// prefilter rejected takes none. The needle masks come from a 256-entry
-// table a query (bits 0-15 the units a byte matches, 16-31 those it
-// equals), built by the block before its pass 1 (a table a warp, built
-// only where the warp has a pass 2 to run, measured slower): two lookups
-// and two prmt a column give the pair's packed bits, and a unit's half
-// masks cost one shift and one prmt each. The DP cell is three DPX
-// add-max for both rows.
+// The int16-lane instantiation (byte rows): pass 1 one row a thread, pass
+// 2 two rows a thread. A block stages and sorts its tile as the kernel
+// above does (its geometry: a row a thread) and serves its alive queries
+// two at a time. Each thread runs pass 1 of its row for both queries of a
+// round; every (row, query) the prefilter passes takes its place in one
+// block queue of up to twice the tile's rows, a counting sort by trimmed-
+// window length (lanes16.cuh queue_bin: a shared atomic an entry, two
+// barriers a round, the bins alternating by round parity), and thread t
+// runs queue entries 2t and 2t + 1 as the two s16x2 halves of one DP
+// chain: up to one pair a thread, as many chains a block as the kernel
+// above runs rows, no rejected half, halves of about one length. A half
+// may be the other query's, or the same row for the other query: each
+// half looks its bytes up in its own query's 256-entry table (bits 0-15
+// the units a byte matches, 16-31 those it equals; built between the
+// round's barriers, only when its queue holds an entry), and walks its
+// own window from its own first column, with its own first-column and
+// context bonus and its own best and end column (best2), so the pair
+// takes as many steps as its longer window. A unit's half masks are one
+// shift and one prmt; the DP cell is three DPX add-max for both rows.
+// Pass 1 carries most of this kernel and is the int32 kernel's; the
+// rounds cost about what the packed pass 2 saves (measured on an H100:
+// PERF.md).
 template <int N>
 __global__ void __launch_bounds__(frizbee::kTileMaxRows, kMinBlocks<N>)
     colstream_fuzzy_pairs_kernel(const Args a) {
   extern __shared__ __align__(16) uint8_t s_tile[];
   __shared__ int s_cols;
   __shared__ unsigned s_alive;
-  __shared__ int s_key[2 * frizbee::kTileMaxRows];
+  __shared__ int s_key[frizbee::kTileMaxRows];
   __shared__ int s_needle[kMaxBlockQueries][2 * kColstreamNeedle];
-  // the byte table of the query: bits 0-15 the units a byte matches,
-  // 16-31 those it equals
-  __shared__ uint32_t s_masks[256];
-  const int half = blockDim.x, rows = 2 * half;
-  const TileBlock tb(a.chunks, a.qper, a.Q, rows);
+  __shared__ uint32_t s_masks[2][256];  // the byte tables of the round's queries
+  __shared__ int s_bins[2][frizbee::kQueueBins];  // [round parity]
+  // row | query of the round << 8, window start, end, byte count
+  __shared__ int4 s_queue[2 * frizbee::kTileMaxRows];
+  const TileBlock tb(a.chunks, a.qper, a.Q);
   const long long total = (long long)a.n_groups * kGroupRows;
   const Scoring& sc = a.sc;
 
@@ -401,28 +405,21 @@ __global__ void __launch_bounds__(frizbee::kTileMaxRows, kMinBlocks<N>)
   if (threadIdx.x == 0) s_cols = 0;
   if (!__syncthreads_or(any)) {
     // no query keeps the group alive: nothing to read
-    for (int q = tb.q0; q < tb.q1; ++q) {
-      emit_row(a, total, tb.slot, q, 0, 0, 0, 0, 0, -1);
-      emit_row(a, total, tb.slot + half, q, 0, 0, 0, 0, 0, -1);
-    }
+    for (int q = tb.q0; q < tb.q1; ++q) emit_row(a, total, tb.slot, q, 0, 0, 0, 0, 0, -1);
     return;
   }
-  // stage the tile (this thread's rows t and t + half); while its copies
-  // fly, pair its rows by length
-  const int own0 = min(a.nuT[tb.slot], a.W), own1 = min(a.nuT[tb.slot + half], a.W);
-  frizbee::stage_tile(s_tile, &s_cols, a.cpT, nullptr, tb, a.W, 1, max(own0, own1),
-                      a.W, rows);
-  frizbee::sort_row_pairs_by_length(s_key, own0, own1);
+  // stage the tile; while its copies fly, order its rows by length, and
+  // run pass 1 of row ``r`` of it
+  const int own_len = min(a.nuT[tb.slot], a.W);
+  frizbee::stage_tile(s_tile, &s_cols, a.cpT, nullptr, tb, a.W, 1, own_len, a.W);
+  const int r = frizbee::sort_rows_by_length(s_key, own_len);
   frizbee::stage_wait();
   __syncthreads();
-  const int r0 = s_key[2 * threadIdx.x] & 0xFF, r1 = s_key[2 * threadIdx.x + 1] & 0xFF;
   const long long tile0 = (long long)tb.slot - (int)threadIdx.x;
-  const long long slot0 = tile0 + r0, slot1 = tile0 + r1;
-  const int nu0 = a.nuT[slot0], nu1 = a.nuT[slot1];
-  const int len0 = min(nu0, a.W), len1 = min(nu1, a.W);
-  const int idx0 = a.keys_out != nullptr ? a.idxT[slot0] : -1;
-  const int idx1 = a.keys_out != nullptr ? a.idxT[slot1] : -1;
-  const TileRow<false> row0(s_tile, a.W, r0, rows), row1(s_tile, a.W, r1, rows);
+  const long long slot = tile0 + r;
+  const int len = min(a.nuT[slot], a.W);
+  const int idx = a.keys_out != nullptr ? a.idxT[slot] : -1;
+  const TileRow<false> row(s_tile, a.W, r);
   const int gop_extra = max(sc.gap_open - sc.gap_ext, 0);
   const int mis = min(sc.mismatch, frizbee::kInt16ScoreLimit);
   const uint32_t nge = frizbee::pack2(-sc.gap_ext, -sc.gap_ext);
@@ -431,65 +428,115 @@ __global__ void __launch_bounds__(frizbee::kTileMaxRows, kMinBlocks<N>)
   const uint32_t neg_mm = frizbee::pack2(-mis, -mis);
 
   const int nq = tb.q1 - tb.q0;  // <= kMaxBlockQueries
+  for (int i = threadIdx.x; i < 2 * frizbee::kQueueBins; i += blockDim.x)
+    s_bins[i / frizbee::kQueueBins][i % frizbee::kQueueBins] = 0;
   const unsigned alive_mask = frizbee::stage_needles(
       s_needle, &s_alive, a.scalars, a.flags, tb, a.n_groups, N);
-  for (int qi = 0; qi < nq; ++qi) {
-    const int q = tb.q0 + qi;
-    if (!((alive_mask >> qi) & 1u)) {
-      emit_row(a, total, slot0, q, 0, 0, 0, 0, 0, -1);
-      emit_row(a, total, slot1, q, 0, 0, 0, 0, 0, -1);
-      continue;
-    }
-    const int* nd = s_needle[qi];
-    int orig[N], flip[N];
+  for (int qi = 0; qi < nq; ++qi)
+    if (!((alive_mask >> qi) & 1u)) emit_row(a, total, slot, tb.q0 + qi, 0, 0, 0, 0, 0, -1);
+  unsigned left = alive_mask;
+  for (int round = 0; left != 0; ++round) {
+    // the round's queries (of the block's chunk), the second -1 when the
+    // alive queries run out
+    const int rq0 = __ffs(left) - 1;
+    left &= left - 1;
+    const int rq1 = left != 0 ? __ffs(left) - 1 : -1;
+    if (left != 0) left &= left - 1;
+    const int nsel = rq1 >= 0 ? 2 : 1;
+    int* bins = s_bins[round & 1];
+
+    // ---- pass 1, this thread's row for each query of the round; the
+    // rows it passes take a queue place in their length bin
+    int4 ent[2];
+    int bin[2], at[2];
 #pragma unroll
-    for (int k = 0; k < N; ++k) {
-      orig[k] = nd[k];
-      flip[k] = nd[kColstreamNeedle + k];
-    }
-    // the query's byte table; the previous query's readers are done
-    __syncthreads();
-    for (int c = threadIdx.x; c < 256; c += half) {
-      uint32_t occ = 0, eq = 0;
+    for (int s = 0; s < 2; ++s) {
+      bin[s] = -1;
+      if (s >= nsel) continue;
+      const int* nd = s_needle[s != 0 ? rq1 : rq0];
+      int orig[N], flip[N];
 #pragma unroll
       for (int k = 0; k < N; ++k) {
-        if (c == orig[k]) eq |= 1u << k;
-        if (c == orig[k] || c == flip[k]) occ |= 1u << k;
+        orig[k] = nd[k];
+        flip[k] = nd[kColstreamNeedle + k];
       }
-      s_masks[c] = occ | (eq << 16);
+      const Window w = prefilter<N, false>(row, len, orig, flip, nd, a.pf_mode, a.T);
+      if (!w.matched) {
+        emit_row(a, total, slot, tb.q0 + (s != 0 ? rq1 : rq0), 0, 0, 0, 0, 0, idx);
+        continue;
+      }
+      const int ws = max(w.wstart_raw - 1, 0);
+      ent[s] = make_int4(r | (s << 8), ws, max(w.wend, ws), w.nb);
+      bin[s] = frizbee::queue_bin(ent[s].z - ws, a.W);
+      at[s] = atomicAdd(&bins[bin[s]], 1);
     }
     __syncthreads();
+    // the queue and, where it holds an entry, the round's tables; the
+    // other parity's bins zeroed for the next round (their last readers
+    // passed the barrier above)
+    const frizbee::QueueScan scan(bins);
+    const int m = scan.total;
+    if (m > 0) {
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        const int first = scan.base(max(bin[s], 0));
+        if (bin[s] >= 0) s_queue[first + at[s]] = ent[s];
+      }
+      for (int e = threadIdx.x; e < nsel * 256; e += blockDim.x) {
+        const int* nd = s_needle[(e >> 8) != 0 ? rq1 : rq0];
+        const int c = e & 255;
+        uint32_t occ = 0, eq = 0;
+#pragma unroll
+        for (int k = 0; k < N; ++k) {
+          const int o = nd[k];
+          if (c == o) eq |= 1u << k;
+          if (c == o || c == nd[kColstreamNeedle + k]) occ |= 1u << k;
+        }
+        s_masks[e >> 8][c] = occ | (eq << 16);
+      }
+    }
+    if (threadIdx.x < frizbee::kQueueBins) s_bins[(round & 1) ^ 1][threadIdx.x] = 0;
+    __syncthreads();
+    const int t = threadIdx.x;
+    if (2 * t >= m) continue;
 
-    // ---- pass 1, a row at a time
-    const Window w0 = prefilter<N, false>(row0, len0, orig, flip, nd, a.pf_mode, a.T);
-    const Window w1 = prefilter<N, false>(row1, len1, orig, flip, nd, a.pf_mode, a.T);
-    if (!w0.matched) emit_row(a, total, slot0, q, 0, 0, 0, 0, 0, idx0);
-    if (!w1.matched) emit_row(a, total, slot1, q, 0, 0, 0, 0, 0, idx1);
-    if (!w0.matched && !w1.matched) continue;
-
-    // ---- pass 2, the pair: start-1-trimmed windows [ws, we) in columns
-    // (a byte row's bytes); a rejected half has none
-    const int ws0 = max(w0.wstart_raw - 1, 0), we0 = w0.matched ? w0.wend : 0;
-    const int ws1 = max(w1.wstart_raw - 1, 0), we1 = w1.matched ? w1.wend : 0;
-    int jlo = a.W, jhi = 0;
-    if (ws0 < we0) { jlo = ws0; jhi = we0; }
-    if (ws1 < we1) { jlo = min(jlo, ws1); jhi = max(jhi, we1); }
+    // ---- pass 2, the pair: queue entries 2t and 2t + 1, each half over
+    // its own trimmed window [ws, we) in columns (a byte row's bytes)
+    const bool two = 2 * t + 1 < m;
+    const int4 e0 = s_queue[2 * t];
+    const int4 e1 = two ? s_queue[2 * t + 1] : e0;
+    const TileRow<false> row0(s_tile, a.W, e0.x & 0xFF), row1(s_tile, a.W, e1.x & 0xFF);
+    const uint32_t* tab0 = s_masks[e0.x >> 8];
+    const uint32_t* tab1 = s_masks[e1.x >> 8];
+    const int ws0 = e0.y, ws1 = e1.y;
+    const int len0 = e0.z - ws0, len1 = two ? e1.z - ws1 : 0;
+    const int steps = max(len0, len1);
     uint32_t h[N];
 #pragma unroll
     for (int k = 0; k < N; ++k) h[k] = 0;
     uint32_t pocc = 0;  // the previous column's unit matches, packed
     uint32_t best = 0;
     int end0 = 0, end1 = 0;
-    for (int j = jlo; j < jhi; ++j) {
-      const bool a0 = j >= ws0 && j < we0, a1 = j >= ws1 && j < we1;
-      const int c0 = row0.unit(j), c1 = row1.unit(j);
-      const uint32_t t0 = a0 ? s_masks[c0] : 0u, t1 = a1 ? s_masks[c1] : 0u;
+    int p0 = 0, p1 = 0;  // the previous column's byte facts of each half
+    for (int i = 0; i < steps; ++i) {
+      const bool a0 = i < len0, a1 = i < len1;
+      const int j0 = ws0 + i, j1 = ws1 + i;
+      const int c0 = a0 ? row0.unit(j0) : 0, c1 = a1 ? row1.unit(j1) : 0;
+      const uint32_t t0 = tab0[c0], t1 = tab1[c1];
       const uint32_t occ = frizbee::pair16(t0, t1), eqw = frizbee::pair16_high(t0, t1);
       // each half's bonus: the prefix bonus (or none) on its window's
       // first column, else the context bonus after the byte before
-      int b0 = 0, b1 = 0;
-      if (a0) b0 = j == ws0 ? (ws0 == 0 ? sc.prefix : 0) : row0.bonus(j, sc);
-      if (a1) b1 = j == ws1 ? (ws1 == 0 ? sc.prefix : 0) : row1.bonus(j, sc);
+      const int f0 = frizbee::byte_ctx(c0), f1 = frizbee::byte_ctx(c1);
+      int b0, b1;
+      if (i == 0) {
+        b0 = ws0 == 0 ? sc.prefix : 0;
+        b1 = ws1 == 0 ? sc.prefix : 0;
+      } else {
+        b0 = frizbee::context_bonus(f0, p0, sc);
+        b1 = frizbee::context_bonus(f1, p1, sc);
+      }
+      p0 = f0;
+      p1 = f1;
       const uint32_t base_hit = frizbee::pack2(sc.match + b0, sc.match + b1);
       const uint32_t case_hit =
           frizbee::pack2(sc.match + sc.case_b + b0, sc.match + sc.case_b + b1);
@@ -516,26 +563,30 @@ __global__ void __launch_bounds__(frizbee::kTileMaxRows, kMinBlocks<N>)
       int raised;
       best = frizbee::best2(best, cur & ((a0 ? 0xFFFFu : 0u) | (a1 ? 0xFFFF0000u : 0u)),
                             &raised);
-      if (raised & 1) end0 = j;
-      if (raised & 2) end1 = j;
+      if (raised & 1) end0 = j0;
+      if (raised & 2) end1 = j1;
       pocc = occ;
     }
-    // each matched half's outputs, unpacked to 32 bits
-    auto finish = [&](const Window& w, const TileRow<false>& row, int nu, long long slot,
-                      int idx, int ws, int score, int end) {
-      bool eq = nu == N;
+    // each half's outputs, unpacked to 32 bits
+    auto finish = [&](const int4& e, const TileRow<false>& rw, int score, int end) {
+      const int qi = (e.x >> 8) != 0 ? rq1 : rq0;
+      const long long at_slot = tile0 + (e.x & 0xFF);
+      const int* nd = s_needle[qi];
+      bool eq = a.nuT[at_slot] == N;
       if (eq) {
 #pragma unroll
-        for (int k = 0; k < N; ++k) eq = eq && (row.unit(k) == orig[k]);
+        for (int k = 0; k < N; ++k) eq = eq && (rw.unit(k) == nd[k]);
       }
+      const int ws = e.y;
       const int end_col = score > 0 ? end : ws;
-      const int exact = (ws == 0 && w.wend == w.nb && eq) ? 1 : 0;
+      const int exact = (ws == 0 && e.z == e.w && eq) ? 1 : 0;
       if (exact) score = min(score + sc.exact, 0xFFFF);
-      emit_row(a, total, slot, q, 1, score, exact, end_col,
-               (w.wend - ws) > kMaxHaystackLen ? 1 : 0, idx);
+      emit_row(a, total, at_slot, tb.q0 + qi, 1, score, exact, end_col,
+               (e.z - ws) > kMaxHaystackLen ? 1 : 0,
+               a.keys_out != nullptr ? a.idxT[at_slot] : -1);
     };
-    if (w0.matched) finish(w0, row0, nu0, slot0, idx0, ws0, frizbee::lo16(best), end0);
-    if (w1.matched) finish(w1, row1, nu1, slot1, idx1, ws1, frizbee::hi16(best), end1);
+    finish(e0, row0, frizbee::lo16(best), end0);
+    if (two) finish(e1, row1, frizbee::hi16(best), end1);
   }
 }
 
@@ -579,8 +630,7 @@ extern "C" int colstream_fuzzy_launch(
       (ctxT != nullptr && unicode == 0) || (int16_lanes != 0 && unicode != 0))
     return (int)cudaErrorInvalidValue;
   const bool u = unicode != 0, pairs = int16_lanes != 0;
-  const frizbee::TileGeometry geo = frizbee::tile_geometry(
-      W, u ? 5 : 1, n_groups, Q, pairs ? 2 : 1);
+  const frizbee::TileGeometry geo = frizbee::tile_geometry(W, u ? 5 : 1, n_groups, Q);
   const Args a{cpT, static_cast<const int8_t*>(ctxT),
                static_cast<const int*>(nuT), static_cast<const int*>(scalars),
                static_cast<const int*>(flags), static_cast<const int*>(idxT),

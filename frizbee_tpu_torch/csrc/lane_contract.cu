@@ -33,8 +33,9 @@
 //   on packed words a..f and a unit index k: __viaddmax_s16x2 and its relu
 //   form, __vimax3_s16x2 and its relu form, __vibmax_s16x2 with its two
 //   predicates, half_masks (32- and 64-bit masks) and half_masks16, pair16
-//   and pair16_high, sel2, hit2 (the per-half match score), cell2 (the
-//   DP cell) and best2 (the running best and which halves it raised), at
+//   and pair16_high, PairBits (a unit's half masks of two rows' merged
+//   16- and 64-unit masks), sel2, hit2 (the per-half match score), cell2
+//   (the DP cell) and best2 (the running best and which halves it raised), at
 //   the int16 values the DP reaches and at sums that cross +-32767.
 //
 // Bound on this card: nothing that matters; the launch is a few thousand
@@ -166,11 +167,11 @@ __global__ void lane_contract_kernel(const int* __restrict__ units, int n_units,
     o[10] = frizbee::sel2(c, a, b);
     o[11] = frizbee::hit2(a, b, c, d, e);
     o[12] = frizbee::cell2(a, b, c, d, e, f);
-    o[13] = frizbee::PairBits<unsigned long long, false>(
+    o[13] = frizbee::PairBits<64>(
                 (unsigned long long)a | ((unsigned long long)b << 32),
                 (unsigned long long)c | ((unsigned long long)d << 32))
                 .mask(k & 63);
-    o[14] = frizbee::PairBits<uint32_t, true>(a, b).mask(k & 15);
+    o[14] = frizbee::PairBits<16>(a, b).mask(k & 15);
     int raised;
     o[15] = frizbee::best2(a, b, &raised);
     o[16] = (unsigned)raised;

@@ -73,31 +73,78 @@ __device__ __forceinline__ uint32_t sel2(uint32_t m, uint32_t a, uint32_t b) {
   return (a & m) | (b & ~m);
 }
 
-// The per-unit bits of two rows (the needle units a value matches), read
-// a unit at a time as a pair of half masks: needles of up to 16 units keep
-// both rows in one word, longer ones a word (or 64-bit word) a row.
-template <typename Mask, bool NARROW>
-struct PairBits;
-
-template <typename Mask>
-struct PairBits<Mask, true> {
-  uint32_t w;
-  __device__ __forceinline__ PairBits() : w(0) {}
-  __device__ __forceinline__ PairBits(Mask lo, Mask hi)
-      : w(pair16((uint32_t)lo, (uint32_t)hi)) {}
-  __device__ __forceinline__ uint32_t mask(int k) const { return half_masks16(w, k); }
+// The per-unit bits of two rows (the needle units a value matches) for
+// needles of up to NMAX units, interleaved when the pair's two table
+// lookups are merged: word c holds units 16c..16c+15 of the low row in
+// bits 0-15 and of the high row in bits 16-31 (pair16, pair16_high), so a
+// unit's pair of half masks is one shift and one prmt (half_masks16) at
+// every NMAX; the unit loop is unrolled, so the word is picked at compile
+// time.
+template <int NMAX>
+struct PairBits {
+  static constexpr int kWords = NMAX / 16;
+  uint32_t w[kWords];
+  __device__ __forceinline__ PairBits() {
+#pragma unroll
+    for (int c = 0; c < kWords; ++c) w[c] = 0;
+  }
+  // lo, hi: the two rows' unit masks (32-bit words for NMAX <= 32, else
+  // 64-bit)
+  template <typename Mask>
+  __device__ __forceinline__ PairBits(Mask lo, Mask hi) {
+#pragma unroll
+    for (int c = 0; c < kWords; ++c) {
+      uint32_t l = (uint32_t)lo, h = (uint32_t)hi;
+      if constexpr (sizeof(Mask) == 8) {
+        if (c >= 2) {
+          l = (uint32_t)((unsigned long long)lo >> 32);
+          h = (uint32_t)((unsigned long long)hi >> 32);
+        }
+      }
+      w[c] = (c & 1) ? pair16_high(l, h) : pair16(l, h);
+    }
+  }
+  __device__ __forceinline__ uint32_t mask(int k) const {
+    return half_masks16(w[k >> 4], k & 15);
+  }
 };
 
-template <typename Mask>
-struct PairBits<Mask, false> {
-  Mask lo, hi;
-  __device__ __forceinline__ PairBits() : lo(0), hi(0) {}
-  __device__ __forceinline__ PairBits(Mask l, Mask h) : lo(l), hi(h) {}
-  __device__ __forceinline__ uint32_t mask(int k) const {
-    if (sizeof(Mask) == 4 || k < 32)
-      return half_masks((uint32_t)lo, (uint32_t)hi, k & 31);
-    return half_masks((uint32_t)((unsigned long long)lo >> 32),
-                      (uint32_t)((unsigned long long)hi >> 32), k - 32);
+// The pass-2 queue of the int16-lane kernels: the rows (or row and query
+// entries) that run pass 2, ordered by trimmed-window length, so the two
+// halves of a pair walk about as many columns. A counting sort into
+// kQueueBins bins of the length over [0, W], longest first: a thread
+// takes its bin's next place with a shared atomic (its order inside the
+// bin is free, and no output depends on it: the halves of a pair are
+// independent), and after a barrier each warp scans the bins' counts,
+// a bin a lane (QueueScan), so a place is its bin's first place, read by
+// a shuffle, plus the place the atomic gave.
+constexpr int kQueueBins = 32;
+static_assert(kQueueBins == 32, "a bin a lane of the scan");
+
+// the bin of a window of ``len`` columns of a W-column row, longest first
+__device__ __forceinline__ int queue_bin(int len, int W) {
+  return kQueueBins - 1 - min(len * kQueueBins / (W + 1), kQueueBins - 1);
+}
+
+// The bins' first queue places and the queue's length, from the counts
+// in ``bins``; every lane of the warp takes part.
+struct QueueScan {
+  int first;  // this lane's bin's first place
+  int total;  // the queue's length
+  __device__ __forceinline__ explicit QueueScan(const int* bins) {
+    const int lane = threadIdx.x & 31, c = bins[lane];
+    int x = c;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(0xFFFFFFFFu, x, d);
+      if (lane >= d) x += y;
+    }
+    first = x - c;
+    total = __shfl_sync(0xFFFFFFFFu, x, 31);
+  }
+  // the first place of bin b (every lane calls it)
+  __device__ __forceinline__ int base(int b) const {
+    return __shfl_sync(0xFFFFFFFFu, first, b);
   }
 };
 

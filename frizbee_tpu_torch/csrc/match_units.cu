@@ -67,25 +67,33 @@
 // codepoints) per live row.
 //
 // The int16-lane instantiation (PAIRS; the reference's int16_lanes=True,
-// byte rows where ops/kernels.score_fits_int16 holds) runs pass 1 per row
-// as above and pass 2 two rows a thread, in the s16x2 halves of 32-bit
-// registers (lanes16.cuh): every row that runs pass 2 goes to the queue
-// (the block's behind the typo-budget prefilter, each warp's own behind
-// the greedy embedding), and its thread t takes queue entries 2t (low
-// half) and 2t + 1 (high half), neighbours in the survivor order, so of
-// about one length. The pair walks the union of its two trimmed windows;
-// each half takes the needle masks of its byte only inside its own window
-// (outside it a half's cells stay 0 before the window and never reach its
-// best after it), its own first-column and context bonus, and its own
-// best and end column (best2:
-// a DPX max and the halves it changed; the predicates of __vibmax_s16x2
-// left every end column at 0 here, measured on an H100: PERF.md). Per
-// (column, needle unit) the pair costs three prmt half masks (unit match,
-// case match, the previous column's match), three selects and three DPX
-// add-max (__viaddmax_s16x2 and its relu form), where two int32 rows cost
-// two of each bit test and select and four DPX. Scores, exact and the key
-// are unpacked to 32 bits at the end. An odd row out runs with an idle
-// high half.
+// byte rows where ops/kernels.score_fits_int16 holds) runs pass 2 two rows
+// a thread, in the s16x2 halves of 32-bit registers (lanes16.cuh). Its
+// blocks stage twice the int32 kernel's rows (256 at W <= 256; 16 KB of
+// rows at W = 64, 64 KB at W = 1024, past the 48 KB opt-in) on twice its
+// threads, pass 1 one row a thread, so pass 2 runs as many pairs a block
+// as the int32 kernel runs rows. Every row that runs pass 2 takes its
+// place in one block queue, behind either prefilter: a counting sort by
+// trimmed-window length (a shared atomic a row, a warp scan of the bins,
+// two barriers), so thread t takes queue entries 2t (low half) and 2t + 1
+// (high half) of about one length and no rejected row. Each half walks its
+// own window from its own first column (a step of the pair is column ws0 +
+// i of the low row and ws1 + i of the high one), so the pair takes as many
+// steps as its longer window, not the union of the two; a half past its
+// window keeps stepping but never reaches its best. Each half takes its
+// own first-column and context bonus, and its own best and end column
+// (best2: a DPX max and the halves it changed; the predicates of
+// __vibmax_s16x2 left every end column at 0 here, measured on an H100:
+// PERF.md). The two table lookups of a column merge into 16-unit words
+// (PairBits), so a unit's half masks cost one shift and one prmt at every
+// needle ceiling. Registers go to occupancy (kMinBlocks): a unit's
+// left-gap cost is rebuilt from the previous column's match bits, not
+// kept. Per (column, needle unit) the pair costs three half masks (unit
+// match, case match, the previous column's match), three selects and
+// three DPX add-max (__viaddmax_s16x2 and its relu form), where two int32
+// rows cost two of each bit test and select and four DPX. Scores, exact
+// and the key are unpacked to 32 bits at the end. An odd row out runs
+// with an idle high half.
 
 #include <type_traits>
 
@@ -118,18 +126,32 @@ int block_rows(int W, bool unicode) {
 // staged words per row: W bytes pack 4 to a word; codepoints are a word
 int row_words(int W, bool unicode) { return unicode ? W : W / 4; }
 
+// threads (and staged rows) of a block: the int16-lane instantiation
+// stages twice the int32 kernel's rows, so its pass 2 runs as many pairs
+// a block as the int32 kernel runs rows
+template <bool PAIRS>
+constexpr int kThreads = PAIRS ? 2 * kMaxThreads : kMaxThreads;
+
 // resident blocks per SM asked of ptxas, by needle ceiling (h[NMAX] in
-// registers): 128-thread blocks at <= 128 registers (NMAX 16, 32) and
-// <= 168 (NMAX 64)
-template <int NMAX>
-constexpr int kMinBlocks = NMAX <= 32 ? 4 : 3;
+// registers): 128-thread int32 blocks at <= 128 registers (NMAX 16, 32)
+// and <= 168 (NMAX 64); 256-thread int16-lane blocks at <= 64 registers
+// (NMAX 16: 1024 threads an SM, where the int32 kernel keeps 512), <= 85
+// (NMAX 32: 768) and <= 255 (NMAX 64). The int16 pass 2 rebuilds each
+// needle unit's left-gap cost from the previous column's unit matches (a
+// shift, a prmt and a select a unit) rather than keep NMAX more registers:
+// the occupancy gains more (measured on an H100, PERF.md: with the costs
+// in registers at 3 blocks of NMAX 16 and 2 of NMAX 32, typo 2.93 ms and
+// long needle 0.76, int32 0.71; as here 2.83 and 0.64)
+template <int NMAX, bool PAIRS>
+constexpr int kMinBlocks = PAIRS ? (NMAX <= 16 ? 4 : NMAX <= 32 ? 3 : 1)
+                                 : (NMAX <= 32 ? 4 : 3);
 
 __device__ __forceinline__ int hash_slot(int c) {
   return (int)(((unsigned)c * 2654435761u) >> 24);
 }
 
 template <int NMAX, int TMAX, bool UNICODE, bool PAIRS>
-__global__ void __launch_bounds__(kMaxThreads, kMinBlocks<NMAX>)
+__global__ void __launch_bounds__(kThreads<PAIRS>, kMinBlocks<NMAX, PAIRS>)
     match_units_kernel(const void* __restrict__ cp, const int* __restrict__ n_units,
                        const int* __restrict__ scalars, const int* __restrict__ rows,
                        const int* __restrict__ idx, int B, int W, int n, int T,
@@ -143,9 +165,10 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks<NMAX>)
   __shared__ Mask s_eq[256];                         // units it equals (orig)
   __shared__ int s_key[UNICODE ? kHashSlots : 1];
   __shared__ uint8_t s_ctx[PAIRS ? 256 : 1];         // byte -> byte_ctx
-  __shared__ int s_row[kMaxThreads];
-  __shared__ int4 s_queue[kMaxThreads];              // slot, wstart, wend, nb
+  __shared__ int s_row[kThreads<PAIRS>];
+  __shared__ int4 s_queue[kThreads<PAIRS>];          // slot, wstart, wend, nb
   __shared__ int s_warp_n[kMaxThreads / 32];
+  __shared__ int s_bins[PAIRS ? frizbee::kQueueBins : 1];  // pass-2 queue
 
   const int rb = blockDim.x;
   const int tid = threadIdx.x;
@@ -206,6 +229,9 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks<NMAX>)
       s_eq[c] = eq;
       if constexpr (PAIRS) s_ctx[c] = (uint8_t)byte_ctx(c);
     }
+  }
+  if constexpr (PAIRS) {
+    if (tid < frizbee::kQueueBins) s_bins[tid] = 0;
   }
   s_row[tid] = i < count ? (rows != nullptr ? rows[out_i] : i) : -1;
   __syncthreads();
@@ -319,104 +345,79 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks<NMAX>)
   }
 
   if constexpr (PAIRS) {
-    // ---- pass 2, two rows a thread: every row that runs pass 2 (every
-    // live row in columns mode, the matched ones in key-emit mode) goes to
-    // the queue in row order, its matched flag in bit 16 of the slot
-    // Behind the typo-budget prefilter the queue is the block's, so its
-    // pairs fill whole warps; behind the greedy embedding each warp queues
-    // its own rows and pairs them, with no block barrier (which cost more
-    // than it saved there in the int32 kernel: PERF.md).
+    // ---- pass 2, two rows a thread. Every row that runs pass 2 (every
+    // live row in columns mode, the matched ones in key-emit mode) takes
+    // its place in the block's queue, ordered by trimmed-window length
+    // (lanes16.cuh queue_bin), its matched flag in bit 16 of the slot;
+    // thread t runs queue entries 2t (low half) and 2t + 1 (high half)
     if (keys_out != nullptr && live && !matched) keys_out[out_i] = kKeySentinel;
     const bool run_row = live && (matched || keys_out == nullptr);
-    const unsigned ballot = __ballot_sync(0xFFFFFFFFu, run_row);
-    const int warp = tid >> 5, lane = tid & 31;
-    int base = 0, m = 0, qt = tid;  // queue offset, length, this thread's pair
-    if constexpr (TMAX > 0) {
-      if (lane == 0) s_warp_n[warp] = __popc(ballot);
-      __syncthreads();
-      for (int w = 0; w < (rb >> 5); ++w) {
-        const int c = s_warp_n[w];
-        base += w < warp ? c : 0;
-        m += c;
-      }
-    } else {
-      base = tid & ~31;
-      m = __popc(ballot);
-      qt = lane;
+    const int ws_own = max(wstart_raw - 1, 0);
+    int bin = 0, at = 0;
+    if (run_row) {
+      bin = frizbee::queue_bin(max(wend - ws_own, 0), W);
+      at = atomicAdd(&s_bins[bin], 1);
     }
+    __syncthreads();
+    const frizbee::QueueScan scan(s_bins);
+    const int m = scan.total, first = scan.base(bin);
     if (run_row)
-      s_queue[base + __popc(ballot & ((1u << lane) - 1u))] =
-          make_int4(tid | (matched ? 0x10000 : 0), wstart_raw, wend, nb);
-    if constexpr (TMAX > 0) {
-      __syncthreads();
-      base = 0;
-    } else {
-      __syncwarp();
-    }
-    if (2 * qt >= m) return;
-    const bool two = 2 * qt + 1 < m;
-    const int4 e0 = s_queue[base + 2 * qt];
-    const int4 e1 = two ? s_queue[base + 2 * qt + 1] : e0;
+      s_queue[first + at] = make_int4(tid | (matched ? 0x10000 : 0), ws_own, wend, nb);
+    __syncthreads();
+    if (2 * tid >= m) return;
+    const bool two = 2 * tid + 1 < m;
+    const int4 e0 = s_queue[2 * tid];
+    const int4 e1 = two ? s_queue[2 * tid + 1] : e0;
     const uint32_t* hay0 = s_hay + (e0.x & 0xFFFF) * stride;
     const uint32_t* hay1 = s_hay + (e1.x & 0xFFFF) * stride;
-    // the trimmed windows [ws, we) in columns (a byte row's bytes); the
-    // idle half of an odd row out has none
-    const int ws0 = max(e0.y - 1, 0), we0 = e0.z;
-    const int ws1 = max(e1.y - 1, 0), we1 = two ? e1.z : 0;
-    int jlo = W, jhi = 0;
-    if (ws0 < we0) { jlo = ws0; jhi = we0; }
-    if (ws1 < we1) { jlo = min(jlo, ws1); jhi = max(jhi, we1); }
+    // each half walks its own trimmed window [ws, we) (columns: a byte
+    // row's bytes) from its own first column, so the pair takes as many
+    // steps as its longer window; the idle half of an odd row out has none
+    const int ws0 = e0.y, ws1 = e1.y;
+    const int len0 = max(e0.z - ws0, 0), len1 = two ? max(e1.z - ws1, 0) : 0;
+    const int steps = max(len0, len1);
     const int gop_extra = max(sc.gap_open - sc.gap_ext, 0);
     const int mis = min(sc.mismatch, frizbee::kInt16ScoreLimit);
     const uint32_t nge = frizbee::pack2(-sc.gap_ext, -sc.gap_ext);
     const uint32_t ngeo = frizbee::pack2(-(sc.gap_ext + gop_extra),
                                          -(sc.gap_ext + gop_extra));
     const uint32_t neg_mm = frizbee::pack2(-mis, -mis);
-    using Bits = frizbee::PairBits<Mask, (NMAX <= 16)>;
-    // needles of up to 16 units keep each unit's left-gap cost for the
-    // next column in registers; longer ones rebuild it from the previous
-    // column's bits (po), as registers would spill
-    constexpr bool kGapRegs = NMAX <= 16;
-    uint32_t h[NMAX], gl[kGapRegs ? NMAX : 1];
+    using Bits = frizbee::PairBits<NMAX>;
+    uint32_t h[NMAX];
 #pragma unroll
     for (int k = 0; k < NMAX; ++k) h[k] = 0;
-    if constexpr (kGapRegs) {
-#pragma unroll
-      for (int k = 0; k < NMAX; ++k) gl[k] = nge;
-    }
     Bits po;  // the previous column's unit matches
     uint32_t best = 0;
     int end0 = 0, end1 = 0;
     int p0 = 0, p1 = 0;  // the previous column's byte facts of each half
-    for (int j = jlo; j < jhi; ++j) {
-      const bool a0 = j >= ws0 && j < we0, a1 = j >= ws1 && j < we1;
-      const int c0 = unit_of(hay0, j), c1 = unit_of(hay1, j);
-      const Bits pm(a0 ? s_occ[c0] : Mask(0), a1 ? s_occ[c1] : Mask(0));
-      const Bits pe(a0 ? s_eq[c0] : Mask(0), a1 ? s_eq[c1] : Mask(0));
+    for (int i = 0; i < steps; ++i) {
+      const bool a0 = i < len0, a1 = i < len1;
+      const int j0 = ws0 + i, j1 = ws1 + i;
+      const int c0 = a0 ? unit_of(hay0, j0) : 0, c1 = a1 ? unit_of(hay1, j1) : 0;
+      const Bits pm(s_occ[c0], s_occ[c1]);
+      const Bits pe(s_eq[c0], s_eq[c1]);
       // each half's bonus: the prefix bonus (or none) on its window's
       // first column, else the context bonus after the byte before
       const int f0 = s_ctx[c0], f1 = s_ctx[c1];
-      int b0 = 0, b1 = 0;
-      if (a0) b0 = j == ws0 ? (ws0 == 0 ? sc.prefix : 0) : context_bonus(f0, p0, sc);
-      if (a1) b1 = j == ws1 ? (ws1 == 0 ? sc.prefix : 0) : context_bonus(f1, p1, sc);
+      int b0, b1;
+      if (i == 0) {
+        b0 = ws0 == 0 ? sc.prefix : 0;
+        b1 = ws1 == 0 ? sc.prefix : 0;
+      } else {
+        b0 = context_bonus(f0, p0, sc);
+        b1 = context_bonus(f1, p1, sc);
+      }
       p0 = f0;
       p1 = f1;
       const uint32_t base_hit = frizbee::pack2(sc.match + b0, sc.match + b1);
       const uint32_t case_hit =
           frizbee::pack2(sc.match + sc.case_b + b0, sc.match + sc.case_b + b1);
       // unit 0: no diagonal or up source. gu: the up move's gap after unit
-      // k-1 at this column, which is also unit k-1's left gap at the next
+      // k-1; a unit's left gap comes from its match bit at the column before
       uint32_t mo = pm.mask(0);
       uint32_t gu = frizbee::sel2(mo, ngeo, nge);
-      uint32_t gl0;
-      if constexpr (kGapRegs) {
-        gl0 = gl[0];
-        gl[0] = gu;
-      } else {
-        gl0 = frizbee::sel2(po.mask(0), ngeo, nge);
-      }
-      uint32_t cur = __viaddmax_s16x2(
-          h[0], gl0, frizbee::hit2(mo, pe.mask(0), case_hit, base_hit, 0u));
+      uint32_t cur = __viaddmax_s16x2(h[0], frizbee::sel2(po.mask(0), ngeo, nge),
+                                      frizbee::hit2(mo, pe.mask(0), case_hit, base_hit, 0u));
       uint32_t diag_in = h[0];
       h[0] = cur;
 #pragma unroll
@@ -424,31 +425,25 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks<NMAX>)
         if (k >= n) break;
         mo = pm.mask(k);
         const uint32_t d = frizbee::hit2(mo, pe.mask(k), case_hit, base_hit, neg_mm);
-        const uint32_t gk = frizbee::sel2(mo, ngeo, nge);
-        uint32_t glk;
-        if constexpr (kGapRegs) {
-          glk = gl[k];
-          gl[k] = gk;
-        } else {
-          glk = frizbee::sel2(po.mask(k), ngeo, nge);
-        }
-        cur = frizbee::cell2(diag_in, d, cur, gu, h[k], glk);
+        cur = frizbee::cell2(diag_in, d, cur, gu, h[k],
+                             frizbee::sel2(po.mask(k), ngeo, nge));
         diag_in = h[k];
         h[k] = cur;
-        gu = gk;
+        gu = frizbee::sel2(mo, ngeo, nge);
       }
       // unit n-1's cell, inside each half's window, against its best
       int raised;
       best = frizbee::best2(best, cur & ((a0 ? 0xFFFFu : 0u) | (a1 ? 0xFFFF0000u : 0u)),
                             &raised);
-      if (raised & 1) end0 = j;
-      if (raised & 2) end1 = j;
-      if constexpr (!kGapRegs) po = pm;
+      if (raised & 1) end0 = j0;
+      if (raised & 2) end1 = j1;
+      po = pm;
     }
     // each half's outputs, unpacked to 32 bits
-    auto finish = [&](const int4& e, const uint32_t* hay, int ws, int score, int end) {
+    auto finish = [&](const int4& e, const uint32_t* hay, int score, int end) {
       const int sl = e.x & 0xFFFF;
       const bool mt = (e.x >> 16) != 0;
+      const int ws = e.y;
       const int row = s_row[sl];
       const int nu = n_units[row];
       bool eq = nu == n;
@@ -471,8 +466,8 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks<NMAX>)
         o[5] = o[6] = o[7] = 0;
       }
     };
-    finish(e0, hay0, ws0, frizbee::lo16(best), end0);
-    if (two) finish(e1, hay1, ws1, frizbee::hi16(best), end1);
+    finish(e0, hay0, frizbee::lo16(best), end0);
+    if (two) finish(e1, hay1, frizbee::hi16(best), end1);
     return;
   }
 
@@ -677,7 +672,7 @@ extern "C" int match_units_launch(
       (int16_lanes != 0 && unicode != 0))
     return (int)cudaErrorInvalidValue;
   const bool u = unicode != 0;
-  const int rb = block_rows(W, u);
+  const int rb = block_rows(W, u) * (int16_lanes != 0 ? 2 : 1);
   const Launch a{dim3((B + rb - 1) / rb, Q), rb,
                  (size_t)rb * (row_words(W, u) + 1) * sizeof(uint32_t),
                  static_cast<cudaStream_t>(stream), cp,

@@ -68,10 +68,10 @@ ROW_MAJOR_ROUTES = {"in_place": 0, "compacted": 0}
 
 # Row-major kernel instantiations taken, per bucket launch: int16 lanes
 # where kernels.int16_lanes_dispatch holds (byte rows, score_fits_int16,
-# and the CPU, or the card once INT16_CUDA_OK), else int32. The record of
+# and the CPU, or the card while INT16_CUDA_OK), else int32. The record of
 # the choice on CPU tensors, whose plain versions count no launch; on the
 # card the launch counters (_build.LAUNCHES "match_units_i16" and
-# "match_units") say the same: int32 while INT16_CUDA_OK is False.
+# "match_units") say the same.
 ROW_MAJOR_LANES = {"int16": 0, "int32": 0}
 
 
@@ -260,8 +260,8 @@ def _row_major_flow(bits8, buckets_rm, needles_q, *, T, no_prefilter,
     where ``kernels.int16_lanes_dispatch`` holds, as the reference's
     serving path does (``(not unicode) and score_fits_int16(...) and
     (interpret or INT16_MOSAIC_OK)``): on CPU tensors where the rows fit,
-    and on the card only once ``kernels.INT16_CUDA_OK`` is set, which it
-    is not, so the card serves these batches in int32 lanes."""
+    and on the card where they fit while ``kernels.INT16_CUDA_OK`` is set
+    (it is: the int16 kernel won the card's A/B)."""
     Q, n2 = needles_q.shape
     nlen = n2 // 2
     scal = pack_needle_scalars(needles_q, 0)

@@ -96,27 +96,23 @@ BLOCK_COLUMNS = 512
 MAX_BLOCK_QUERIES = 32
 
 
-def tile_geometry(W: int, unit_bytes: int, n_groups: int, Q: int,
-                  rows_per_thread: int = 1) -> dict:
-    """The launch geometry of the colstream kernels, as
-    ``csrc/colstream_tile.cuh`` computes it: ``threads`` a block (128, 64
-    or 32, the most whose ``rows_per_thread`` rows of W columns of
+def tile_geometry(W: int, unit_bytes: int, n_groups: int, Q: int) -> dict:
+    """The launch geometry of the colstream kernels (the int16-lane fuzzy
+    kernel's too), as ``csrc/colstream_tile.cuh`` computes it: ``rows`` a
+    tile (the block's threads: 128, 64 or 32, the most whose W columns of
     ``unit_bytes`` shared-memory bytes a unit — 1 a byte, 5 a codepoint:
-    the unit and its class byte — fit TILE_BYTES), ``rows`` a tile
-    (threads x rows_per_thread: 2 in the int16-lane fuzzy kernel, whose
-    threads walk two rows), ``qper`` queries a block, ``chunks`` blocks a
-    tile, ``tiles`` and ``smem`` (dynamic shared memory bytes a block)."""
-    threads = TILE_MAX_ROWS
-    while (threads > 32
-           and threads * rows_per_thread * W * unit_bytes > TILE_BYTES):
-        threads //= 2
-    rows = threads * rows_per_thread
+    the unit and its class byte — fit TILE_BYTES), ``qper`` queries a
+    block, ``chunks`` blocks a tile, ``tiles`` and ``smem`` (dynamic
+    shared memory bytes a block)."""
+    rows = TILE_MAX_ROWS
+    while rows > 32 and rows * W * unit_bytes > TILE_BYTES:
+        rows //= 2
     tiles = n_groups * (GROUP_ROWS // rows)
     cap = min(max(BLOCK_COLUMNS // W, 1), MAX_BLOCK_QUERIES)
     split = min(max(-(-TARGET_BLOCKS // tiles), -(-Q // cap)), Q)
     qper = -(-Q // split)
-    return dict(threads=threads, rows=rows, qper=qper, chunks=-(-Q // qper),
-                tiles=tiles, smem=rows * W * unit_bytes)
+    return dict(rows=rows, qper=qper, chunks=-(-Q // qper), tiles=tiles,
+                smem=rows * W * unit_bytes)
 
 
 def _bonus_bits(first, last):
@@ -555,8 +551,9 @@ def match_units_colstream(
 
     ``int16_lanes`` (fuzzy mode on byte rows where
     ``kernels.score_fits_int16`` holds, else ValueError) selects the
-    int16-lane instantiation, two rows a thread: the same results, counted
-    in ``_build.LAUNCHES["colstream_fuzzy_i16"]``."""
+    int16-lane instantiation (pass 1 a row a thread, pass 2 two queued
+    rows a thread): the same results, counted in
+    ``_build.LAUNCHES["colstream_fuzzy_i16"]``. No serving path takes it."""
     literal = mode != FUZZY_MODE
     if literal and mode not in LITERAL_MODES:
         raise ValueError(f"unknown match mode {mode!r}")

@@ -40,14 +40,17 @@ INT64_MAX = (1 << 63) - 1
 # same, so the int16 DP clamps those costs to it
 INT16_SCORE_LIMIT = 30000
 
-# The card serves int16 lanes only once they are proven faster there: the
-# counterpart of the reference's INT16_MOSAIC_OK. In 10 alternating rounds
-# on the same launches on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6,
-# the int16 rows' A/B) match_units' int16 instantiation was
-# faster in 0 of 10 on the typo batch (3.4691 against 3.4561 ms) and on the
-# long-needle batch (0.8460 against 0.7119 ms), so serving stays int32 on
-# the card; the int16 kernels stay built and held to their plain versions.
-INT16_CUDA_OK = False
+# The card serves int16 lanes only where they are proven faster there: the
+# counterpart of the reference's INT16_MOSAIC_OK (which stays False on the
+# TPU). The first int16 kernel (two survivor-order neighbours a thread,
+# walking the union of their windows) was faster in 0 of 10 alternating
+# rounds on the same launches; its redesign (256-row blocks, a queue
+# ordered by window length, each half on its own window) won 10 of 10 on
+# the typo batch (2.8265 against 3.4567 ms) and on the long-needle batch
+# (0.6440 against 0.7133 ms), medians on an NVIDIA H100 80GB HBM3 at
+# 700 W (PERF.md §6, the int16 rows' A/B), so the card serves int16 lanes
+# where the rows fit, as the CPU does.
+INT16_CUDA_OK = True
 
 # Prefilter modes of the CUDA kernels
 PF_NONE, PF_GREEDY, PF_DP = 0, 1, 2

@@ -20,12 +20,14 @@ in turn (first to last, then back):
 
 - ``row_gather`` on each path's captured gathers: device ms beside
   ``torch.index_select`` on the same arguments and the byte bound;
-- each match kernel on the launches of the batches it serves
-  (``MATCH_PATHS``: the column-stream fuzzy kernel on the fuzzy and
-  unicode fuzzy batches, the literal kernel on the literal and unicode
-  literal batches, ``match_units`` on the typo, long-needle,
-  wide-scoring typo and unicode-typo batches, which the card serves in
-  int32 lanes): device ms;
+- each match kernel instantiation on the launches of the batches it
+  serves (``MATCH_PATHS``: the column-stream fuzzy kernel on the fuzzy
+  and unicode fuzzy batches, the literal kernel on the literal and
+  unicode literal batches, ``match_units`` on the typo, long-needle,
+  wide-scoring typo and unicode-typo batches, in int32 lanes; the int16
+  instantiations of both DP kernels on the same launches of the fuzzy,
+  typo and long-needle batches): device ms;
+- the lane contract kernel on ``contract.contract_inputs``: device ms;
 - each serving path as ``chip_smoke.py``'s serving phase drives it
   (warm-up, the median of 3 blocking batches, a depth-3 pipeline).
 
@@ -52,21 +54,30 @@ import chip_smoke as cs_
 from frizbee_tpu_torch import datagen, pack_corpus
 from frizbee_tpu_torch.ops import _build
 from frizbee_tpu_torch.ops import colstream as cs
+from frizbee_tpu_torch.ops import contract as ct
 from frizbee_tpu_torch.ops import kernels as km
 from frizbee_tpu_torch.probes import device_ms
 
 ROUNDS = 10
 KERNELS = ("row_gather", "match_units", "colstream_fuzzy",
-           "colstream_literal")
-# match kernel -> (wrapper, plain version, the serving paths it is timed on)
+           "colstream_literal", "lane_contract")
+# match kernel instantiation -> (wrapper, plain version, its int16_lanes
+# argument, the serving paths whose launches of that kernel it is timed
+# on); int32 and int16 alike take each path's launches of the kernel,
+# whichever lanes served them
 MATCH_PATHS = {
-    "match_units": (km.match_units, km.match_units_plain,
+    "match_units": (km.match_units, km.match_units_plain, False,
                     ("typo", "typo_wide", "long_needle", "unicode_typo")),
+    "match_units_i16": (km.match_units, km.match_units_plain, True,
+                        ("typo", "long_needle")),
     "colstream_fuzzy": (cs.match_units_colstream,
-                        cs.match_units_colstream_plain,
+                        cs.match_units_colstream_plain, False,
                         ("fuzzy", "unicode_fuzzy")),
+    "colstream_fuzzy_i16": (cs.match_units_colstream,
+                            cs.match_units_colstream_plain, True,
+                            ("fuzzy",)),
     "colstream_literal": (cs.match_units_colstream,
-                          cs.match_units_colstream_literal_plain,
+                          cs.match_units_colstream_literal_plain, None,
                           ("literal", "unicode_literal")),
 }
 # entry-point parameters added since earlier kernel trees: (source, the
@@ -166,13 +177,19 @@ def main(argv=None) -> int:
     gathers = {p: [c for k, c in v if k == "row_gather"]
                for p, v in calls.items()}
     gathers = {p: g for p, g in gathers.items() if g}
-    match = {(k, p): [c for name, c in calls[p] if name == k]
-             for k, (_f, _pl, kpaths) in MATCH_PATHS.items()
+    match = {(k, p): [(a, kw if lanes is None
+                           else dict(kw, int16_lanes=lanes))
+                          for name, (a, kw) in calls[p]
+                          if name.removesuffix("_i16")
+                          == k.removesuffix("_i16")]
+             for k, (_f, _pl, lanes, kpaths) in MATCH_PATHS.items()
              for p in kpaths}
     print("captured " + json.dumps(
         {p: {k: sum(1 for name, _c in calls[p] if name == k)
              for k in KERNELS} for p in paths}), flush=True)
     errs = {k: 0.0 for k in (*KERNELS, *MATCH_PATHS)}
+    contract_in = ct.contract_inputs(seed=1, device=corpus.device)
+    want_c = ct.contract_plain(*contract_in, km.DEFAULT_SCORING)
     want_g = {p: [cs.row_gather_plain(*a) for a, _kw in g]
               for p, g in gathers.items()}
     want_m = {(k, p): [MATCH_PATHS[k][1](*a, **kw) for a, kw in c]
@@ -202,6 +219,7 @@ def main(argv=None) -> int:
                                           "ms": {v: [] for v in labels}}
     serving = {p: {m: {v: [] for v in labels} for m in SERVING_METRICS}
                for p in paths}
+    contract_out = {"ms": {v: [] for v in labels}}
 
     for r in range(ROUNDS):
         for v in (labels if r % 2 == 0 else labels[::-1]):
@@ -218,6 +236,13 @@ def main(argv=None) -> int:
                 held(k, fn, c, want_m[k, p], f"{v} {p}")
                 match_out[k][p]["ms"][v].append(
                     device_ms(lambda: run(fn, c)))
+            got = ct.lane_contract(*contract_in, km.DEFAULT_SCORING)
+            torch.cuda.synchronize()
+            for x, w in zip(got, want_c):
+                cs_._check_equal(errs, "lane_contract", x, w, v)
+            contract_out["ms"][v].append(device_ms(
+                lambda: ct.lane_contract(*contract_in, km.DEFAULT_SCORING),
+                reps=10))
             for p, (c, queries, cfg, kernels) in paths.items():
                 res = cs_._serve(p, c, queries, cfg, kernels, {})
                 for m, key in SERVING_METRICS.items():
@@ -233,6 +258,8 @@ def main(argv=None) -> int:
     for k, per_path in match_out.items():
         out[k] = {p: {**e, "summary": _summary(e["ms"], labels)}
                   for p, e in per_path.items()}
+    out["lane_contract"] = {**contract_out,
+                            "summary": _summary(contract_out["ms"], labels)}
     out["serving_ms"] = {p: {m: {"samples": s, **_summary(s, labels)}
                              for m, s in ms.items()}
                          for p, ms in serving.items()}
@@ -244,6 +271,7 @@ def main(argv=None) -> int:
         "row_gather": {p: e["summary"] for p, e in out["row_gather"].items()},
         **{k: {p: e["summary"] for p, e in out[k].items()}
            for k in MATCH_PATHS},
+        "lane_contract": out["lane_contract"]["summary"],
         "serving_ms": {p: {m: {k: x for k, x in e.items() if k != "samples"}
                            for m, e in ms.items()}
                        for p, ms in out["serving_ms"].items()},

@@ -3,9 +3,10 @@ frizbee_tpu's: the plain versions of ``match_units(int16_lanes=True)`` and
 ``match_units_colstream(int16_lanes=True)`` (which the CUDA kernels'
 packed s16x2 instantiations are held against on the card) against the
 reference's Pallas kernels with ``int16_lanes=True`` in interpret mode and
-against the int32 results; the port's copy of ``score_fits_int16``; the
-row-major serving dispatch that puts ASCII typo batches on the int16
-kernel; and the refusals.
+against the int32 results, also on the pairing-boundary inputs
+(``ops/pairing``) that ``chip_smoke.py`` holds the CUDA kernels to; the
+port's copy of ``score_fits_int16``; the row-major serving dispatch that
+puts ASCII typo batches on the int16 kernel; and the refusals.
 
 Inputs are made with numpy from a seed and handed to both packages.
 Every comparison has zero tolerance. The reference jit-compiles per typo
@@ -28,6 +29,7 @@ from frizbee_tpu_torch import pack_corpus
 from frizbee_tpu_torch.ops import batch as tbatch
 from frizbee_tpu_torch.ops import colstream as tcs
 from frizbee_tpu_torch.ops import kernels as tk
+from frizbee_tpu_torch.ops import pairing
 
 SCORINGS = [tk.DEFAULT_SCORING, (10, 3, 1, 2, 7, 5, 2, 6, 9)]
 GR = 1024
@@ -354,37 +356,136 @@ def test_int16_lanes_refused_on_codepoints_and_unfit_scorings():
 def test_int16_dispatch_gate(monkeypatch):
     """The serving dispatch's int16 predicate, after the reference's
     ``... and (interpret or INT16_MOSAIC_OK)``: int16 lanes for CPU tensors
-    where the rows fit, int32 on the card while ``INT16_CUDA_OK`` is False
-    (as the reference's ``INT16_MOSAIC_OK`` is), int16 there once set."""
+    where the rows fit, and on the card too while ``INT16_CUDA_OK`` is set
+    (it is: the redesigned int16 kernel won the card's A/B, where the
+    reference's ``INT16_MOSAIC_OK`` stays False on the TPU); never for
+    codepoint rows or a scoring past int16; int32 on the card once the
+    gate is shut."""
     assert jk.INT16_MOSAIC_OK is False
-    assert tk.INT16_CUDA_OK is False
+    assert tk.INT16_CUDA_OK is True
     args = (False, tk.DEFAULT_SCORING, 8, 64)
+    wide = (12, 6, 5000, 1000, 12, 4, 4, 8, 4)
+    for dev in (torch.device("cpu"), "cpu", torch.device("cuda"),
+                torch.device("cuda", 0), "cuda"):
+        assert tk.int16_lanes_dispatch(dev, *args)
+        assert not tk.int16_lanes_dispatch(dev, True, tk.DEFAULT_SCORING, 8,
+                                           64)
+        assert not tk.int16_lanes_dispatch(dev, False, wide, 8, 64)
+    monkeypatch.setattr(tk, "INT16_CUDA_OK", False)
     assert tk.int16_lanes_dispatch(torch.device("cpu"), *args)
-    assert tk.int16_lanes_dispatch("cpu", *args)
     assert not tk.int16_lanes_dispatch(torch.device("cuda"), *args)
     assert not tk.int16_lanes_dispatch(torch.device("cuda", 0), *args)
-    assert not tk.int16_lanes_dispatch("cpu", True, tk.DEFAULT_SCORING, 8,
-                                       64)
-    assert not tk.int16_lanes_dispatch(
-        "cpu", False, (12, 6, 5000, 1000, 12, 4, 4, 8, 4), 8, 64)
-    monkeypatch.setattr(tk, "INT16_CUDA_OK", True)
-    assert tk.int16_lanes_dispatch(torch.device("cuda"), *args)
-    assert not tk.int16_lanes_dispatch("cuda", True, tk.DEFAULT_SCORING, 8,
-                                       64)
 
 
 @pytest.mark.parametrize("W", [16, 32, 64, 128, 256, 512, 1024])
 def test_int16_colstream_tile_geometry(W):
-    """The int16 colstream kernel's tile: two rows a thread, so a block of
-    128, 64 or 32 threads stages twice its rows; every group's rows are
-    covered once a query chunk, and shared memory stays within a block's
-    227 KB (above 48 KB only where one warp's 64 rows need it)."""
-    geo = tcs.tile_geometry(W, 1, 512, 32, rows_per_thread=2)
-    assert geo["rows"] == 2 * geo["threads"]
-    assert geo["threads"] in (128, 64, 32)
+    """The int16 colstream kernel's tile is the int32 byte kernel's, a row
+    a thread in pass 1: a block of 128, 64 or 32 threads stages as many
+    rows, every group's rows are covered once a query chunk, and a byte
+    tile never needs shared memory past 48 KB (its pass-2 queue, two
+    queries' entries of those rows, is static)."""
+    geo = tcs.tile_geometry(W, 1, 512, 32)
+    assert geo["rows"] in (128, 64, 32)
+    # the most rows (128, 64 or 32) whose W byte columns fit TILE_BYTES
+    assert geo["rows"] == max([32] + [r for r in (128, 64)
+                                      if r * W <= tcs.TILE_BYTES])
     assert geo["tiles"] * geo["rows"] == 512 * GR
     assert geo["smem"] == geo["rows"] * W
-    assert geo["smem"] <= tcs.TILE_BYTES or geo["threads"] == 32
+    assert geo["smem"] <= tcs.TILE_BYTES
     assert geo["smem"] <= 227 * 1024
-    one = tcs.tile_geometry(W, 1, 512, 32)
-    assert geo["threads"] in (one["threads"], one["threads"] // 2)
+
+
+# ---- pairing boundaries (ops/pairing; chip_smoke.py's inputs) -------------
+
+def _port_needles(queries):
+    """(Q, 2n) orig then flip units of each query, as the serving path
+    and chip_smoke.py pack them."""
+    from frizbee_tpu_torch.matcher import Matcher
+
+    return np.stack([
+        np.concatenate(Matcher.from_query(q)._compiled[0].engine
+                       ._host_needle()[:2]) for q in queries])
+
+
+@pytest.mark.parametrize("n,T", pairing.ROWMAJOR_NT)
+def test_rowmajor_pairing_cases_equal_reference_and_int32(n, T):
+    """The row-major pairing-boundary bucket: the int16 plain version
+    equals the reference's int16 instantiation (interpret mode) on every
+    live row at each of ``pairing.ROWMAJOR_COUNTS``, and the int32 plain
+    version in five-column mode and in key-emit mode through a row order;
+    its first 128 rows are all matched and the next 128 all rejected."""
+    c = pairing.rowmajor_case(pairing.SEED, n, T)
+    B = pairing.ROWMAJOR_B
+    want = _reference_rowmajor(c["cp"], c["nu"], c["needle"], B, T,
+                               tk.DEFAULT_SCORING, True)
+    cp, nu, idx, rows = (torch.from_numpy(c[k])
+                         for k in ("cp", "nu", "idx", "rows"))
+    nq = torch.from_numpy(np.stack([c["needle"], c["needle"]]))
+    kw = dict(n=n, max_typos=T, scoring=tk.DEFAULT_SCORING)
+    for counts in pairing.ROWMAJOR_COUNTS:
+        scal = tk.pack_needle_scalars(nq, 0)
+        scal[:, 0] = torch.tensor(counts)
+        got16 = tk.match_units(cp, nu, scal, int16_lanes=True, **kw)
+        assert torch.equal(got16, tk.match_units(cp, nu, scal, **kw))
+        for q, cnt in enumerate(counts):
+            np.testing.assert_array_equal(got16[q, :cnt].numpy(), want[:cnt],
+                                          err_msg=f"counts={counts} q{q}")
+            assert not got16[q, cnt:].any()
+        k16 = tk.match_units(cp, nu, scal, rows, idx, int16_lanes=True,
+                             idx_bits=10, **kw)
+        assert torch.equal(k16, tk.match_units(cp, nu, scal, rows, idx,
+                                               idx_bits=10, **kw))
+    assert want[:128, 0].all() and not want[128:256, 0].any()
+    assert tuple(c["nu"][512:515]) == (1, pairing.ROWMAJOR_W,
+                                       pairing.ROWMAJOR_W)
+
+
+@pytest.mark.parametrize("n,T", pairing.COLSTREAM_NT)
+def test_colstream_pairing_cases_equal_reference_and_int32(n, T):
+    """The column-stream pairing-boundary bucket: the int16 plain version
+    equals the reference's int16 instantiation (interpret mode) for each
+    of the three queries with every group alive, in five-column and
+    key-emit mode, and the int32 plain version at each of
+    ``pairing.COLSTREAM_COUNTS`` in both modes; group 3's tiles hold the
+    matched rows they are built with."""
+    c = pairing.colstream_case(pairing.SEED)
+    W, G = pairing.COLSTREAM_W, pairing.COLSTREAM_GROUPS
+    cpT, nuT, idxT = (torch.from_numpy(c[k]) for k in ("cpT", "nuT", "idxT"))
+    needles = _port_needles(pairing.COLSTREAM_QUERIES[n])
+    kw = dict(W=W, n=n, max_typos=T, scoring=tk.DEFAULT_SCORING,
+              idx_bits=13)
+    for counts in pairing.COLSTREAM_COUNTS:
+        scal = tk.pack_needle_scalars(torch.from_numpy(needles), 0)
+        scal[:, 0] = torch.tensor(counts)
+        for ix in (idxT, None):
+            got16 = tcs.match_units_colstream(cpT, nuT, scal, None, ix,
+                                              int16_lanes=True, **kw)
+            got32 = tcs.match_units_colstream(cpT, nuT, scal, None, ix, **kw)
+            pairs = ([(got16, got32)] if ix is not None
+                     else list(zip(got16, got32)))
+            for x, y in pairs:
+                assert torch.equal(x, y), (counts, ix is not None)
+    scal = tk.pack_needle_scalars(torch.from_numpy(needles), G * GR)
+    cols = tcs.match_units_colstream(cpT, nuT, scal, int16_lanes=True, **kw)
+    keys = tcs.match_units_colstream(cpT, nuT, scal, None, idxT,
+                                     int16_lanes=True, **kw)
+    sent = np.int64(0x7FFFFFFFFFFFFFFF)
+    for q in range(needles.shape[0]):
+        ref = [jcs.match_units_colstream(
+            jnp.asarray(c["cpT"]), jnp.asarray(c["nuT"]),
+            jk.pack_needle_scalars(jnp.asarray(needles[q]), G * GR), None,
+            ix, W=W, n=n, max_typos=T, scoring=tk.DEFAULT_SCORING,
+            interpret=True, int16_lanes=True, idx_bits=13)
+            for ix in (None, jnp.asarray(c["idxT"].reshape(-1, 128)))]
+        for i in range(5):
+            np.testing.assert_array_equal(cols[i][q].numpy(),
+                                          np.asarray(ref[0][i]),
+                                          err_msg=f"q{q} col{i}")
+        hi, lo, m = (np.asarray(x) for x in ref[1])
+        k = (hi.astype(np.int64) << 32) | (lo.astype(np.int64) & 0xFFFFFFFF)
+        np.testing.assert_array_equal(keys[q].numpy(), k, err_msg=f"q{q}")
+        np.testing.assert_array_equal((keys[q].numpy() != sent)
+                                      .astype(np.int32), m)
+    if (n, T) == (8, 0):
+        tiles = cols[0][0, 3 * GR:4 * GR].reshape(8, 128).sum(dim=1)
+        assert tuple(tiles.tolist()) == pairing.COLSTREAM_TILE_MATCHES

@@ -151,7 +151,8 @@ def test_port_imports_no_jax_and_no_reference():
     assert len(files) > 10
     scanned = {os.path.relpath(p, ROOT) for p in files}
     for rel in ("ops/literal.py", "ops/kernels.py", "ops/batch.py",
-                "engine.py", "corpus.py", "probes/__init__.py",
+                "ops/pairing.py", "engine.py", "corpus.py",
+                "probes/__init__.py",
                 "probes/broad_topk.py", "probes/transposed.py",
                 "probes/colstream_bisect.py"):
         assert os.path.join("frizbee_tpu_torch", rel) in scanned
