@@ -53,6 +53,14 @@ Builds the package's CUDA kernels from ``frizbee_tpu_torch/csrc`` (one
    corpus, recording their finalize routes: the 16 two-letter variants
    of "إن" (colstream fuzzy), the same under ', ^, $ and ^...$ (colstream
    literal), and 16 eight-codepoint needles at max_typos=4 (row-major);
+   then the multi-pattern paths, whose colstream launches run in
+   columns mode and combine on the device: ``multi`` (Q=32 over the 1M
+   partial-match rows, four shape groups of 8 — two fuzzy halves of a
+   permutation, a permutation with a negated 3-byte substring, a 2-byte
+   prefix with the 6-byte fuzzy rest, a 3-byte substring with a negated
+   prefix) and ``unicode_multi`` (Q=16 over the Arabic corpus, "إن X"
+   and "إن !Y", a negated substring), each asserting that colstream
+   fuzzy and literal launched and every group took the multi flow;
 3. timing phase: the launches of one more batch of each path, captured
    (``_build.CAPTURE``) and replayed per kernel — held bit-equal to its
    plain version on the same arguments, then timed (CUDA events, warmed
@@ -78,13 +86,18 @@ Builds the package's CUDA kernels from ``frizbee_tpu_torch/csrc`` (one
    inputs and timed beside its bound and plain version (the row gather
    beside ``torch.index_select``);
 5. profile phase: torch.profiler over blocking fuzzy batches, ASCII and
-   unicode (wall time, device busy time, top kernels and host
-   operations) and cProfile over one ASCII batch;
+   unicode, and multi-pattern ones (wall time, device busy time, top
+   kernels and host operations) and cProfile over one ASCII batch;
 6. card-versus-CPU phase: at 20k rows, Q=8, the (Q, 1+k, 2) serving
    arrays and the decoded top-k on the card equal the CPU's for fuzzy
-   T=0 and T=1, literal, T=4 and long-needle batches, for Arabic and
-   Korean codepoint corpora (fuzzy T=0, T=1, literal, T=4), and for ASCII
-   needles under UnicodeMatching.ALWAYS over a mixed-script corpus.
+   T=0 and T=1, literal, T=4 and long-needle batches, the multi-pattern
+   groups at T=0 and T=1 with an all-negated query, for Arabic and
+   Korean codepoint corpora (fuzzy T=0, T=1, literal, T=4) and the Arabic
+   multi-pattern groups, for ASCII needles under UnicodeMatching.ALWAYS
+   over a mixed-script corpus, for the rows plus 64 XL rows (fuzzy T=0
+   and T=1, literal, multi; the host fixups must add XL rows), and for
+   the Arabic rows plus 32 rows of 600-1000 codepoints (fuzzy and multi;
+   greedy-flagged rows must come back and are rescored on the host).
 
 Prints the card's name and power limit first, one JSON ``kernels`` line
 before the last, and ``{"ok": true, "device": {...}}`` last. Exits
@@ -260,6 +273,34 @@ def _queries(q, base="deadbeef"):
         if s not in out:
             out.append(s)
     return out[:q]
+
+
+def _multi_queries(q):
+    """Multi-pattern and negated queries, four shape groups of q // 4
+    built from the bench permutations: two fuzzy atoms, the 4-byte halves
+    of a permutation ("dead beef"); a fuzzy permutation and a negated
+    3-byte substring of a "cafebabe" permutation ("deadbeef !'caf"); a
+    2-byte prefix and the 6-byte fuzzy rest ("^de adbeef"); a 3-byte
+    substring and a negated 3-byte prefix (the "'foo !^bar" shape)."""
+    g = q // 4
+    perms = _queries(g)
+    other = _queries(g, "cafebabe")
+    return ([p[:4] + " " + p[4:] for p in perms]
+            + [p + " !'" + o[:3] for p, o in zip(perms, other)]
+            + ["^" + p[:2] + " " + p[2:] for p in perms]
+            + ["'" + p[:3] + " !^" + p[3:6] for p in perms])
+
+
+def _unicode_multi_queries(q, script="arabic"):
+    """Two shape groups of q // 2 (the reference's unicode multi-pattern
+    set): the script's needle and another variant, both fuzzy ("إن X"),
+    and the needle with another variant negated ("إن !Y", a bare negated
+    atom matches substrings)."""
+    base = UNICODE_VARIANTS[script]
+    head, rest = base[0], base[1:]
+    g = q // 2
+    return ([f"{head} {rest[i % len(rest)]}" for i in range(g)]
+            + [f"{head} !{rest[(i + 7) % len(rest)]}" for i in range(g)])
 
 
 def _literal_queries(q):
@@ -975,7 +1016,7 @@ def _serve(label, corpus, queries, cfg, kernels, detail):
     from frizbee_tpu_torch.ops import batch as fb
 
     for counter in (_build.LAUNCHES, fb.FINALIZE_ROUTES,
-                    fb.ROW_MAJOR_ROUTES):
+                    fb.ROW_MAJOR_ROUTES, fb.COLSTREAM_FLOWS):
         for k in counter:
             counter[k] = 0
     torch.cuda.reset_peak_memory_stats()
@@ -1004,6 +1045,7 @@ def _serve(label, corpus, queries, cfg, kernels, detail):
     launches = dict(_build.LAUNCHES)
     finalize_routes = dict(fb.FINALIZE_ROUTES)
     row_major_routes = dict(fb.ROW_MAJOR_ROUTES)
+    colstream_flows = dict(fb.COLSTREAM_FLOWS)
     peak = torch.cuda.max_memory_allocated()
 
     for r, p in zip(res, last):
@@ -1026,6 +1068,7 @@ def _serve(label, corpus, queries, cfg, kernels, detail):
         "batches": batches, "launches": launches,
         "finalize_routes": finalize_routes,
         "row_major_routes": row_major_routes,
+        "colstream_flows": colstream_flows,
         "peak_device_memory_bytes": peak,
         "match_counts": [int(r[0]) for r in res],
     }
@@ -1036,8 +1079,9 @@ def _serve(label, corpus, queries, cfg, kernels, detail):
 
 
 def _paths(corpus, long_corpus, ucorpus):
-    """The eight serving paths: label -> (corpus, queries, config, the
-    kernels the path must launch). The typo and long-needle batches take
+    """The ten serving paths: label -> (corpus, queries, config, the
+    kernels the path must launch). The multi-pattern batches launch the
+    colstream kernels in columns mode. The typo and long-needle batches take
     the int16-lane instantiation of the row-major kernel (their rows fit
     int16 lanes and ``kernels.INT16_CUDA_OK`` is set), the wide-scoring
     typo batch and the unicode one the int32 instantiation. The unicode
@@ -1066,11 +1110,15 @@ def _paths(corpus, long_corpus, ucorpus):
                             Config(), ("colstream_literal",)),
         "unicode_typo": (ucorpus, _unicode_queries(UQ, kind=4),
                          Config(max_typos=TYPO_BUDGET), ("match_units",)),
+        "multi": (corpus, _multi_queries(Q), Config(),
+                  ("colstream_fuzzy", "colstream_literal")),
+        "unicode_multi": (ucorpus, _unicode_multi_queries(UQ), Config(),
+                          ("colstream_fuzzy", "colstream_literal")),
     }
 
 
 def serving_phase(paths, detail):
-    """The eight serving paths, each read on its own."""
+    """The ten serving paths, each read on its own."""
     serving = {
         label: _serve(label, c, queries, cfg, kernels, detail)
         for label, (c, queries, cfg, kernels) in paths.items()
@@ -1101,6 +1149,18 @@ def serving_phase(paths, detail):
         "no unicode literal query matched")
     assert utypo["row_major_routes"]["compacted"] == utypo["batches"]
     assert utypo["match_counts"][0] > 0, "no unicode typo-budget match"
+    # the multi-pattern batches: every shape group through the multi flow
+    # (4 groups, 2 unicode), none through the single-pattern flows
+    for label, groups in (("multi", 4), ("unicode_multi", 2)):
+        out = serving[label]
+        assert out["colstream_flows"] == {
+            "single": 0, "multi": groups * out["batches"]}, (
+            label, out["colstream_flows"])
+        assert min(out["match_counts"]) >= 0
+        counts = out["match_counts"]
+        g = len(counts) // groups
+        assert all(sum(counts[i * g:(i + 1) * g]) > 0
+                   for i in range(groups)), (label, counts)
     return serving
 
 
@@ -1239,11 +1299,20 @@ def _colstream_work(args, kw, keys):
                 + float(read.sum()) * GROUP_ROWS * 8
                 + 4 * (scal.numel() + (flags.numel() if flags is not None
                                        else 0)))
-    out_bytes = 8 * keys.numel()
+    # key-emit mode writes an int64 key a row, columns mode five int32
+    # columns and reads no row index
+    columns = not torch.is_tensor(keys)
+    if columns:
+        out_bytes = 4 * sum(c.numel() for c in keys)
+        in_bytes -= float(read.sum()) * GROUP_ROWS * 4
+        hit_of = keys[0] != 0
+    else:
+        out_bytes = 8 * keys.numel()
+        hit_of = keys != INT64_MAX
     if "mode" in kw:
         ops = cols * (LIT_OPS_PER_CELL * n + LIT_OPS_PER_COLUMN)
         if cpT.dtype == torch.int32 and kw["mode"] in (EXACT, PREFIX):
-            hit = (keys != INT64_MAX).to(torch.float64)
+            hit = hit_of.to(torch.float64)
             rest = torch.clamp(torch.clamp(nuT.reshape(-1), max=W) - n,
                                min=0).to(torch.float64)
             ops += float((hit * rest[None, :]).sum()) * LIT_OPS_PER_REST
@@ -1425,17 +1494,17 @@ KERNELS = (
     # phase)
     ("colstream_fuzzy", "colstream_fuzzy",
      "frizbee_tpu_torch/csrc/colstream_fuzzy.cu",
-     "frizbee_tpu/ops/colstream.py:954", ("fuzzy",)),
+     "frizbee_tpu/ops/colstream.py:954", ("fuzzy", "multi")),
     ("colstream_literal", "colstream_literal",
      "frizbee_tpu_torch/csrc/colstream_literal.cu",
-     "frizbee_tpu/ops/colstream.py:954", ("literal",)),
+     "frizbee_tpu/ops/colstream.py:954", ("literal", "multi")),
     ("row_gather", "row_gather", "frizbee_tpu_torch/csrc/row_gather.cu",
      "frizbee_tpu/ops/colstream.py:749",
-     ("fuzzy", "literal", "typo", "long_needle")),
+     ("fuzzy", "literal", "typo", "long_needle", "multi")),
     ("row_gather_unicode", "row_gather",
      "frizbee_tpu_torch/csrc/row_gather.cu",
      "frizbee_tpu/ops/colstream.py:749",
-     ("unicode_fuzzy", "unicode_literal", "unicode_typo")),
+     ("unicode_fuzzy", "unicode_literal", "unicode_typo", "unicode_multi")),
     ("match_units", "match_units", "frizbee_tpu_torch/csrc/match_units.cu",
      "frizbee_tpu/ops/kernels.py:632",
      ("typo_wide", "typo_int32", "long_needle_int32")),
@@ -1450,10 +1519,10 @@ KERNELS = (
      "tests/test_kernel_contract.py:52", ("contract",)),
     ("colstream_fuzzy_unicode", "colstream_fuzzy",
      "frizbee_tpu_torch/csrc/colstream_fuzzy.cu",
-     "frizbee_tpu/ops/colstream.py:954", ("unicode_fuzzy",)),
+     "frizbee_tpu/ops/colstream.py:954", ("unicode_fuzzy", "unicode_multi")),
     ("colstream_literal_unicode", "colstream_literal",
      "frizbee_tpu_torch/csrc/colstream_literal.cu",
-     "frizbee_tpu/ops/colstream.py:954", ("unicode_literal",)),
+     "frizbee_tpu/ops/colstream.py:954", ("unicode_literal", "unicode_multi")),
     ("match_units_unicode", "match_units",
      "frizbee_tpu_torch/csrc/match_units.cu",
      "frizbee_tpu/ops/kernels.py:632", ("unicode_typo",)),
@@ -1783,11 +1852,25 @@ def probes_phase(dev, errs, detail):
     return entries
 
 
+def _greedy_rows(n, seed=7):
+    """Arabic rows of 600-1000 codepoints (1200-2000 UTF-8 bytes) from
+    the script's letters and spaces: bucketed (at most 1024 units) but
+    wider than the 1024-byte DP cap, so a match's trimmed window is
+    greedy-flagged on the device and rescored on the host."""
+    rng = np.random.default_rng(seed)
+    letters = np.array([chr(c) for c in range(0x0621, 0x064B)] + [" "])
+    return ["".join(rng.choice(letters, size=int(rng.integers(600, 1001))))
+            for _ in range(n)]
+
+
 def cpu_parity_phase(detail):
     """Reduced size: the card's serving arrays equal the CPU's, group by
     group, and so do the decoded top-k results — byte corpora, Arabic and
-    Korean codepoint corpora, and ASCII needles under ALWAYS over a
-    mixed-script codepoint corpus."""
+    Korean codepoint corpora, ASCII needles under ALWAYS over a
+    mixed-script codepoint corpus, multi-pattern and negated queries, a
+    byte corpus with XL rows (wider than the widest bucket: the host
+    fixups and their presence gate) and an Arabic one with greedy-flagged
+    rows (rescored on the host)."""
     from frizbee_tpu_torch import Config, UnicodeMatching, datagen
     from frizbee_tpu_torch import match_topk_batch, pack_corpus
     from frizbee_tpu_torch.config import Scoring
@@ -1797,6 +1880,8 @@ def cpu_parity_phase(detail):
     hay = datagen.partial_match_corpus(median_length=MEDIAN_LEN,
                                        num_samples=n_rows, seed=7)
     long_hay = _long_corpus(n_rows, seed=7)
+    xl_hay = hay + datagen.xl_heavy_corpus(num_samples=64, seed=7)
+    multi = _multi_queries(q) + ["!dead !beef"]
     cases = [
         ("fuzzy T=0", hay, _queries(q), Config(max_typos=0)),
         ("fuzzy T=1", hay, _queries(q), Config(max_typos=1)),
@@ -1806,6 +1891,16 @@ def cpu_parity_phase(detail):
         ("long needle", long_hay, _queries(q, LONG_NEEDLE), Config()),
         (f"typo T={TYPO_BUDGET} wide scores", hay, _queries(q),
          Config(max_typos=TYPO_BUDGET, scoring=Scoring(**WIDE_SCORING))),
+        ("multi T=0", hay, multi, Config(max_typos=0)),
+        ("multi T=1", hay, multi, Config(max_typos=1)),
+        # XL rows: the host fixups add the XL candidates that match
+        ("XL rows, fuzzy T=0", xl_hay, _queries(q), Config(max_typos=0)),
+        ("XL rows, fuzzy T=1", xl_hay, _queries(q), Config(max_typos=1)),
+        # the XL rows hold the needle's letters apart, never two in a
+        # row: one-byte substrings match them
+        ("XL rows, literal", xl_hay, [f"'{c}" for c in "deabfDEF"],
+         Config()),
+        ("XL rows, multi", xl_hay, _multi_queries(4), Config()),
     ]
     # (label, rows, queries, config[, codepoint units, must match])
     for script in ("arabic", "korean"):
@@ -1823,12 +1918,27 @@ def cpu_parity_phase(detail):
              _unicode_queries(q, script, 4), Config(max_typos=TYPO_BUDGET),
              True, script == "arabic"),
         ]
+    arabic = _unicode_corpus(n_rows, "arabic", seed=7)
+    cases.append(("arabic multi", arabic, _unicode_multi_queries(q),
+                  Config(), True, True))
+    # greedy rows: eight-codepoint needles keep every count within k (a
+    # greedy-risk corpus past k needs the full-fetch fallback)
+    greedy_hay = arabic + _greedy_rows(32)
+    cases += [
+        ("arabic greedy rows, fuzzy", greedy_hay,
+         _unicode_queries(q, kind=4), Config(max_typos=1), True, True),
+        ("arabic greedy rows, multi", greedy_hay,
+         [p[:4] + " " + p[4:] for p in _unicode_queries(q, kind=4)],
+         Config(max_typos=0), True, True),
+    ]
     mixed = _unicode_corpus(n_rows // 2, seed=8) + hay[:n_rows // 2]
     cases.append(("ALWAYS ascii needles, mixed script", mixed, _queries(q),
                   Config(unicode=UnicodeMatching.ALWAYS), True, True))
     packed = {}
     compared = {}
+    seconds = {}
     for label, rows, queries, cfg, *uni in cases:
+        t0 = time.perf_counter()
         unicode, must_match = uni or (False, True)
         key = id(rows)
         if key not in packed:
@@ -1858,8 +1968,25 @@ def cpu_parity_phase(detail):
                 assert np.array_equal(u, v)
         assert sum(x[0] for x in got) > 0 or not must_match, (
             f"{label}: nothing matched")
+        if label.startswith("XL"):
+            # the host fixups added matching XL rows to the device count
+            dev_count = {i: int(a[j, 0, 0]) for a, m in raw[0]
+                         for j, i in enumerate(m)}
+            assert any(x[0] > dev_count[i] for i, x in enumerate(got)), (
+                f"{label}: no XL row served")
+        if "greedy" in label:
+            flagged = 0
+            for a, _m in raw[0]:
+                for blk in a:
+                    rows = blk[1:1 + min(int(blk[0, 0]), len(blk) - 1)]
+                    flagged += int(((rows[:, 1].view(np.uint32) >> 14)
+                                    & 1).sum())
+            assert flagged > 0, f"{label}: no greedy-flagged row"
+            detail.setdefault("cpu_parity_greedy_rows", {})[label] = flagged
         compared[label] = sum(a.size for a, _m in raw[0])
+        seconds[label] = time.perf_counter() - t0
     detail["cpu_parity_elements"] = compared
+    detail["cpu_parity_seconds"] = seconds
     print(f"card-vs-CPU phase: serving-array elements equal "
           f"({n_rows} rows, Q={q}): {json.dumps(compared)}", flush=True)
 
@@ -1954,6 +2081,7 @@ def main():
     t0 = time.perf_counter()
     profile_phase("fuzzy", corpus, _queries(Q), detail, host_profile=True)
     profile_phase("unicode_fuzzy", ucorpus, _unicode_queries(UQ), detail)
+    profile_phase("multi", corpus, _multi_queries(Q), detail)
     phases["profile"] = time.perf_counter() - t0
     del corpus, hay, long_corpus, long_hay, ucorpus, uhay, paths
     t0 = time.perf_counter()

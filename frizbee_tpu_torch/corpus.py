@@ -339,6 +339,35 @@ class Corpus:
             b.size and int(b.n_bytes.max()) > 1024 for b in self.buckets
         )
 
+    def xl_presence(self) -> np.ndarray:
+        """(n_xl, 128) uint8 capped fold-bit occurrence counts of the XL
+        (host-path) rows, in ``xl_indices`` order, computed once: the
+        host twin of stage 1 that lets the matcher presence-reject XL
+        rows before their per-row host pipeline. Units are UTF-8 bytes,
+        or codepoints in a unicode corpus; each folds A-Z to a-z, then
+        keeps its low 7 bits; counts cap at the device planes' depth."""
+        if "_xl_presence" not in self.__dict__:
+            n_xl = len(self.xl_indices)
+            rows = [self.haystacks[int(i)] for i in self.xl_indices]
+            if self.unicode:
+                parts = [np.frombuffer(h.encode("utf-32-le"), np.uint32)
+                         for h in rows]
+            else:
+                parts = [np.frombuffer(h.encode("utf-8"), np.uint8)
+                         for h in rows]
+            lens = np.array([len(p) for p in parts], np.int64)
+            units = (np.concatenate(parts).astype(np.int64) if parts
+                     else np.zeros(0, np.int64))
+            fold = np.where(
+                (units >= 0x41) & (units <= 0x5A), units + 0x20, units
+            ) & 127
+            row_of = np.repeat(np.arange(n_xl, dtype=np.int64), lens)
+            flat = np.bincount(row_of * 128 + fold, minlength=n_xl * 128)
+            self._xl_presence = np.minimum(
+                flat.reshape(n_xl, 128), PLANES
+            ).astype(np.uint8)
+        return self._xl_presence
+
     _SAVE_VERSION = 1
 
     @classmethod

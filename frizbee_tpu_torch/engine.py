@@ -1,19 +1,31 @@
-"""Per-pattern engine state the batch serving path reads.
+"""Per-pattern engine state the batch serving path reads, and the host
+pipelines that rescore the rows the device does not finish.
 
-Counterpart of the needle side of ``frizbee_tpu/engine.FuzzyEngine`` and
-``LiteralEngine``: unit tokenization, case and unicode resolution, the
-u16 overflow guards, and the host needle arrays the dispatcher stacks per
-batch. The per-row host pipelines (greedy, XL rows, the host literal
-matchers) come with later slices.
+Counterpart of ``frizbee_tpu/engine.FuzzyEngine`` and ``LiteralEngine``:
+unit tokenization, case and unicode resolution, the u16 overflow guards,
+the host needle arrays the dispatcher stacks per batch, and the per-row
+host pipelines (``match_one``, ``match_many``) that score greedy-flagged
+rows (trimmed window over the 1024-byte DP cap) and XL rows (wider than
+the widest bucket) with the oracle's semantics.
 """
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import numpy as np
 
-from .config import U16_MAX, Config
-from .oracle import make_needle_units
+from .config import MAX_HAYSTACK_LEN, U16_MAX, Config, sat_add_u16
+from .oracle import (
+    literal_find,
+    make_needle_units,
+    match_greedy,
+    prefilter_window,
+    tokenize,
+)
+from .oracle.smith_waterman import match_end_col, sw_matrices
 from .ops.fuzzy import SCORING_FIELDS
+from .types import Match
 
 
 class _NeedleEngine:
@@ -46,9 +58,38 @@ class _NeedleEngine:
             )
         return self._host_args
 
+    def match_one(self, haystack: str, index: int) -> Optional[Match]:
+        raise NotImplementedError
+
+    def match_many(self, haystacks) -> tuple:
+        """(matched, score, exact, end_col) arrays over a list of rows,
+        one :meth:`match_one` a row. The reference's native batch and its
+        ``match_xl_rows`` over the resident XL blob come with the native
+        host matcher slice; this per-row pipeline is the reference's
+        native-less route and its differential oracle."""
+        R = len(haystacks)
+        matched = np.zeros(R, bool)
+        score = np.zeros(R, np.int64)
+        exact = np.zeros(R, bool)
+        end_col = np.zeros(R, np.int64)
+        for r, h in enumerate(haystacks):
+            m = self.match_one(h, r)
+            if m is not None:
+                matched[r] = True
+                score[r], exact[r], end_col[r] = m.score, m.exact, m.end_col
+        return matched, score, exact, end_col
+
 
 class FuzzyEngine(_NeedleEngine):
     """Fuzzy (Smith-Waterman) matching for one needle + resolved config."""
+
+    def __init__(self, needle: str, config: Config):
+        super().__init__(needle, config)
+        self.min_haystack_len = (
+            max(len(needle) - config.max_typos, 0)
+            if config.max_typos is not None
+            else 0
+        )
 
     def _guard_overflow(self) -> None:
         # Overflow guard uses the row count the needle actually uses
@@ -59,10 +100,75 @@ class FuzzyEngine(_NeedleEngine):
             rows, scoring.max_per_char_bonus(), scoring.max_one_time_bonus()
         )
 
+    def _host_pipeline(
+        self, haystack: str
+    ) -> Optional[Tuple[int, bool, int, int, int, bool]]:
+        """Prefilter window, then Smith-Waterman over it, or the greedy
+        matcher past the DP cap. Returns (score, exact, end_col, wstart,
+        wend, used_greedy) or None."""
+        data = haystack.encode("utf-8")
+        if len(data) < self.min_haystack_len:
+            return None
+
+        if self.config.max_typos is None:
+            matched, start, end = True, 0, len(data)
+        else:
+            hay = tokenize(data, self.unicode)
+            matched, start, end = prefilter_window(
+                self.units, hay, len(data), self.config.max_typos
+            )
+        if not matched:
+            return None
+
+        wstart = max(start - 1, 0)
+        include_exact = wstart == 0 and end == len(data)
+        include_prefix = wstart == 0
+        scoring = self.config.scoring
+
+        if end - wstart > MAX_HAYSTACK_LEN:
+            res = match_greedy(
+                self.needle_bytes,
+                data[wstart:end],
+                scoring,
+                self.case_sensitive,
+                include_prefix,
+            )
+            if res is None:
+                return (0, False, min(wstart, U16_MAX), wstart, end, True)
+            score, indices = res
+            end_col = min(indices[-1] if indices else 0, U16_MAX)
+            end_col = min(end_col + wstart, U16_MAX)
+            exact = include_exact and data[wstart:end] == self.needle_bytes
+            if exact:
+                score = sat_add_u16(score, scoring.exact_match_bonus)
+            return (score, exact, end_col, wstart, end, True)
+
+        win = tokenize(data, self.unicode, wstart, end)
+        H, _ = sw_matrices(self.units, win, scoring, include_prefix)
+        score = max(H[-1]) if H[-1] else 0
+        end_col = (
+            min(match_end_col(H, win), U16_MAX)
+            if score > 0
+            else min(wstart, U16_MAX)
+        )
+        exact = include_exact and data[wstart:end] == self.needle_bytes
+        if exact:
+            score = min(score + scoring.exact_match_bonus, U16_MAX)
+        return (score, exact, end_col, wstart, end, False)
+
+    def match_one(self, haystack: str, index: int) -> Optional[Match]:
+        res = self._host_pipeline(haystack)
+        if res is None:
+            return None
+        score, exact, end_col, _, _, _ = res
+        return Match(score=score, index=index, exact=exact, end_col=end_col)
+
 
 class LiteralEngine(_NeedleEngine):
     """Literal matching modes; max_typos is ignored
     (reference: src/literal/mod.rs:1-8)."""
+
+    min_haystack_len = 0
 
     def _guard_overflow(self) -> None:
         # Literal overflow guard (reference: src/literal/algo.rs:316-325)
@@ -73,6 +179,23 @@ class LiteralEngine(_NeedleEngine):
             U16_MAX,
         )
         s.guard_against_score_overflow(len(self.needle_bytes), max_bonus, 0)
+
+    def match_one(self, haystack: str, index: int) -> Optional[Match]:
+        data = haystack.encode("utf-8")
+        res = literal_find(
+            self.needle,
+            data,
+            self.config.matching,
+            self.unicode,
+            self.case_sensitive,
+            self.config.scoring,
+        )
+        if res is None:
+            return None
+        pos, score = res
+        exact = pos == 0 and len(self.needle_bytes) == len(data)
+        end_col = min(max(pos + len(self.needle_bytes) - 1, 0), U16_MAX)
+        return Match(score=score, index=index, exact=exact, end_col=end_col)
 
 
 def make_engine(needle: str, config: Config):

@@ -6,15 +6,20 @@ batched device pass each (``ops/batch.fused_match_sorted_batch``), and
 the ``(Q, 1+k, 2)`` results decode on the host into per-query
 ``(total_count, index, score, exact, end_col)`` arrays.
 
-This slice serves single-pattern queries with a score sort over corpora
-of bucket width <= 1024: ASCII needles over byte-unit corpora and
-unicode needles (``UnicodeMatching.SMART`` with a non-ASCII needle, or
-any needle under ``ALWAYS``) over codepoint-unit corpora — fuzzy needles
-of up to 64 units with typo budgets of up to 8 (the column-stream kernel
-for up to 16 units and budgets of up to 3, the row-major kernel beyond),
-and literal needles (exact, prefix, suffix, substring) of up to 16
-units. Queries and corpora outside that raise NotImplementedError naming
-the slice that ports them.
+It serves queries with a score sort over corpora of bucket width
+<= 1024: ASCII needles over byte-unit corpora and unicode needles
+(``UnicodeMatching.SMART`` with a non-ASCII needle, or any needle under
+``ALWAYS``) over codepoint-unit corpora. A single pattern is a fuzzy
+needle of up to 64 units with a typo budget of up to 8 (the
+column-stream kernel for up to 16 units and budgets of up to 3, the
+row-major kernel beyond), or a literal needle (exact, prefix, suffix,
+substring) of up to 16 units. Several patterns, or a negated one
+(``foo !^bar``), are served when every atom fits the column-stream
+kernels and all atoms share one unit mode. Greedy-flagged rows (trimmed
+window over the 1024-byte DP cap) and XL rows (wider than the widest
+bucket) are rescored on the host with the oracle's pipelines, as the
+reference does. Queries and corpora outside that raise
+NotImplementedError naming the slice that ports them.
 """
 
 from __future__ import annotations
@@ -24,10 +29,12 @@ from typing import List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from .config import Config, SortStrategy
+from .config import U16_MAX, Config, SortStrategy
 from .corpus import GROUP_ROWS, Corpus, pack_corpus
 from .engine import make_engine
 from .ops.batch import (
+    _pattern_s1_contributes,
+    colstream_eligible_all,
     fused_match_sorted_batch,
     unserved_reason,
     uses_colstream,
@@ -74,12 +81,6 @@ class Matcher:
             self._raw_patterns = [_as_pattern(p) for p in pattern]
         else:
             self._raw_patterns = [_as_pattern(pattern)]
-        needles = [p for p in self._raw_patterns if p.needle]
-        if len(needles) > 1 or any(p.negated for p in needles):
-            raise NotImplementedError(
-                "multi-pattern and negated queries come with the "
-                "multi-pattern serving slice"
-            )
         self._compiled = [
             _CompiledPattern(p, self._config)
             for p in self._raw_patterns
@@ -102,11 +103,37 @@ class Matcher:
                 "index sort strategies come with the generic pipelines "
                 "slice"
             )
-        cp = self._compiled[0]
-        reason = unserved_reason(self._statics()[0],
-                                 len(cp.engine.units.orig))
-        if reason is not None:
-            raise NotImplementedError(reason)
+        statics = self._statics()
+        lens = [len(cp.engine.units.orig) for cp in self._compiled]
+        for st, ln in zip(statics, lens):
+            reason = unserved_reason(st, ln)
+            if reason is not None:
+                raise NotImplementedError(reason)
+        if not self._fused_supported():
+            raise NotImplementedError(
+                "patterns of mixed unit modes come with the single-query "
+                "Matcher slice"
+            )
+        if ((len(statics) > 1 or statics[0][2])
+                and not colstream_eligible_all(statics, lens)):
+            raise NotImplementedError(
+                "multi-pattern or negated queries with an atom outside the "
+                "column-stream kernels' budgets come with the generic "
+                "pipelines slice"
+            )
+
+    def _fused_supported(self) -> bool:
+        """Whether the batch path covers the patterns: every pattern has
+        units, and all share one unicode packing (the reference sends the
+        rest to its per-query path)."""
+        if not self._compiled:
+            return False
+        modes = set()
+        for cp in self._compiled:
+            if not cp.engine.units.orig:
+                return False
+            modes.add(cp.engine.unicode)
+        return len(modes) == 1
 
     def _statics(self) -> tuple:
         """Per pattern (typos, no_prefilter, negated, scoring, mode,
@@ -149,43 +176,138 @@ class Matcher:
         end_col = (meta & np.uint32(0x3FFF)).astype(np.int64)
         return index, score, exact, end_col, greedy
 
+    def _match_many_host(self, rows) -> tuple:
+        """(matched, score, exact, end_col) arrays over a list of rows with
+        the multi-pattern combine (reference: src/matcher/multi.rs:84-152):
+        every non-negated pattern must match (scores sum saturating at
+        0xFFFF, exact ORs, end_col maxes) and no negated one may. Each
+        engine runs its per-row host pipeline (``engine.match_many``)."""
+        R = len(rows)
+        matched = np.ones(R, bool)
+        score = np.zeros(R, np.int64)
+        exact = np.zeros(R, bool)
+        end_col = np.zeros(R, np.int64)
+        for cp in self._compiled:
+            m, s, e, ec = cp.engine.match_many(rows)
+            if cp.negated:
+                matched &= ~m
+            else:
+                matched &= m
+                score = np.minimum(score + np.where(m, s, 0), U16_MAX)
+                exact |= e & m
+                end_col = np.maximum(end_col, np.where(m, ec, 0))
+        return matched, score, exact, end_col
+
     def _host_fixups(
         self, corpus, index, score, exact, end_col, greedy
     ) -> tuple:
-        """Final strategy ordering. Greedy-flagged rows (trimmed window
-        over the 1024-byte DP cap) need the host rescoring of a later
-        slice."""
+        """Greedy and XL host rescoring, then the final strategy ordering.
+        Greedy rows (trimmed window over the 1024-byte DP cap) are
+        rescored on the host, which can drop them; XL rows (wider than the
+        widest bucket) that pass the host presence gate run the host
+        pipeline and join the result."""
+        strategy = self._config.sort
+        resort = False
         if greedy.any():
-            raise NotImplementedError(
-                "greedy-flagged rows need the host fixups slice"
+            gj = np.nonzero(greedy)[0]
+            gm, gs, ge, gec = self._match_many_host(
+                [corpus.haystacks[int(index[j])] for j in gj]
             )
-        if self._config.sort is SortStrategy.SCORE_THEN_INDEX_DESC:
+            score[gj], exact[gj], end_col[gj] = gs, ge, gec
+            keep = np.ones(len(index), dtype=bool)
+            keep[gj] = gm
+            index, score, exact, end_col = (
+                index[keep], score[keep], exact[keep], end_col[keep]
+            )
+            resort = True
+        if len(corpus.xl_indices):
+            pos = np.nonzero(self._xl_candidates(corpus))[0]
+            cand = corpus.xl_indices[pos]
+            if len(cand):
+                xm, xs, xe, xec = self._match_many_host(
+                    [corpus.haystacks[int(i)] for i in cand]
+                )
+                if xm.any():
+                    index = np.concatenate(
+                        [index, cand[xm].astype(np.int64)]
+                    )
+                    score = np.concatenate([score, xs[xm]])
+                    exact = np.concatenate([exact, xe[xm]])
+                    end_col = np.concatenate([end_col, xec[xm]])
+                    resort = True
+        if resort:
+            # batch serving sorts by score (index sorts are refused)
+            order = np.lexsort((index, -score))
+            index, score, exact, end_col = (
+                index[order], score[order], exact[order], end_col[order]
+            )
+        if strategy is SortStrategy.SCORE_THEN_INDEX_DESC:
             order = np.lexsort((-index, -score))
             index, score, exact, end_col = (
                 index[order], score[order], exact[order], end_col[order]
             )
         return index, score, exact, end_col
 
+    def _xl_candidates(self, corpus) -> np.ndarray:
+        """Boolean mask over ``corpus.xl_indices``: rows that could hold
+        every non-negated pattern's fold-bit multiset within its typo
+        budget (the host twin of stage 1, a sound superset). Negated
+        patterns and patterns without a budget never pre-reject."""
+        n_xl = len(corpus.xl_indices)
+        keep = np.ones(n_xl, bool)
+        counts = None
+        for cp in self._compiled:
+            if cp.negated or not cp.engine.units.orig:
+                continue
+            units = cp.engine.units
+            t = cp.config.max_typos
+            if t is None:
+                continue  # unconditional scoring: every row is a candidate
+            if counts is None:
+                counts = corpus.xl_presence()
+            need = np.zeros(128, np.int64)
+            for o, f in zip(units.orig, units.flip):
+                fo = (o + 0x20 if 0x41 <= o <= 0x5A else o) & 127
+                ff = (f + 0x20 if 0x41 <= f <= 0x5A else f) & 127
+                if fo == ff:
+                    need[fo] += 1
+            need = np.minimum(need, 3)
+            cols = np.nonzero(need)[0]
+            sub = counts[:, cols].astype(np.int16)
+            hits = np.minimum(
+                sub, need[cols][None, :].astype(np.int16)
+            ).sum(axis=1, dtype=np.int32)
+            keep &= hits >= int(need.sum()) - int(t)
+        return keep
 
-def _colstream_cap(corpus, statics, lens, needles_np, fetch_rows):
-    """(finalize_cap, perm) for a single-pattern colstream group: the
-    host-chosen capped-sort budget (see :func:`_colstream_finalize_cap`).
-    perm (None = identity) is the selective-first query order the caller
+
+def _colstream_blocks_and_cap(corpus, statics, lens, needles_np, fetch_rows,
+                              single):
+    """(uses_colstream, finalize_cap, perm) for a serving group: whether
+    the column-stream kernels serve the pattern set, and the host-chosen
+    capped-sort budget from the stage-1-contributing patterns (see
+    :func:`_colstream_finalize_cap`). ``needles_np`` holds one (Q, 2n)
+    host needle array per pattern; ``single`` marks the one-pattern
+    non-negated groups, which may take the row-major flow instead.
+    finalize_cap is (cap_blocks, n_sel) or None (no capped tier); perm
+    (None = identity) is the selective-first query order the caller
     applies before stacking."""
-    typos, nopre, _neg, _sc, mode, _nbl = statics[0]
-    if mode != FUZZY_MODE:
-        # literal stage 1 runs at T=0 whatever the budget, so its group
-        # flags always narrow (the reference's _pattern_s1_contributes)
-        T = 0
+    if single:
+        needs_cs = uses_colstream(statics[0], lens[0])
     else:
-        T = min(typos, lens[0])
-        if nopre or lens[0] <= T:  # no stage-1 flags: no capped tier
-            return None, None
-    res = _colstream_finalize_cap(corpus, [(needles_np[0], T)], fetch_rows)
+        needs_cs = colstream_eligible_all(statics, lens)
+    if not needs_cs:
+        return False, None, None
+    entries = []
+    for st, ln, nd in zip(statics, lens, needles_np):
+        if _pattern_s1_contributes(st, ln):
+            t = 0 if st[4] != FUZZY_MODE else min(st[0], ln)
+            entries.append((nd, t))
+    res = _colstream_finalize_cap(corpus, entries, fetch_rows)
     if res is None:
-        return None, None
+        return True, None, None
     cap, n_sel, perm = res
-    return (cap, n_sel), perm
+    return True, (cap, n_sel), perm
 
 
 def _colstream_finalize_cap(corpus, pattern_needles, fetch_rows):
@@ -234,25 +356,16 @@ def _colstream_finalize_cap(corpus, pattern_needles, fetch_rows):
     return int(cap), n_sel, perm
 
 
-def _check_corpus(corpus: Corpus) -> None:
-    if len(corpus.xl_indices):
-        raise NotImplementedError(
-            "corpora with rows wider than the widest bucket need the host "
-            "fixups slice"
-        )
-
-
 def _dispatch_batch_groups(
     matchers: List[Matcher],
     corpus: Corpus,
     config: Config,
     fetch_rows: int,
 ):
-    """Group shape-uniform queries (same statics and needle length) and
-    enqueue one batched device pass per group, with the device->host copy
-    of each result started behind it. Returns one (host_rows,
-    ready_event, members) entry per group."""
-    _check_corpus(corpus)
+    """Group shape-uniform queries (same pattern count, per-pattern
+    statics and needle lengths) and enqueue one batched device pass per
+    group, with the device->host copy of each result started behind it.
+    Returns one (host_rows, ready_event, members) entry per group."""
     groups = {}
     prepared = {}
     for i, m in enumerate(matchers):
@@ -270,32 +383,37 @@ def _dispatch_batch_groups(
                 "custom bucket widths and index sorts come with the "
                 "generic pipelines slice"
             )
-        host = m._compiled[0].engine._host_needle()
-        groups.setdefault((statics, host[0].shape[0]), []).append(i)
-        prepared[i] = (bits8, host)
+        hosts = tuple(cp.engine._host_needle() for cp in m._compiled)
+        lens = tuple(h[0].shape[0] for h in hosts)
+        groups.setdefault((statics, lens), []).append(i)
+        prepared[i] = (bits8, hosts)
 
     pending = []
-    for (statics, nlen), members in groups.items():
+    for (statics, lens), members in groups.items():
         bits8 = prepared[members[0]][0]
-        needles_np = np.stack([
-            np.concatenate(prepared[i][1][:2]) for i in members
-        ])
-        fin_cap = perm = None
-        if uses_colstream(statics[0], nlen):
-            # the capped finalize of the column-stream flow
-            fin_cap, perm = _colstream_cap(
-                corpus, statics, [nlen], [needles_np],
-                min(fetch_rows, len(corpus)),
-            )
+        n_pat = len(statics)
+        needles_np = [
+            np.stack([np.concatenate(prepared[i][1][p][:2])
+                      for i in members])
+            for p in range(n_pat)
+        ]
+        _cs, fin_cap, perm = _colstream_blocks_and_cap(
+            corpus, statics, list(lens), needles_np,
+            min(fetch_rows, len(corpus)),
+            single=(n_pat == 1 and not statics[0][2]),
+        )
         if perm is not None:
             # mixed finalize: selective queries first; members follow
             members = [members[j] for j in perm]
-        stacked = (tuple(
-            torch.from_numpy(
-                np.stack([prepared[i][1][a] for i in members])
-            ).to(corpus.device)
-            for a in range(3)
-        ),)
+        stacked = tuple(
+            tuple(
+                torch.from_numpy(
+                    np.stack([prepared[i][1][p][a] for i in members])
+                ).to(corpus.device)
+                for a in range(3)
+            )
+            for p in range(n_pat)
+        )
         out = fused_match_sorted_batch(
             bits8,
             stacked,
@@ -370,9 +488,13 @@ def _finalize_topk(matchers, corpus, raw, k) -> List[tuple]:
                 "slice"
             )
         count, index, score, exact, end_col, greedy = r
+        fetched = len(index)
         index, score, exact, end_col = matchers[i]._host_fixups(
             corpus, index, score, exact, end_col, greedy
         )
+        # greedy rescoring can drop rows and XL rows can add some: the
+        # exact total follows the host fixups' delta
+        count += len(index) - fetched
         results[i] = (count, index[:k], score[:k], exact[:k], end_col[:k])
     return results
 

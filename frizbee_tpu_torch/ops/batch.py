@@ -1,10 +1,14 @@
-"""Q-batched single-pattern serving: stage-1 presence, then either the
-column-stream flow (fuzzy needles the colstream kernel holds, and every
-literal mode) with per-group flags, or the row-major flow (longer fuzzy
-needles and larger typo budgets) over per-query survivor orders, and the
-top-k finalize — one pass of tensor ops on the corpus device.
+"""Q-batched serving: stage-1 presence, then either the column-stream
+flow (fuzzy needles the colstream kernel holds, and every literal mode)
+with per-group flags, or the row-major flow (longer fuzzy needles and
+larger typo budgets) over per-query survivor orders, and the top-k
+finalize — one pass of tensor ops on the corpus device. Multi-pattern
+and negated queries take the multi flow: every pattern's colstream
+kernel in columns mode over the same flag-gated blocks, then the
+combine (scores sum, exact and greedy OR, end_col max, negation veto).
 
-Counterpart of ``frizbee_tpu/ops/batch._fused_match_batch_fast``. The
+Counterpart of ``frizbee_tpu/ops/batch._fused_match_batch_fast`` and
+``_fused_multi_batch_fast``. The
 result is the same ``(Q, 1 + fetch_rows, 2)`` int32 array: row 0 is
 ``[match_count, 0]``, rows 1.. are ``[index, meta]`` with meta =
 score<<16 | exact<<15 | greedy<<14 | end_col, best first (score desc,
@@ -43,6 +47,7 @@ from .kernels import (
     MAX_KERNEL_TYPOS,
     int16_lanes_dispatch,
     match_units,
+    pack_keys,
     pack_needle_scalars,
 )
 from .literal import LITERAL_MODES
@@ -66,6 +71,11 @@ FINALIZE_ROUTES = {
 # kernel reads only them)
 ROW_MAJOR_ROUTES = {"in_place": 0, "compacted": 0}
 
+# Column-stream flows taken, per batch: single (one non-negated pattern,
+# key-emit launches) or multi (several patterns or a negated one,
+# columns-mode launches and the combine)
+COLSTREAM_FLOWS = {"single": 0, "multi": 0}
+
 # Row-major kernel instantiations taken, per bucket launch: int16 lanes
 # where kernels.int16_lanes_dispatch holds (byte rows, score_fits_int16,
 # and the CPU, or the card while INT16_CUDA_OK), else int32. The record of
@@ -78,6 +88,15 @@ ROW_MAJOR_LANES = {"int16": 0, "int32": 0}
 def _to_int32(v: torch.Tensor) -> torch.Tensor:
     """int64 values in [0, 2^32) -> int32 with the same bits."""
     return torch.where(v >= (1 << 31), v - (1 << 32), v).to(torch.int32)
+
+
+def _keys_from_cols(matched, score, exact, end_col, greedy, idx, idx_bits):
+    """Result columns -> (int64 keys, match count): the layout the
+    colstream kernel's key-emit mode writes (``kernels.pack_keys``), so
+    ascending order is (matched first, score desc, index asc); unmatched
+    and padding rows (idx < 0) carry INT64_MAX."""
+    keys = pack_keys(matched, score, exact, end_col, greedy, idx, idx_bits)
+    return keys, (keys != INT64_MAX).sum(dtype=torch.int32)
 
 
 def _decode_keys(k64, idx_bits, idx_mask):
@@ -213,6 +232,42 @@ def uses_colstream(st, nlen: int) -> bool:
     return colstream_supported(nlen, min(int(typos), nlen), nopre)
 
 
+def colstream_eligible_all(pattern_statics, needle_lens) -> bool:
+    """True when every pattern of a group fits the column-stream kernels
+    (a fuzzy needle within their needle and typo budgets, or a literal
+    needle within the literal kernel's): the gate of the multi flow,
+    shared with the dispatcher so routing and the cap chooser agree."""
+    for st, ln in zip(pattern_statics, needle_lens):
+        typos, nopre, _neg, _sc, mode, _nbl = st
+        if ln < 1:
+            return False
+        if mode == FUZZY_MODE:
+            if not colstream_supported(ln, min(int(typos), ln), nopre):
+                return False
+        elif mode in LITERAL_MODES:
+            if not colstream_literal_supported(ln):
+                return False
+        else:
+            return False
+    return True
+
+
+def _pattern_s1_contributes(st, nlen) -> bool:
+    """Whether a pattern's stage-1 flags narrow the combined group-alive
+    set: non-negated, and its prefilter rejects (literal always can, at
+    T=0; fuzzy needs a budget below the needle length). The host cap
+    chooser (``matcher._colstream_blocks_and_cap``) reads the same
+    predicate: the static cap is sound only while host and device compute
+    the same alive sets."""
+    typos, nopre, neg, _sc, mode, _nbl = st
+    if neg:
+        return False
+    if mode != FUZZY_MODE:
+        return nlen > 0
+    T = min(int(typos), nlen)
+    return (not nopre) and nlen > T
+
+
 def _serve_keys(keys, *, flags_cat, Q, fetch_rows, finalize_cap, idx_bits,
                 idx_mask):
     """(Q, total) int64 keys -> (Q, 1 + fetch_rows, 2) rows: the match
@@ -300,30 +355,123 @@ def _row_major_flow(bits8, buckets_rm, needles_q, *, T, no_prefilter,
     return out
 
 
+def _fused_multi_batch_fast(bits8, buckets, stacked_patterns, *, n,
+                            pattern_statics, fetch_rows, finalize_cap=None):
+    """Multi-pattern (or single negated) serving over the column-stream
+    kernels. The per-group alive flags are the AND of every contributing
+    pattern's stage-1 flags (:func:`_pattern_s1_contributes`): a group
+    dead for any of them holds no combined match. Each (pattern, bucket)
+    launches once for all Q queries in columns mode over those flags, and
+    its five columns fold into the combined state before the next launch
+    (reference: src/matcher/multi.rs:84-152): a non-negated pattern ANDs
+    into matched, adds its score (saturating at 0xFFFF), ORs exact and
+    greedy and takes the larger end_col; a negated one vetoes. The keys
+    then take the single flow's finalize."""
+    Q = stacked_patterns[0][0].shape[0]
+    idx_bits = max((n - 1).bit_length(), 1)
+    idx_mask = (1 << idx_bits) - 1
+    dev = stacked_patterns[0][0].device
+    COLSTREAM_FLOWS["multi"] += 1
+    if not bits8:
+        return torch.zeros((Q, 1 + fetch_rows, 2), dtype=torch.int32,
+                           device=dev)
+    buckets_T = [b.device_arrays_colstream() for b in buckets]
+
+    infos = []
+    for (orig_q, flip_q, _sc), st in zip(stacked_patterns, pattern_statics):
+        typos, nopre, neg, scoring, mode, nbl = st
+        nlen = orig_q.shape[1]
+        infos.append(dict(
+            needles=torch.cat([orig_q, flip_q], dim=1).to(torch.int32),
+            T=0 if mode != FUZZY_MODE else min(int(typos), nlen),
+            mode=mode, nbl=nbl, scoring=scoring, neg=neg, nopre=nopre,
+            nlen=nlen, s1=_pattern_s1_contributes(st, nlen),
+        ))
+
+    flags_T = None
+    if any(i["s1"] for i in infos):
+        needs = [(needle_need_matrix(i["needles"]), i["T"])
+                 for i in infos if i["s1"]]
+        flags_T = []
+        for bt in buckets_T:
+            alive = None
+            for (need, tot), t in needs:
+                ok = presence_hits(bt[3], need) >= (tot - t)[None, :]
+                alive = ok if alive is None else alive & ok
+            flags_T.append(alive.T.to(torch.int32).contiguous())
+
+    keys = []
+    for bi, (bits, bt) in enumerate(zip(bits8, buckets_T)):
+        cpT, nuT, idxT, blk_bits, ctxT = bt
+        W = cpT.shape[0] // blk_bits.shape[0]
+        fl = flags_T[bi] if flags_T is not None else None
+        idx = idxT.reshape(1, -1)
+        cm = (idx >= 0).expand(Q, -1)
+        cs = torch.zeros(cm.shape, dtype=torch.int32, device=dev)
+        ce = torch.zeros(cm.shape, dtype=torch.bool, device=dev)
+        cec = torch.zeros_like(cs)
+        cg = torch.zeros_like(ce)
+        for info in infos:
+            m, s, e, ec, g = match_units_colstream(
+                cpT, nuT, pack_needle_scalars(info["needles"], bits.shape[0]),
+                fl, None, ctxT, W=W, n=info["nlen"], max_typos=info["T"],
+                scoring=info["scoring"], no_prefilter=info["nopre"],
+                mode=info["mode"], needle_byte_len=info["nbl"],
+            )
+            mb = m > 0
+            if info["neg"]:
+                cm = cm & ~mb
+            else:
+                cm = cm & mb
+                cs = torch.clamp(cs + torch.where(mb, s, 0), max=0xFFFF)
+                ce = ce | ((e > 0) & mb)
+                cec = torch.maximum(cec, torch.where(mb, ec, 0))
+                cg = cg | ((g > 0) & mb)
+        keys.append(_keys_from_cols(cm, cs, ce, cec, cg, idx, idx_bits)[0])
+    return _serve_keys(
+        torch.cat(keys, dim=1),
+        flags_cat=(torch.cat(flags_T, dim=1) if flags_T is not None
+                   else None),
+        Q=Q, fetch_rows=fetch_rows, finalize_cap=finalize_cap,
+        idx_bits=idx_bits, idx_mask=idx_mask,
+    )
+
+
 def fused_match_sorted_batch(
     bits8,  # per bucket PackedBucket.device_presence_bits()
     stacked_patterns,  # one (orig (Q,n), flip (Q,n), sc (Q,9)) per pattern
     *,
     n: int,  # corpus rows (sets the key's index width)
-    pattern_statics: Tuple,  # (typos, no_prefilter, negated, scoring, mode, nbl)
+    pattern_statics: Tuple,  # per pattern (typos, no_prefilter, negated,
+    #                          scoring, mode, nbl)
     fetch_rows: int,
     buckets,  # the corpus's PackedBuckets, each at most 1024 wide
     finalize_cap=None,  # host-chosen (cap_blocks, n_sel), or None
 ):
-    """Serve Q shape-uniform single-pattern queries against one resident
-    corpus: (Q, 1 + fetch_rows, 2) int32 on the corpus device.
+    """Serve Q shape-uniform queries against one resident corpus: (Q, 1 +
+    fetch_rows, 2) int32 on the corpus device.
 
-    :func:`uses_colstream` picks the flow: the colstream flow reads each
-    bucket's ``device_arrays_colstream()`` (with the ctx plane of a
-    unicode bucket; it takes ``finalize_cap``), the row-major flow its
-    ``device_arrays_rowmajor()`` (bytes, or the codepoints of a unicode
-    bucket). Queries outside
-    :func:`unserved_reason` raise NotImplementedError naming the slice
-    that ports them."""
+    One non-negated pattern: :func:`uses_colstream` picks the flow. The
+    colstream flow reads each bucket's ``device_arrays_colstream()``
+    (with the ctx plane of a unicode bucket; it takes ``finalize_cap``),
+    the row-major flow its ``device_arrays_rowmajor()`` (bytes, or the
+    codepoints of a unicode bucket). Several patterns, or one negated
+    pattern, whose atoms pass :func:`colstream_eligible_all` take
+    :func:`_fused_multi_batch_fast` (with ``finalize_cap``). Queries
+    outside these raise NotImplementedError naming the slice that ports
+    them."""
     if len(pattern_statics) != 1 or pattern_statics[0][2]:
-        raise NotImplementedError(
-            "multi-pattern and negated queries come with the "
-            "multi-pattern serving slice"
+        lens = tuple(p[0].shape[1] for p in stacked_patterns)
+        if not colstream_eligible_all(pattern_statics, lens):
+            raise NotImplementedError(
+                "multi-pattern or negated queries with an atom outside "
+                "the column-stream kernels' budgets come with the generic "
+                "pipelines slice"
+            )
+        return _fused_multi_batch_fast(
+            bits8, buckets, stacked_patterns, n=n,
+            pattern_statics=pattern_statics, fetch_rows=fetch_rows,
+            finalize_cap=finalize_cap,
         )
     st = pattern_statics[0]
     typos, no_prefilter, _neg, scoring, mode, nbl = st
@@ -377,6 +525,7 @@ def fused_match_sorted_batch(
         ]
 
     # in-place flow: one kernel launch per bucket covers all Q queries
+    COLSTREAM_FLOWS["single"] += 1
     keys = []
     for bi, (bits, bt) in enumerate(zip(bits8, buckets_T)):
         cpT, nuT, idxT, blk_bits, ctxT = bt

@@ -1,6 +1,6 @@
 """A/B of the package's CUDA kernels on one card, each built from one of
 several kernel source directories and timed in turns on the launches that
-served batches make, with the eight serving batches served by each.
+served batches make, with the ten serving batches served by each.
 
     python3 kernel_probe.py --variant parent=DIR \\
         --variant tree=frizbee_tpu_torch/csrc

@@ -207,12 +207,19 @@ def test_unit_mode_mismatch_raises(arabic):
 
 def test_greedy_row_raises():
     """A row whose trimmed window spans more than 1024 UTF-8 bytes is
-    greedy-flagged, and its rescoring is the host fixups slice's."""
+    greedy-flagged on the device and rescored on the host: served equal
+    to the reference (no longer refused)."""
+    from frizbee_tpu.matcher import match_topk_batch as j_topk
+
     hay = ["a" + "€" * 400 + "b", "ab", "xaxb"]
     corpus = pack_corpus(hay, unicode=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="host fixups"):
-        match_topk_batch(["ab"], corpus,
-                         Config(unicode=UnicodeMatching.ALWAYS), k=10)
+    got = match_topk_batch(["ab"], corpus,
+                           Config(unicode=UnicodeMatching.ALWAYS), k=10)
+    want = j_topk(["ab"], j_pack(hay, unicode=True),
+                  JConfig(unicode=JUnicodeMatching.ALWAYS), k=10)
+    assert got[0][0] == want[0][0] == 3
+    for a, b in zip(got[0][1:], want[0][1:]):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_long_unicode_literal_refused():
