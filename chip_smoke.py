@@ -61,7 +61,23 @@ Builds the package's CUDA kernels from ``frizbee_tpu_torch/csrc`` (one
    prefix) and ``unicode_multi`` (Q=16 over the Arabic corpus, "إن X"
    and "إن !Y", a negated substring), each asserting that colstream
    fuzzy and literal launched and every group took the multi flow;
-3. timing phase: the launches of one more batch of each path, captured
+3. single phase: the single-query Matcher API at Q=1 on the 1M-row
+   corpora, ``Matcher(q).match_arrays`` over the tiered result window
+   (max(65,536, N/8) rows, the count and the first 8,192 rows copied
+   back): "deadbeef" (colstream fuzzy, key-emit), "^dead" (colstream
+   literal), "deadbeef" at max_typos=4 and the 24-byte needle over its
+   corpus (row-major, int16 lanes), "dead !^beef" (columns mode), the
+   broad needle "e" (its count passes the tier: the full-window
+   re-dispatch and the full-sort finalize, asserted), and over the Arabic
+   corpus "إن" and an eight-codepoint needle at max_typos=4; the ASCII
+   and Arabic calls are paths of their own (``single``,
+   ``single_unicode``), counters set to 0 just before and read just
+   after; each query's kernels asserted, its rows held to
+   ``match_topk_batch``'s top 2048, its first call (new Matcher, cold
+   dispatch cache) and the median of 20 cached calls timed; "deadbeef"
+   and the broad needle's whole results held equal to the port on a
+   CPU-packed copy of the corpus;
+4. timing phase: the launches of one more batch of each path, captured
    (``_build.CAPTURE``) and replayed per kernel — held bit-equal to its
    plain version on the same arguments, then timed (CUDA events, warmed
    up, queued behind a device sleep so host launch overhead leaves no
@@ -74,7 +90,7 @@ Builds the package's CUDA kernels from ``frizbee_tpu_torch/csrc`` (one
    the int16 and int32 instantiations of ``match_units`` (typo, long
    needle) and of the colstream fuzzy kernel (fuzzy): medians, the share
    of rounds the int16 one won, and the bound both share;
-4. probes phase: the reference's kernel probes
+5. probes phase: the reference's kernel probes
    (``frizbee_tpu_torch/probes/``) at its shapes, each a path of its own
    with the counters set to 0 just before and read just after, each of
    their checks asserted: the broad top-k tournament at R 64 and 128
@@ -85,10 +101,11 @@ Builds the package's CUDA kernels from ``frizbee_tpu_torch/csrc`` (one
    kernel is then held bit-equal to its plain version on that probe's
    inputs and timed beside its bound and plain version (the row gather
    beside ``torch.index_select``);
-5. profile phase: torch.profiler over blocking fuzzy batches, ASCII and
+6. profile phase: torch.profiler over blocking fuzzy batches, ASCII and
    unicode, and multi-pattern ones (wall time, device busy time, top
-   kernels and host operations) and cProfile over one ASCII batch;
-6. card-versus-CPU phase: at 20k rows, Q=8, the (Q, 1+k, 2) serving
+   kernels and host operations) and cProfile over one ASCII batch; and
+   over cached single-query calls of "deadbeef" and the broad needle;
+7. card-versus-CPU phase: at 20k rows, Q=8, the (Q, 1+k, 2) serving
    arrays and the decoded top-k on the card equal the CPU's for fuzzy
    T=0 and T=1, literal, T=4 and long-needle batches, the multi-pattern
    groups at T=0 and T=1 with an all-negated query, for Arabic and
@@ -97,7 +114,15 @@ Builds the package's CUDA kernels from ``frizbee_tpu_torch/csrc`` (one
    over a mixed-script corpus, for the rows plus 64 XL rows (fuzzy T=0
    and T=1, literal, multi; the host fixups must add XL rows), and for
    the Arabic rows plus 32 rows of 600-1000 codepoints (fuzzy and multi;
-   greedy-flagged rows must come back and are rescored on the host).
+   greedy-flagged rows must come back and are rescored on the host);
+   then the single-query API at 20k rows: ``match_list``,
+   ``match_list_parallel(shards=4)``, ``match_arrays_batch`` at Q=32, the
+   empty query, an ASCII needle over an Arabic-packed corpus (the
+   repack), a greedy-risk corpus past k through ``match_topk_batch`` (the
+   full-fetch fallback), and ``match_iter`` over 262,144 strings in
+   chunks of 65,536, each equal to the port on the CPU; and device memory
+   back at its level before a pack once the corpus a Matcher's dispatch
+   cache held is dropped.
 
 Prints the card's name and power limit first, one JSON ``kernels`` line
 before the last, and ``{"ok": true, "device": {...}}`` last. Exits
@@ -1006,6 +1031,20 @@ def _gather_shapes(corpus):
     }
 
 
+def _counters():
+    from frizbee_tpu_torch.ops import _build
+    from frizbee_tpu_torch.ops import batch as fb
+
+    return (_build.LAUNCHES, fb.FINALIZE_ROUTES, fb.ROW_MAJOR_ROUTES,
+            fb.COLSTREAM_FLOWS)
+
+
+def _reset_counters():
+    for counter in _counters():
+        for k in counter:
+            counter[k] = 0
+
+
 def _serve(label, corpus, queries, cfg, kernels, detail):
     """One serving path: match_topk_batch (warm-up, 3 blocking batches)
     and a depth-3 match_topk_batch_async pipeline, with every launch and
@@ -1015,10 +1054,7 @@ def _serve(label, corpus, queries, cfg, kernels, detail):
     from frizbee_tpu_torch.ops import _build
     from frizbee_tpu_torch.ops import batch as fb
 
-    for counter in (_build.LAUNCHES, fb.FINALIZE_ROUTES,
-                    fb.ROW_MAJOR_ROUTES, fb.COLSTREAM_FLOWS):
-        for k in counter:
-            counter[k] = 0
+    _reset_counters()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     res = match_topk_batch(queries, corpus, cfg, k=TOP_K)
@@ -1164,22 +1200,184 @@ def serving_phase(paths, detail):
     return serving
 
 
-def profile_phase(label, corpus, queries, detail, host_profile=False):
-    """Where a serving batch's time goes: torch.profiler over blocking
-    batches — wall time, device busy time, and the top device kernels
-    and host operations; with ``host_profile``, cProfile over one more
-    batch."""
+# the single-query Matcher path at Q=1 (label, corpus, query, config
+# keywords, kernels its first call must launch): the column-stream
+# kernels in key-emit mode and, for the multi query, columns mode; the
+# row-major kernel in int16 lanes on byte rows, int32 on codepoints; a
+# broad one-byte needle whose count passes the 131,072-row tier, so the
+# full-window re-dispatch and the full-sort finalize run
+SINGLE_QUERIES = (
+    ("fuzzy", "ascii", "deadbeef", {}, ("colstream_fuzzy", "row_gather")),
+    ("literal", "ascii", "^dead", {}, ("colstream_literal",)),
+    ("typo", "ascii", "deadbeef", {"max_typos": TYPO_BUDGET},
+     ("match_units_i16",)),
+    ("long_needle", "long", LONG_NEEDLE, {}, ("match_units_i16",)),
+    ("multi", "ascii", "dead !^beef", {},
+     ("colstream_fuzzy", "colstream_literal")),
+    ("broad", "ascii", "e", {}, ("colstream_fuzzy",)),
+    ("unicode_fuzzy", "arabic", UNICODE_NEEDLE["arabic"], {},
+     ("colstream_fuzzy",)),
+    ("unicode_typo", "arabic", _unicode_queries(1, kind=TYPO_BUDGET)[0],
+     {"max_typos": TYPO_BUDGET}, ("match_units",)),
+)
+# the single paths' counters: ASCII and codepoint launches apart, as the
+# kernels line keeps them
+SINGLE_PATHS = ("single", "single_unicode")
+SINGLE_TIMED_CALLS = 20
+
+
+def _single_queries(corpora):
+    """(label, path, corpus, query, Config, kernels) of SINGLE_QUERIES."""
+    from frizbee_tpu_torch import Config
+
+    return [(label, SINGLE_PATHS[key == "arabic"], corpora[key], q,
+             Config(**cfg), kernels)
+            for label, key, q, cfg, kernels in SINGLE_QUERIES]
+
+
+def single_phase(corpora, hay, serving, detail):
+    """The single-query Matcher API at Q=1 on the 1M-row corpora, through
+    ``Matcher(q).match_arrays``: each path (ASCII, Arabic) with every
+    counter set to 0 just before its first calls and read just after;
+    each query's launches and finalize routes, asserting the kernels it
+    must launch; its decoded rows against ``match_topk_batch``'s top
+    2048; the first call (a new Matcher: cold dispatch cache) and the
+    median of SINGLE_TIMED_CALLS cached calls, blocking ms; the broad
+    needle's count past the tier and its full-window re-dispatch; and
+    card against CPU at 1M rows for "deadbeef" and the broad needle."""
+    from frizbee_tpu_torch import Matcher, match_topk_batch, pack_corpus
+    from frizbee_tpu_torch import matcher as fm
+    from frizbee_tpu_torch.ops import _build
+    from frizbee_tpu_torch.ops import batch as fb
+
+    queries = _single_queries(corpora)
+    out = {}
+    results = {}
+    dispatches = []
+    dispatch = fm.Matcher._fused_dispatch
+
+    def counting_dispatch(self, corpus, full_window=False, prep=None):
+        dispatches.append(bool(full_window))
+        return dispatch(self, corpus, full_window, prep)
+
+    fm.Matcher._fused_dispatch = counting_dispatch
+    try:
+        for path in SINGLE_PATHS:
+            mine = [x for x in queries if x[1] == path]
+            _reset_counters()
+            torch.cuda.synchronize()
+            for label, _p, corpus, q, cfg, kernels in mine:
+                before = [dict(c) for c in _counters()]
+                dispatches.clear()
+                t0 = time.perf_counter()
+                res = Matcher.from_query(q, cfg).match_arrays(corpus)
+                cold_ms = (time.perf_counter() - t0) * 1e3
+                launched, routes = (
+                    {k: v - b.get(k, 0) for k, v in c.items()
+                     if v - b.get(k, 0)}
+                    for c, b in zip(_counters()[:2], before[:2]))
+                for name in kernels:
+                    assert launched.get(name, 0) > 0, (
+                        f"single {label}: kernel {name} never launched")
+                results[label] = res
+                out[label] = {
+                    "query": q, "corpus_rows": len(corpus),
+                    "max_typos": cfg.max_typos, "count": len(res[0]),
+                    "launches": launched, "finalize_routes": routes,
+                    "dispatches": ["full" if f else "tier"
+                                   for f in dispatches],
+                    "cold_ms": cold_ms,
+                }
+            torch.cuda.synchronize()
+            serving[path] = {"launches": dict(_build.LAUNCHES),
+                             "finalize_routes": dict(fb.FINALIZE_ROUTES)}
+    finally:
+        fm.Matcher._fused_dispatch = dispatch
+    tier = max(fm.Q1_WINDOW_MIN, N_ROWS // 8)
+    broad = out["broad"]
+    assert broad["count"] > tier, (
+        f"the broad needle's {broad['count']} matches fit the "
+        f"{tier}-row tier")
+    assert broad["dispatches"] == ["tier", "full"], broad["dispatches"]
+    assert broad["finalize_routes"].get("full", 0) > 0, broad
+    for label, _p, corpus, q, cfg, _k in queries:
+        res = results[label]
+        assert np.all(np.diff(res[1]) <= 0), f"single {label}: not sorted"
+        assert len(res[0]) > 0, f"single {label}: nothing matched"
+        top = match_topk_batch([q], corpus, cfg, k=TOP_K)[0]
+        assert top[0] == len(res[0]), (label, top[0], len(res[0]))
+        for a, b in zip(top[1:], res):
+            assert np.array_equal(a, b[:TOP_K]), (
+                f"single {label}: rows differ from match_topk_batch")
+        m = Matcher.from_query(q, cfg)
+        m.match_arrays(corpus)
+        times = []
+        for _ in range(SINGLE_TIMED_CALLS):
+            t0 = time.perf_counter()
+            m.match_arrays(corpus)
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[label]["cached_ms"] = times
+        out[label]["cached_median_ms"] = float(np.median(times))
+        print(f"single phase, {label}: " + json.dumps(
+            {k: v for k, v in out[label].items() if k != "cached_ms"},
+            ensure_ascii=False), flush=True)
+    # card against CPU at 1M rows: the whole result, plain versions on a
+    # CPU-packed copy of the corpus
+    t0 = time.perf_counter()
+    on_cpu = pack_corpus(hay, device="cpu")
+    for label, _p, _c, q, cfg, _k in queries:
+        if label not in ("fuzzy", "broad"):
+            continue
+        want = Matcher.from_query(q, cfg).match_arrays(on_cpu)
+        for a, b in zip(results[label], want):
+            assert np.array_equal(a, b), f"single {label}: card != CPU"
+    del on_cpu
+    detail["single_cpu_parity_seconds"] = time.perf_counter() - t0
+    detail["single"] = out
+    return [(path, [(x[2], x[3], x[4]) for x in queries if x[1] == path])
+            for path in SINGLE_PATHS]
+
+
+def _capture_single(calls_of):
+    """The launches (kernel name, (args, kwargs)) of one cached
+    ``match_arrays`` call of each query of a single path."""
+    from frizbee_tpu_torch import Matcher
+    from frizbee_tpu_torch.ops import _build
+
+    _build.CAPTURE = []
+    for corpus, q, cfg in calls_of:
+        Matcher.from_query(q, cfg).match_arrays(corpus)
+    calls, _build.CAPTURE = _build.CAPTURE, None
+    return calls
+
+
+def single_profile_phase(corpora, detail):
+    """Device busy and idle share of cached single-query calls, for
+    "deadbeef" and the broad needle (torch.profiler)."""
+    from frizbee_tpu_torch import Matcher
+
+    for label, key, q, cfg, _k in SINGLE_QUERIES:
+        if label not in ("fuzzy", "broad"):
+            continue
+        m = Matcher.from_query(q)
+        m.match_arrays(corpora[key])
+        _profile(f"single_{label}", lambda: m.match_arrays(corpora[key]),
+                 5, detail, {"query": q})
+
+
+def _profile(label, fn, reps, detail, extra):
+    """torch.profiler over ``reps`` blocking calls of ``fn``: wall time,
+    device busy time and idle share a call, peak device memory, and the
+    top device kernels and host operations. Returns the detail entry."""
     from torch.profiler import ProfilerActivity, profile
 
-    from frizbee_tpu_torch import Config, match_topk_batch
-
-    reps = 3
     torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
-            match_topk_batch(queries, corpus, Config(), k=TOP_K)
+            fn()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) / reps * 1e3
     peak = torch.cuda.max_memory_allocated()
     events = prof.key_averages()
@@ -1199,7 +1397,7 @@ def profile_phase(label, corpus, queries, detail, host_profile=False):
     host_ops = sorted(events, key=lambda e: e.self_cpu_time_total,
                       reverse=True)
     out = {
-        "batch_queries": len(queries),
+        **extra,
         "wall_ms_per_batch": wall_ms,
         "device_busy_ms_per_batch": busy_ms,
         "device_idle_share": 1 - busy_ms / wall_ms,
@@ -1214,6 +1412,24 @@ def profile_phase(label, corpus, queries, detail, host_profile=False):
             for e in host_ops[:12]
         ],
     }
+    detail.setdefault("profile", {})[label] = out
+    print(f"profile phase, {label}: " + json.dumps({
+        k: out[k] for k in ("wall_ms_per_batch", "device_busy_ms_per_batch",
+                            "device_idle_share")
+    }) + " top device: " + json.dumps(out["top_device_ms_per_batch"][:5]),
+        flush=True)
+    return out
+
+
+def profile_phase(label, corpus, queries, detail, host_profile=False):
+    """Where a serving batch's time goes: :func:`_profile` over 3
+    blocking batches; with ``host_profile``, cProfile over one more
+    batch."""
+    from frizbee_tpu_torch import Config, match_topk_batch
+
+    out = _profile(
+        label, lambda: match_topk_batch(queries, corpus, Config(), k=TOP_K),
+        3, detail, {"batch_queries": len(queries)})
     if host_profile:
         # host-side candidates: cProfile over one more batch (it slows
         # Python calls, so only the shares are read from it)
@@ -1234,12 +1450,6 @@ def profile_phase(label, corpus, queries, detail, host_profile=False):
         out["cprofile_top_cumulative_ms"] = [
             [name, sec * 1e3] for sec, name in rows[:25]
         ]
-    detail.setdefault("profile", {})[label] = out
-    print(f"profile phase, {label}: " + json.dumps({
-        k: out[k] for k in ("wall_ms_per_batch", "device_busy_ms_per_batch",
-                            "device_idle_share")
-    }) + " top device: " + json.dumps(out["top_device_ms_per_batch"][:5]),
-        flush=True)
 
 
 def _time_once_ms(fn):
@@ -1488,29 +1698,31 @@ def _replay(entry, name, calls, errs):
 KERNELS = (
     # entry, kernel (its launch counter), source, TPU kernel it replaces,
     # paths it runs on (the unicode launches of the match kernels are
-    # entries of their own; fuzzy_int16 drives the fuzzy batch's colstream
+    # entries of their own; single and single_unicode are the
+    # single-query Matcher path's ASCII and Arabic calls; fuzzy_int16 drives the fuzzy batch's colstream
     # launches with int16 lanes, typo_int32 and long_needle_int32 those
     # batches' row-major launches with int32 lanes, contract the contract
     # phase)
     ("colstream_fuzzy", "colstream_fuzzy",
      "frizbee_tpu_torch/csrc/colstream_fuzzy.cu",
-     "frizbee_tpu/ops/colstream.py:954", ("fuzzy", "multi")),
+     "frizbee_tpu/ops/colstream.py:954", ("fuzzy", "multi", "single")),
     ("colstream_literal", "colstream_literal",
      "frizbee_tpu_torch/csrc/colstream_literal.cu",
-     "frizbee_tpu/ops/colstream.py:954", ("literal", "multi")),
+     "frizbee_tpu/ops/colstream.py:954", ("literal", "multi", "single")),
     ("row_gather", "row_gather", "frizbee_tpu_torch/csrc/row_gather.cu",
      "frizbee_tpu/ops/colstream.py:749",
-     ("fuzzy", "literal", "typo", "long_needle", "multi")),
+     ("fuzzy", "literal", "typo", "long_needle", "multi", "single")),
     ("row_gather_unicode", "row_gather",
      "frizbee_tpu_torch/csrc/row_gather.cu",
      "frizbee_tpu/ops/colstream.py:749",
-     ("unicode_fuzzy", "unicode_literal", "unicode_typo", "unicode_multi")),
+     ("unicode_fuzzy", "unicode_literal", "unicode_typo", "unicode_multi",
+      "single_unicode")),
     ("match_units", "match_units", "frizbee_tpu_torch/csrc/match_units.cu",
      "frizbee_tpu/ops/kernels.py:632",
      ("typo_wide", "typo_int32", "long_needle_int32")),
     ("match_units_i16", "match_units_i16",
      "frizbee_tpu_torch/csrc/match_units.cu",
-     "frizbee_tpu/ops/kernels.py:632", ("typo", "long_needle")),
+     "frizbee_tpu/ops/kernels.py:632", ("typo", "long_needle", "single")),
     ("colstream_fuzzy_i16", "colstream_fuzzy_i16",
      "frizbee_tpu_torch/csrc/colstream_fuzzy.cu",
      "frizbee_tpu/ops/colstream.py:954", ("fuzzy_int16",)),
@@ -1519,13 +1731,14 @@ KERNELS = (
      "tests/test_kernel_contract.py:52", ("contract",)),
     ("colstream_fuzzy_unicode", "colstream_fuzzy",
      "frizbee_tpu_torch/csrc/colstream_fuzzy.cu",
-     "frizbee_tpu/ops/colstream.py:954", ("unicode_fuzzy", "unicode_multi")),
+     "frizbee_tpu/ops/colstream.py:954",
+     ("unicode_fuzzy", "unicode_multi", "single_unicode")),
     ("colstream_literal_unicode", "colstream_literal",
      "frizbee_tpu_torch/csrc/colstream_literal.cu",
      "frizbee_tpu/ops/colstream.py:954", ("unicode_literal", "unicode_multi")),
     ("match_units_unicode", "match_units",
      "frizbee_tpu_torch/csrc/match_units.cu",
-     "frizbee_tpu/ops/kernels.py:632", ("unicode_typo",)),
+     "frizbee_tpu/ops/kernels.py:632", ("unicode_typo", "single_unicode")),
 )
 
 
@@ -1623,7 +1836,7 @@ def ab_phase(calls, detail):
     return out
 
 
-def timing_phase(paths, serving, errs, detail):
+def timing_phase(paths, single, serving, errs, detail):
     """Each kernel's time at its serving shapes: the launches of one batch
     of each path it runs on, captured and replayed, beside their bound,
     their plain version and, for the row gather, ``torch.index_select``.
@@ -1631,10 +1844,15 @@ def timing_phase(paths, serving, errs, detail):
     fuzzy batch's colstream launches are driven again with int16 lanes
     (which no serving path takes), the typo and long-needle batches'
     row-major launches with int32 lanes (which they no longer take), each
-    a path of its own; then the int16/int32 A/B on the same launches."""
+    a path of its own; then the int16/int32 A/B on the same launches.
+    ``single`` holds the single-query paths' (path, [(corpus, query,
+    config)]): one cached ``match_arrays`` call of each is captured."""
     calls = {label: _capture(c, queries, cfg)
              for label, (c, queries, cfg, _k) in paths.items()}
     paths_q = {label: p[1] for label, p in paths.items()}
+    for path, calls_of in single:
+        calls[path] = _capture_single(calls_of)
+        paths_q[path] = [q for _c, q, _cfg in calls_of]
     for path, name, lanes in (("fuzzy", "colstream_fuzzy", "int16"),
                               ("typo", "match_units", "int32"),
                               ("long_needle", "match_units", "int32")):
@@ -1659,7 +1877,8 @@ def timing_phase(paths, serving, errs, detail):
                 for p, c in per_path.items() if c
             }
         work["per"] = "one batch of each of " + ", ".join(
-            f"{p} (Q={len(paths_q[p])})" for p in paths)
+            f"{p} ({'Q=1 x ' if p in SINGLE_PATHS else 'Q='}"
+            f"{len(paths_q[p])})" for p in paths)
         detail["timing"][entry] = {**nums, **work}
         print(f"timing phase: {entry} " + json.dumps(detail["timing"][entry]),
               flush=True)
@@ -1991,6 +2210,141 @@ def cpu_parity_phase(detail):
           f"({n_rows} rows, Q={q}): {json.dumps(compared)}", flush=True)
 
 
+# match_iter's card-versus-CPU input: four chunks of the default
+# iter_chunk (65,536 rows), a reduced size of the 1M-row corpus
+ITER_ROWS = 262_144
+
+
+def single_cpu_parity_phase(detail):
+    """Reduced size (20k rows; match_iter at ITER_ROWS): the single-query
+    API on the card equals the port on the CPU — ``match_list`` and
+    ``match_iter`` over strings, ``match_list_parallel(shards=4)``,
+    ``match_arrays_batch`` at Q=32, the empty query, an ASCII needle over
+    an Arabic-packed corpus (the repack), and a greedy-risk corpus past k
+    through ``match_topk_batch`` (the full-fetch fallback); then a
+    corpus that a Matcher's dispatch cache holds is dropped and device
+    memory returns to its level before the pack."""
+    import gc
+
+    from frizbee_tpu_torch import (
+        Config,
+        Matcher,
+        datagen,
+        fuzzy_match,
+        match_arrays_batch,
+        match_list,
+        match_topk_batch,
+        pack_corpus,
+    )
+
+    n_rows = 20_000
+    hay = datagen.partial_match_corpus(median_length=MEDIAN_LEN,
+                                       num_samples=n_rows, seed=7)
+    seconds = {}
+
+    def same(label, got, want, must_match=True):
+        assert len(got) == len(want), label
+        for a, b in zip(got, want):
+            if isinstance(a, np.ndarray):
+                assert np.array_equal(a, b), f"card != CPU: {label}"
+            else:
+                assert a == b, f"card != CPU: {label}"
+        assert not must_match or len(got[0]) > 0, f"{label}: no match"
+
+    def rows(ms):
+        return [(m.score, m.index, m.exact, m.end_col) for m in ms]
+
+    t0 = time.perf_counter()
+    for q in ("deadbeef", "dead !^beef", "'dead"):
+        got = Matcher.from_query(q).match_list(hay)
+        want = Matcher.from_query(q, device="cpu").match_list(hay)
+        same(f"match_list {q}", got.arrays(), want.arrays())
+    assert match_list("deadbeef", hay) == match_list("deadbeef", hay,
+                                                     device="cpu")
+    seconds["match_list"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    iter_hay = datagen.partial_match_corpus(median_length=MEDIAN_LEN,
+                                            num_samples=ITER_ROWS, seed=8)
+    card, cpu = Matcher.from_query("deadbeef"), Matcher.from_query(
+        "deadbeef", device="cpu")
+    assert card.iter_chunk == 65536
+    got = rows(card.match_iter(iter_hay))
+    assert got and got == rows(cpu.match_iter(iter_hay)), "match_iter"
+    assert rows(fuzzy_match(iter(hay), "deadbeef")) == rows(
+        fuzzy_match(iter(hay), "deadbeef", device="cpu")), "fuzzy_match"
+    seconds["match_iter"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    got = Matcher.from_query("deadbeef").match_list_parallel(hay, 4)
+    want = Matcher.from_query("deadbeef", device="cpu").match_list_parallel(
+        hay, 4)
+    assert got and rows(got) == rows(want), "match_list_parallel"
+    seconds["match_list_parallel"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    on_card, on_cpu = pack_corpus(hay), pack_corpus(hay, device="cpu")
+    queries = _queries(Q)
+    for i, (g, w) in enumerate(zip(match_arrays_batch(queries, on_card),
+                                   match_arrays_batch(queries, on_cpu))):
+        same(f"match_arrays_batch {queries[i]}", g, w, i == 0)
+    seconds["match_arrays_batch"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    same("empty query", Matcher.from_query("").match_arrays(on_card),
+         Matcher.from_query("").match_arrays(on_cpu))
+    for g, w in zip(match_topk_batch(["", "deadbeef"], on_card, k=TOP_K),
+                    match_topk_batch(["", "deadbeef"], on_cpu, k=TOP_K)):
+        same("empty query, match_topk_batch", g[1:], w[1:])
+        assert g[0] == w[0]
+    seconds["empty"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    arabic = _unicode_corpus(n_rows, "arabic", seed=7)
+    mixed = arabic[: n_rows // 2] + hay[: n_rows // 2]
+    ucard = pack_corpus(mixed, unicode=True)
+    ucpu = pack_corpus(mixed, unicode=True, device="cpu")
+    same("ASCII needle over the Arabic-packed corpus",
+         Matcher.from_query("deadbeef").match_arrays(ucard),
+         Matcher.from_query("deadbeef").match_arrays(ucpu))
+    seconds["repack"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    greedy_hay = arabic + _greedy_rows(32)
+    gcard = pack_corpus(greedy_hay, unicode=True)
+    gcpu = pack_corpus(greedy_hay, unicode=True, device="cpu")
+    assert gcard.greedy_risk()
+    needle, k = UNICODE_NEEDLE["arabic"], 64
+    got = match_topk_batch([needle], gcard, Config(), k=k)[0]
+    want = match_topk_batch([needle], gcpu, Config(), k=k)[0]
+    assert got[0] > k, f"greedy-risk count {got[0]} within k"
+    assert got[0] == want[0]
+    same("greedy-risk corpus past k", got[1:], want[1:])
+    seconds["greedy_full_fetch"] = time.perf_counter() - t0
+
+    # a corpus the dispatch cache holds: dropping it frees its tensors
+    del on_card, ucard, gcard
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    corpus = pack_corpus(hay)
+    m = Matcher.from_query("deadbeef")
+    m.match_arrays(corpus)
+    packed = torch.cuda.memory_allocated()
+    assert m._dispatch_cache and packed > base
+    del corpus
+    gc.collect()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    assert not m._dispatch_cache, "dispatch cache kept a dropped corpus"
+    assert after == base, f"device memory {base} -> {after} after eviction"
+    detail["single_memory_bytes"] = {"before_pack": base, "packed": packed,
+                                     "after_drop": after}
+    detail["single_cpu_parity_seconds_20k"] = seconds
+    print(f"single card-vs-CPU phase: equal ({json.dumps(seconds)}); "
+          f"device memory {base} -> {packed} -> {after} bytes", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2072,7 +2426,11 @@ def main():
     serving = serving_phase(paths, detail)
     phases["serving"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    entries = timing_phase(paths, serving, errs, detail)
+    corpora = {"ascii": corpus, "long": long_corpus, "arabic": ucorpus}
+    single = single_phase(corpora, hay, serving, detail)
+    phases["single"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    entries = timing_phase(paths, single, serving, errs, detail)
     entries.append(contract_entry)
     phases["timing"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -2082,11 +2440,16 @@ def main():
     profile_phase("fuzzy", corpus, _queries(Q), detail, host_profile=True)
     profile_phase("unicode_fuzzy", ucorpus, _unicode_queries(UQ), detail)
     profile_phase("multi", corpus, _multi_queries(Q), detail)
+    single_profile_phase(corpora, detail)
     phases["profile"] = time.perf_counter() - t0
-    del corpus, hay, long_corpus, long_hay, ucorpus, uhay, paths
+    del corpus, hay, long_corpus, long_hay, ucorpus, uhay, paths, corpora
+    del single
     t0 = time.perf_counter()
     cpu_parity_phase(detail)
     phases["cpu_parity"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    single_cpu_parity_phase(detail)
+    phases["single_cpu_parity"] = time.perf_counter() - t0
     detail["phase_seconds"] = phases
     detail["total_seconds"] = time.perf_counter() - t_start
     detail["kernels"] = entries

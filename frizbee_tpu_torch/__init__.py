@@ -1,19 +1,21 @@
-"""frizbee-tpu on PyTorch and CUDA: batched top-k fuzzy serving on an
-NVIDIA H100.
+"""frizbee-tpu on PyTorch and CUDA: fuzzy matching and batched top-k
+serving on an NVIDIA H100.
 
-The port of ``frizbee_tpu``'s serving main path: a resident packed
-corpus (byte units, or codepoint units for unicode needles) answers
-batches of single-pattern fuzzy and literal queries through
-``match_topk_batch`` / ``match_topk_batch_async``. The device kernels of
-that path — the column-stream fuzzy and literal matches, the row-major
+The port of ``frizbee_tpu``'s Matcher API and serving path: a resident
+packed corpus (byte units, or codepoint units for unicode needles)
+answers single queries (``Matcher(q).match_arrays`` / ``match_list`` /
+``match_iter``, the one-shot ``match_list``, ``match_list_parallel`` and
+``fuzzy_match``) and batches of queries (``match_topk_batch`` /
+``match_topk_batch_async`` / ``match_arrays_batch``). The device kernels
+of that path — the column-stream fuzzy and literal matches, the row-major
 match and the whole-row gather — are hand-written CUDA for ``sm_90a``
 (``csrc/``); everything else is plain PyTorch. Entry points run on the
 card unless the caller passes ``device="cpu"``, which runs the kernels'
 plain PyTorch versions.
 
-``config``, ``casefold``, ``pattern`` and ``datagen`` are copies of
-``frizbee_tpu``'s modules of the same names: the package imports nothing
-of ``frizbee_tpu`` and nothing of JAX.
+``config``, ``casefold``, ``pattern``, ``datagen``, ``types`` and
+``sort`` are copies of ``frizbee_tpu``'s modules of the same names: the
+package imports nothing of ``frizbee_tpu`` and nothing of JAX.
 """
 
 from .config import (
@@ -28,10 +30,16 @@ from .corpus import Corpus, pack_corpus
 from .matcher import (
     BatchFuture,
     Matcher,
+    fuzzy_match,
+    match_arrays_batch,
+    match_list,
+    match_list_parallel,
     match_topk_batch,
     match_topk_batch_async,
 )
 from .pattern import Pattern, PatternConfig
+from .sort import sort_matches
+from .types import Match, MatchIndices, MatchList
 
 __version__ = "0.1.0"
 
@@ -40,6 +48,9 @@ __all__ = [
     "CaseMatching",
     "Config",
     "Corpus",
+    "Match",
+    "MatchIndices",
+    "MatchList",
     "Matcher",
     "Matching",
     "Pattern",
@@ -47,7 +58,12 @@ __all__ = [
     "Scoring",
     "SortStrategy",
     "UnicodeMatching",
+    "fuzzy_match",
+    "match_arrays_batch",
+    "match_list",
+    "match_list_parallel",
     "match_topk_batch",
     "match_topk_batch_async",
     "pack_corpus",
+    "sort_matches",
 ]

@@ -3,10 +3,14 @@ pipelines that rescore the rows the device does not finish.
 
 Counterpart of ``frizbee_tpu/engine.FuzzyEngine`` and ``LiteralEngine``:
 unit tokenization, case and unicode resolution, the u16 overflow guards,
-the host needle arrays the dispatcher stacks per batch, and the per-row
+the host needle arrays the dispatcher stacks per batch, the per-row
 host pipelines (``match_one``, ``match_many``) that score greedy-flagged
 rows (trimmed window over the 1024-byte DP cap) and XL rows (wider than
-the widest bucket) with the oracle's semantics.
+the widest bucket) with the oracle's semantics, and ``match_corpus``,
+the per-pattern whole-corpus result the matcher combines when a query
+does not take the fused device path. Its host branch
+(``use_device=False``) is the reference's oracle; its device branch, the
+generic bucket pipelines, comes with the generic pipelines slice.
 """
 
 from __future__ import annotations
@@ -27,13 +31,33 @@ from .oracle.smith_waterman import match_end_col, sw_matrices
 from .ops.fuzzy import SCORING_FIELDS
 from .types import Match
 
+GENERIC_PIPELINES = (
+    "the per-pattern device pipelines (queries whose atoms mix unit "
+    "modes, or that no fused device path serves) come with the generic "
+    "pipelines slice; Matcher(..., use_device=False) serves them on the "
+    "host"
+)
+
+
+class MatchResult:
+    """Column-oriented per-haystack results for one pattern over a corpus."""
+
+    __slots__ = ("matched", "score", "exact", "end_col")
+
+    def __init__(self, n: int):
+        self.matched = np.zeros(n, dtype=bool)
+        self.score = np.zeros(n, dtype=np.int64)
+        self.exact = np.zeros(n, dtype=bool)
+        self.end_col = np.zeros(n, dtype=np.int64)
+
 
 class _NeedleEngine:
     """Needle units and the cached host arrays both engines share."""
 
-    def __init__(self, needle: str, config: Config):
+    def __init__(self, needle: str, config: Config, use_device: bool = True):
         self.needle = needle
         self.config = config
+        self.use_device = use_device
         self.case_sensitive = config.casing.respects_case_for(needle)
         self.unicode = config.unicode.respects_unicode_for(needle)
         self.needle_bytes = needle.encode("utf-8")
@@ -83,8 +107,8 @@ class _NeedleEngine:
 class FuzzyEngine(_NeedleEngine):
     """Fuzzy (Smith-Waterman) matching for one needle + resolved config."""
 
-    def __init__(self, needle: str, config: Config):
-        super().__init__(needle, config)
+    def __init__(self, needle: str, config: Config, use_device: bool = True):
+        super().__init__(needle, config, use_device)
         self.min_haystack_len = (
             max(len(needle) - config.max_typos, 0)
             if config.max_typos is not None
@@ -156,6 +180,32 @@ class FuzzyEngine(_NeedleEngine):
             score = min(score + scoring.exact_match_bonus, U16_MAX)
         return (score, exact, end_col, wstart, end, False)
 
+    def match_corpus(self, corpus) -> MatchResult:
+        """Every row's result for this pattern, in corpus order. The host
+        branch runs the per-row oracle pipeline over every row, bucketed
+        or XL (the reference's differential baseline)."""
+        assert corpus.unicode == self.unicode, (
+            "corpus packed for wrong unicode mode")
+        out = MatchResult(len(corpus))
+        if not self.units.orig:
+            return out  # empty needles take the Matcher's copy path
+        if self.use_device:
+            raise NotImplementedError(GENERIC_PIPELINES)
+        for i, h in enumerate(corpus.haystacks):
+            self._host_row(h, i, out)
+        return out
+
+    def _host_row(self, haystack: str, index: int, out: MatchResult) -> None:
+        res = self._host_pipeline(haystack)
+        if res is None:
+            out.matched[index] = False
+            return
+        score, exact, end_col, _, _, _ = res
+        out.matched[index] = True
+        out.score[index] = score
+        out.exact[index] = exact
+        out.end_col[index] = end_col
+
     def match_one(self, haystack: str, index: int) -> Optional[Match]:
         res = self._host_pipeline(haystack)
         if res is None:
@@ -197,8 +247,25 @@ class LiteralEngine(_NeedleEngine):
         end_col = min(max(pos + len(self.needle_bytes) - 1, 0), U16_MAX)
         return Match(score=score, index=index, exact=exact, end_col=end_col)
 
+    def match_corpus(self, corpus) -> MatchResult:
+        """Every row's result for this pattern, in corpus order. The host
+        branch (``use_device=False``, or a corpus packed in the other
+        unit mode: literal units are byte sequences either way) runs the
+        per-row literal matcher over every row."""
+        out = MatchResult(len(corpus))
+        if not self.units.orig:
+            return out
+        if self.use_device and corpus.unicode == self.unicode:
+            raise NotImplementedError(GENERIC_PIPELINES)
+        m, s, e, ec = self.match_many(corpus.haystacks)
+        out.matched[:] = m
+        out.score[:] = np.where(m, s, 0)
+        out.exact[:] = e & m
+        out.end_col[:] = np.where(m, ec, 0)
+        return out
 
-def make_engine(needle: str, config: Config):
+
+def make_engine(needle: str, config: Config, use_device: bool = True):
     if config.matching.is_fuzzy:
-        return FuzzyEngine(needle, config)
-    return LiteralEngine(needle, config)
+        return FuzzyEngine(needle, config, use_device)
+    return LiteralEngine(needle, config, use_device)

@@ -1,37 +1,52 @@
-"""Batched top-k serving: ``match_topk_batch`` and its pipelined form.
+"""The Matcher API: single-query matching and batched top-k serving.
 
-Counterpart of the serving half of ``frizbee_tpu/matcher.py``: queries
-compile to ``Matcher`` objects, shape-uniform queries group into one
-batched device pass each (``ops/batch.fused_match_sorted_batch``), and
-the ``(Q, 1+k, 2)`` results decode on the host into per-query
-``(total_count, index, score, exact, end_col)`` arrays.
+Counterpart of ``frizbee_tpu/matcher.py``. A ``Matcher`` compiles one
+query (one pattern, or several atoms, some negated) once and matches it
+against many corpora:
 
-It serves queries with a score sort over corpora of bucket width
-<= 1024: ASCII needles over byte-unit corpora and unicode needles
-(``UnicodeMatching.SMART`` with a non-ASCII needle, or any needle under
-``ALWAYS``) over codepoint-unit corpora. A single pattern is a fuzzy
-needle of up to 64 units with a typo budget of up to 8 (the
-column-stream kernel for up to 16 units and budgets of up to 3, the
-row-major kernel beyond), or a literal needle (exact, prefix, suffix,
-substring) of up to 16 units. Several patterns, or a negated one
-(``foo !^bar``), are served when every atom fits the column-stream
-kernels and all atoms share one unit mode. Greedy-flagged rows (trimmed
-window over the 1024-byte DP cap) and XL rows (wider than the widest
-bucket) are rescored on the host with the oracle's pipelines, as the
-reference does. Queries and corpora outside that raise
-NotImplementedError naming the slice that ports them.
+- ``match_arrays`` / ``match_list`` / ``match_one`` / ``match_iter`` /
+  ``match_list_parallel`` and the one-shot ``match_list``,
+  ``match_list_parallel`` and ``fuzzy_match``. A query the fused device
+  path serves runs the batched program at Q=1 (``_fused_dispatch``) over
+  a tiered result window of ``max(Q1_WINDOW_MIN, N/8)`` rows, ships only
+  the count and the first ``fetch_rows`` rows to the host, and
+  re-dispatches once with the whole corpus as its window when the count
+  overflows the tier. Empty queries take the copy path; a needle whose
+  unit mode differs from the corpus is repacked on the corpus device.
+- ``match_topk_batch`` / ``match_topk_batch_async`` /
+  ``match_arrays_batch``: shape-uniform queries group into one batched
+  device pass each (``ops/batch.fused_match_sorted_batch``), and the
+  ``(Q, 1+k, 2)`` results decode on the host. Queries a group cannot
+  take (empty, of mixed unit modes, or of a unit mode other than the
+  corpus's) and greedy-risk overflow go through the per-query path.
+
+The fused device path serves queries with a score sort over corpora of
+bucket width <= 1024: a single fuzzy needle of up to 64 units with a typo
+budget of up to 8 (the column-stream kernel for up to 16 units and
+budgets of up to 3, the row-major kernel beyond), a single literal
+needle (exact, prefix, suffix, substring) of up to 16 units, or several
+atoms, negated ones among them (``foo !^bar``), when every atom fits the
+column-stream kernels and all share one unit mode. Greedy-flagged rows
+(trimmed window over the 1024-byte DP cap) and XL rows (wider than the
+widest bucket) are rescored on the host with the oracle's pipelines, as
+the reference does. Under ``use_device=True`` the rest raise
+NotImplementedError at match time, naming the generic pipelines slice;
+``use_device=False`` is the reference's host oracle and serves every
+query.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Union
+import weakref
+from itertools import islice
+from typing import Iterable, Iterator, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
-from .config import U16_MAX, Config, SortStrategy
+from .config import U16_MAX, Config, SortStrategy, sat_add_u16
 from .corpus import GROUP_ROWS, Corpus, pack_corpus
-from .engine import make_engine
+from .engine import MatchResult, make_engine
 from .ops.batch import (
     _pattern_s1_contributes,
     colstream_eligible_all,
@@ -42,8 +57,21 @@ from .ops.batch import (
 from .ops.colstream import FUZZY_MODE
 from .ops.fuzzy import SCORING_FIELDS
 from .pattern import Pattern
+from .sort import (
+    k_merge_matches_by_index_asc,
+    k_merge_matches_by_index_desc,
+    k_merge_matches_by_score_then_index_asc,
+    k_merge_matches_by_score_then_index_desc,
+)
+from .types import Match, MatchList
 
 PatternLike = Union[str, Pattern]
+
+# Tiered Q=1 result-window floor (rows): the single-query path serves
+# max(this, N/8) result rows and re-dispatches with the full window on
+# count overflow (Matcher._fused_dispatch). Module-level so tests can
+# take the overflow path on small corpora.
+Q1_WINDOW_MIN = 65536
 
 # Mixed-finalize group-count gate: below this many groups the capped +
 # full split is not worth its extra work (module constant so tests can
@@ -54,12 +82,12 @@ MIXED_FINALIZE_MIN_GROUPS = 512
 class _CompiledPattern:
     __slots__ = ("negated", "needle", "config", "engine")
 
-    def __init__(self, source: Pattern, config: Config):
+    def __init__(self, source: Pattern, config: Config, use_device: bool):
         resolved = source.config.resolve(config)
         self.negated = source.negated
         self.needle = source.needle
         self.config = resolved
-        self.engine = make_engine(source.needle, resolved)
+        self.engine = make_engine(source.needle, resolved, use_device)
 
 
 def _as_pattern(p: PatternLike) -> Pattern:
@@ -69,64 +97,144 @@ def _as_pattern(p: PatternLike) -> Pattern:
 
 
 class Matcher:
-    """One compiled query (reference: src/matcher/mod.rs:80-111)."""
+    """Compile once, match many (reference: src/matcher/mod.rs:80-111).
+
+    ``use_device=False`` selects the host oracle engines (the reference's
+    differential baseline; identical semantics). ``device`` is where
+    string haystacks are packed: None means the card (and raises where
+    there is none); a ``Corpus`` argument keeps its own device. Under
+    ``use_device=False`` strings pack on the CPU unless ``device`` names
+    another."""
+
+    # Rows copied to the host alongside the match count; larger result
+    # sets take one more, blocking copy
+    fetch_rows: int = 8192
 
     def __init__(
         self,
         pattern: Union[PatternLike, Sequence[Pattern]],
         config: Optional[Config] = None,
+        use_device: bool = True,
+        device=None,
     ):
         self._config = config or Config()
+        self._use_device = use_device
+        self._device = device
         if isinstance(pattern, (list, tuple)):
             self._raw_patterns = [_as_pattern(p) for p in pattern]
         else:
             self._raw_patterns = [_as_pattern(pattern)]
-        self._compiled = [
-            _CompiledPattern(p, self._config)
+        self._compiled = self._build()
+
+    @classmethod
+    def from_query(cls, query: str, config: Optional[Config] = None,
+                   **kw) -> "Matcher":
+        return cls(Pattern.parse_query(query), config, **kw)
+
+    @classmethod
+    def from_patterns(
+        cls, patterns: Sequence[Pattern], config: Optional[Config] = None,
+        **kw
+    ) -> "Matcher":
+        return cls(list(patterns), config, **kw)
+
+    # -- config management ---------------------------------------------------
+
+    @property
+    def patterns(self) -> List[Pattern]:
+        return list(self._raw_patterns)
+
+    @property
+    def config(self) -> Config:
+        return self._config
+
+    def set_config(self, config: Config) -> None:
+        if config == self._config:
+            return
+        self._config = config
+        self._compiled = self._build()
+
+    def set_pattern(self, pattern: PatternLike) -> None:
+        self.set_patterns([_as_pattern(pattern)])
+
+    def set_patterns(self, patterns: Sequence[Pattern]) -> None:
+        patterns = [_as_pattern(p) for p in patterns]
+        if patterns == self._raw_patterns:
+            return
+        self._raw_patterns = patterns
+        self._compiled = self._build()
+
+    def _build(self) -> List[_CompiledPattern]:
+        # compiled needles feed the per-corpus dispatch cache: any
+        # pattern or config rebuild invalidates it
+        self._dispatch_cache = {}
+        return [
+            _CompiledPattern(p, self._config, self._use_device)
             for p in self._raw_patterns
             if p.needle
         ]
-        self._check_served()
 
-    @classmethod
-    def from_query(cls, query: str, config: Optional[Config] = None) -> "Matcher":
-        return cls(Pattern.parse_query(query), config)
+    # -- host combine ----------------------------------------------------------
 
-    def _check_served(self) -> None:
-        """Raise for queries this slice does not serve."""
-        if not self._compiled:
-            raise NotImplementedError(
-                "empty queries come with the single-query Matcher slice"
-            )
-        if not self._config.sort.is_by_score:
-            raise NotImplementedError(
-                "index sort strategies come with the generic pipelines "
-                "slice"
-            )
-        statics = self._statics()
-        lens = [len(cp.engine.units.orig) for cp in self._compiled]
-        for st, ln in zip(statics, lens):
-            reason = unserved_reason(st, ln)
-            if reason is not None:
-                raise NotImplementedError(reason)
-        if not self._fused_supported():
-            raise NotImplementedError(
-                "patterns of mixed unit modes come with the single-query "
-                "Matcher slice"
-            )
-        if ((len(statics) > 1 or statics[0][2])
-                and not colstream_eligible_all(statics, lens)):
-            raise NotImplementedError(
-                "multi-pattern or negated queries with an atom outside the "
-                "column-stream kernels' budgets come with the generic "
-                "pipelines slice"
-            )
+    def _pack(self, haystacks: Sequence[str], unicode: bool,
+              device=None) -> Corpus:
+        if device is None:
+            device = self._device
+            if device is None and not self._use_device:
+                device = "cpu"
+        return pack_corpus(haystacks, unicode=unicode, device=device)
+
+    def _match_result(
+        self, haystacks: Union[Sequence[str], Corpus]
+    ) -> MatchResult:
+        """Combined per-haystack result across all patterns, in input order.
+
+        Multi-pattern composition: all non-negated must match (scores sum,
+        exact ORs, end_col maxes), no negated may match
+        (reference: src/matcher/multi.rs:84-152). A pattern of the other
+        unit mode gets the haystacks packed in its mode, on the given
+        corpus's device."""
+        n = len(haystacks)
+        combined: Optional[MatchResult] = None
+        corpora = {}
+        device = None
+        if isinstance(haystacks, Corpus):
+            corpora[haystacks.unicode] = haystacks
+            device = haystacks.device
+            haystacks = haystacks.haystacks
+
+        def corpus_for(unicode: bool) -> Corpus:
+            if unicode not in corpora:
+                corpora[unicode] = self._pack(haystacks, unicode, device)
+            return corpora[unicode]
+
+        for cp in self._compiled:
+            res = cp.engine.match_corpus(corpus_for(cp.engine.unicode))
+            if combined is None:
+                combined = MatchResult(n)
+                combined.matched[:] = True
+            if cp.negated:
+                combined.matched &= ~res.matched
+            else:
+                combined.matched &= res.matched
+                combined.score = np.minimum(
+                    combined.score + res.score * res.matched, U16_MAX
+                )
+                combined.exact |= res.exact & res.matched
+                combined.end_col = np.maximum(
+                    combined.end_col, res.end_col * res.matched
+                )
+        if combined is None:
+            combined = MatchResult(n)  # no patterns: handled by caller
+        return combined
+
+    # -- fused device path -----------------------------------------------------
 
     def _fused_supported(self) -> bool:
-        """Whether the batch path covers the patterns: every pattern has
-        units, and all share one unicode packing (the reference sends the
-        rest to its per-query path)."""
-        if not self._compiled:
+        """Whether the fused device path covers the patterns: the device
+        is on, every pattern has units, and all share one unicode packing
+        (the reference sends the rest to ``_match_result``)."""
+        if not self._use_device or not self._compiled:
             return False
         modes = set()
         for cp in self._compiled:
@@ -163,6 +271,134 @@ class Matcher:
         )
         bits8 = tuple(b.device_presence_bits() for b in corpus.buckets)
         return bits8, self._statics(), use_kernel
+
+    def _unserved_reason(self, statics, lens, use_kernel) -> Optional[str]:
+        """None when the fast branch of the reference's ``_fused_dispatch``
+        (the batched program at Q=1) serves the query, else the
+        NotImplementedError message: the rest take the reference's
+        ``fused_match_sorted``, which comes with the generic pipelines
+        slice."""
+        if not self._config.sort.is_by_score:
+            return ("index sort strategies come with the generic pipelines "
+                    "slice")
+        if not use_kernel:
+            return "custom bucket widths come with the generic pipelines slice"
+        if len(statics) == 1 and not statics[0][2]:
+            return unserved_reason(statics[0], lens[0])
+        if not colstream_eligible_all(statics, lens):
+            return ("multi-pattern or negated queries with an atom outside "
+                    "the column-stream kernels' budgets come with the "
+                    "generic pipelines slice")
+        return None
+
+    def _fused_prepare(self, corpus: Corpus, full_window: bool) -> tuple:
+        """Everything a Q=1 launch needs that depends only on (corpus,
+        window): presence planes, statics, the stacked needles on the
+        corpus device, the host-chosen finalize cap and the window. Its
+        device layouts are uploaded here, on the calling thread's current
+        stream."""
+        bits8, statics, use_kernel = self._fused_device_args(corpus)
+        hosts = [cp.engine._host_needle() for cp in self._compiled]
+        lens = [h[0].shape[0] for h in hosts]
+        reason = self._unserved_reason(statics, lens, use_kernel)
+        if reason is not None:
+            raise NotImplementedError(reason)
+        n = len(corpus)
+        window = n if full_window else min(n, max(Q1_WINDOW_MIN, n // 8))
+        stacked = tuple(
+            tuple(torch.from_numpy(a[None]).to(corpus.device) for a in h)
+            for h in hosts
+        )
+        _cs, fin_cap, _perm = _colstream_blocks_and_cap(
+            corpus, statics, lens,
+            [np.concatenate(h[:2])[None, :] for h in hosts],
+            window, single=len(statics) == 1 and not statics[0][2],
+        )  # perm is the identity at Q=1
+        return bits8, statics, stacked, fin_cap, window
+
+    def _fused_dispatch(self, corpus: Corpus, full_window: bool = False,
+                        prep=None):
+        """Launch the Q=1 batched program and start the head copy; returns
+        the pending handle ``_fused_collect`` reads. Splitting dispatch
+        from collection keeps several corpora in flight (match_iter's
+        chunk pipeline).
+
+        The result window is tiered: max(Q1_WINDOW_MIN, N/8) rows unless
+        ``full_window``. A full-corpus window forces the full sort of
+        every key, while almost every real query's matches fit the tier;
+        a count overflow re-dispatches once with the full window
+        (``_fused_collect``). ``_fused_prepare``'s result is cached per
+        (corpus, window), at most 4 entries, each evicted when its corpus
+        is collected: recomputing it runs the host cap chooser every
+        call. A caller that prepared elsewhere passes ``prep``."""
+        if prep is None:
+            cache = self._dispatch_cache
+            ck = (id(corpus), bool(full_window))
+            entry = cache.get(ck)
+            if entry is not None and entry[0]() is corpus:
+                prep = entry[1]
+            else:
+                prep = self._fused_prepare(corpus, full_window)
+                if len(cache) >= 4:
+                    # entries hold device tensors: bound the cache so
+                    # cycling over many corpora cannot pin old ones
+                    cache.clear()
+                # weakref + eviction callback: a corpus the caller dropped
+                # must not stay pinned until a fifth entry arrives
+                cache[ck] = (
+                    weakref.ref(
+                        corpus, lambda _r, c=cache, k=ck: c.pop(k, None)
+                    ),
+                    prep,
+                )
+        bits8, statics, stacked, fin_cap, window = prep
+        out = fused_match_sorted_batch(
+            bits8, stacked, n=len(corpus), pattern_statics=statics,
+            fetch_rows=window, buckets=corpus.buckets, finalize_cap=fin_cap,
+        )[0]
+        # only the head (count + the first fetch_rows rows) crosses to the
+        # host; the rest of the window stays on the device
+        head = out[: 1 + min(self.fetch_rows, len(corpus))]
+        if out.is_cuda:
+            # the caching host allocator keeps the pinned block until the
+            # copy recorded on it completes, even if the handle is dropped
+            host = torch.empty(head.shape, dtype=head.dtype, pin_memory=True)
+            host.copy_(head, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(out.device))
+        else:
+            host, ready = head, None
+        return corpus, out, host, ready
+
+    def _fused_collect(self, pending) -> tuple:
+        corpus, out, host, ready = pending
+        # one copy covers the count + the first fetch_rows matches; a
+        # second copy only happens for very large result sets
+        k = min(self.fetch_rows, len(corpus))
+        if ready is not None:
+            ready.synchronize()
+        head = host.numpy()
+        count = int(head[0, 0])
+        if count > out.shape[0] - 1:
+            # the tiered window overflowed: one re-dispatch with the
+            # full-corpus window serves everything
+            return self._fused_collect(
+                self._fused_dispatch(corpus, full_window=True)
+            )
+        if count > k:
+            rows = np.concatenate(
+                [head[1:], out[1 + k : 1 + count].cpu().numpy()], axis=0
+            )
+        else:
+            rows = head[1 : 1 + count]
+        index, score, exact, end_col, greedy = self._decode_rows(rows)
+        return self._host_fixups(
+            corpus, index, score, exact, end_col, greedy
+        )
+
+    def _fused_match_arrays(self, corpus: Corpus) -> tuple:
+        """One device pass for the whole query; usually one copy back."""
+        return self._fused_collect(self._fused_dispatch(corpus))
 
     @staticmethod
     def _decode_rows(rows: np.ndarray) -> tuple:
@@ -236,7 +472,7 @@ class Matcher:
                     end_col = np.concatenate([end_col, xec[xm]])
                     resort = True
         if resort:
-            # batch serving sorts by score (index sorts are refused)
+            # the fused path serves score sorts only
             order = np.lexsort((index, -score))
             index, score, exact, end_col = (
                 index[order], score[order], exact[order], end_col[order]
@@ -279,6 +515,301 @@ class Matcher:
             ).sum(axis=1, dtype=np.int32)
             keep &= hits >= int(need.sum()) - int(t)
         return keep
+
+    # -- public APIs -----------------------------------------------------------
+
+    def match_arrays(
+        self, haystacks: Union[Sequence[str], Corpus]
+    ) -> tuple:
+        """Column-oriented matching: (index, score, exact, end_col) numpy
+        arrays of all matching haystacks, ordered by the configured sort
+        strategy (reference: src/matcher/mod.rs:205-222). Accepts a
+        pre-packed, device-resident ``Corpus`` to amortize packing across
+        queries; a Corpus packed in the other unit mode than the needle's
+        is repacked on its device (the reference's dispatch-by-needle
+        rule, src/matcher/mod.rs respects_unicode)."""
+        n = len(haystacks)
+        if not self._compiled:
+            idx = np.arange(n, dtype=np.int64)
+            if self._config.sort.is_reversed:
+                idx = idx[::-1]
+            z = np.zeros(n, dtype=np.int64)
+            return idx, z, z.astype(bool), z
+
+        if self._fused_supported():
+            unicode = self._compiled[0].engine.unicode
+            if isinstance(haystacks, Corpus):
+                corpus = (
+                    haystacks
+                    if haystacks.unicode == unicode
+                    else self._pack(haystacks.haystacks, unicode,
+                                    haystacks.device)
+                )
+            else:
+                corpus = self._pack(haystacks, unicode)
+            return self._fused_match_arrays(corpus)
+
+        res = self._match_result(haystacks)
+        idxs = np.nonzero(res.matched)[0]
+        score = res.score[idxs]
+        strategy = self._config.sort
+        if strategy is SortStrategy.SCORE_THEN_INDEX_ASC:
+            order = np.lexsort((idxs, -score))
+        elif strategy is SortStrategy.SCORE_THEN_INDEX_DESC:
+            order = np.lexsort((-idxs, -score))
+        elif strategy is SortStrategy.INDEX_ASC:
+            order = np.arange(len(idxs))
+        else:
+            order = np.arange(len(idxs))[::-1]
+        idxs = idxs[order]
+        return (
+            idxs,
+            score[order],
+            res.exact[idxs],
+            res.end_col[idxs],
+        )
+
+    def match_list(
+        self, haystacks: Union[Sequence[str], Corpus]
+    ) -> Sequence[Match]:
+        """Batch matching (reference: src/matcher/mod.rs:205-222) as an
+        array-backed lazy :class:`MatchList`: ``Match`` objects are built
+        on access, so huge result sets and the empty-needle copy path
+        cost O(1) Python objects."""
+        if not self._compiled:
+            # copy path (reference: src/matcher/mod.rs:205-210)
+            idx = np.arange(len(haystacks), dtype=np.int64)
+            if self._config.sort.is_reversed:
+                idx = idx[::-1]
+            return MatchList(idx)
+        return MatchList(*self.match_arrays(haystacks))
+
+    def match_one(self, haystack: str, index: int = 0) -> Optional[Match]:
+        if not self._compiled:
+            return Match.from_index(index)
+        combined = Match.from_index(index)
+        for cp in self._compiled:
+            m = cp.engine.match_one(haystack, index)
+            if cp.negated:
+                if m is not None:
+                    return None
+            else:
+                if m is None:
+                    return None
+                combined.score = sat_add_u16(combined.score, m.score)
+                combined.exact |= m.exact
+                combined.end_col = max(combined.end_col, m.end_col)
+        return combined
+
+    # Rows per chunk of the string iterator: large enough that a chunk's
+    # fixed costs (a pack, a dispatch, one copy back) amortize
+    iter_chunk: int = 65536
+
+    def _iter_chunks(self, haystacks: Iterable[str]):
+        """(base_index, chunk) blocks with geometrically growing sizes, so
+        the first match from a slow or unbounded stream appears after tens
+        of items, while steady state runs full-size chunks. Sized inputs
+        (lists) skip the small warm-up chunks."""
+        it = iter(haystacks)
+        base = 0
+        try:
+            known = len(haystacks)
+        except TypeError:
+            known = None
+        size = self.iter_chunk if known is not None else 32
+        while True:
+            chunk = list(islice(it, size))
+            if not chunk:
+                return
+            yield base, chunk
+            base += len(chunk)
+            size = min(size * 4, self.iter_chunk)
+
+    def _pack_staged(self, haystacks: Sequence[str], unicode: bool):
+        """Worker half of match_iter's pipeline: pack a chunk, upload its
+        device layouts and prepare its Q=1 launch, then record an event on
+        this thread's current stream. The dispatching thread makes its
+        own stream wait on that event before it launches, so the uploads
+        are ordered before the kernels that read them whatever streams
+        the two threads run."""
+        corpus = self._pack(haystacks, unicode)
+        prep = self._fused_prepare(corpus, False)
+        staged = None
+        if corpus.device.type == "cuda":
+            staged = torch.cuda.Event()
+            staged.record(torch.cuda.current_stream(corpus.device))
+        return corpus, prep, staged
+
+    def match_iter(
+        self, haystacks: Union[Iterable[str], Corpus]
+    ) -> Iterator[Match]:
+        """Lazy matching in input order (reference: src/matcher/iter.rs
+        semantics: unsorted, yields as it goes).
+
+        A pre-packed ``Corpus`` runs as one device pass and yields from
+        its result. String input streams growing chunks through a
+        three-stage pipeline: packing and upload in a 2-worker thread pool,
+        up to 3 dispatches in flight on the device, then copy back and
+        yield, so a chunk packs while earlier ones run and return."""
+        if not self._use_device or not self._compiled:
+            rows = (
+                haystacks.haystacks
+                if isinstance(haystacks, Corpus)
+                else haystacks
+            )
+            for i, h in enumerate(rows):
+                m = self.match_one(h, i)
+                if m is not None:
+                    yield m
+            return
+        if isinstance(haystacks, Corpus):
+            yield from _yield_matches(*self.match_arrays(haystacks))
+            return
+
+        unicode = self._compiled[0].engine.unicode
+        fused = self._fused_supported()
+
+        def emit(base, res):
+            cols = self._fused_collect(res) if fused else res
+            yield from _yield_matches(*cols, base=base)
+
+        from collections import deque
+        from concurrent.futures import ThreadPoolExecutor
+
+        if not fused:
+            inflight = deque()
+            for base, chunk in self._iter_chunks(haystacks):
+                inflight.append((base, self.match_arrays(chunk)))
+                if len(inflight) >= 2:
+                    b, res = inflight.popleft()
+                    yield from emit(b, res)
+            while inflight:
+                b, res = inflight.popleft()
+                yield from emit(b, res)
+            return
+
+        with ThreadPoolExecutor(max_workers=2) as pool:
+            packing = deque()   # (base, Future[(corpus, prep, event)])
+            inflight = deque()  # (base, pending device handle)
+
+            def drain_packed(block):
+                while packing and (block or packing[0][1].done()):
+                    b, fut = packing.popleft()
+                    corpus, prep, staged = fut.result()
+                    if staged is not None:
+                        torch.cuda.current_stream(corpus.device).wait_event(
+                            staged)
+                    inflight.append(
+                        (b, self._fused_dispatch(corpus, prep=prep)))
+                    block = False
+
+            for base, chunk in self._iter_chunks(haystacks):
+                packing.append(
+                    (base, pool.submit(self._pack_staged, chunk, unicode))
+                )
+                drain_packed(block=len(packing) >= 2)
+                while len(inflight) >= 3:
+                    b, res = inflight.popleft()
+                    yield from emit(b, res)
+            while packing:
+                drain_packed(block=True)
+                while len(inflight) >= 3:
+                    b, res = inflight.popleft()
+                    yield from emit(b, res)
+            while inflight:
+                b, res = inflight.popleft()
+                yield from emit(b, res)
+
+    def match_list_parallel(
+        self, haystacks: Sequence[str], shards: int
+    ) -> List[Match]:
+        """Shard/merge semantics: splits the input, matches each shard
+        through the same single-device path one after another, and
+        k-merges. Result-identical to ``match_list`` and to the
+        reference's rayon-parallel path (src/matcher/parallel.rs:18-89);
+        not a parallel execution (one card runs the passes in turn)."""
+        if shards <= 0:
+            raise ValueError("shards must be positive")
+        shards = max(min(shards, -(-len(haystacks) // 2000)), 1)
+        if not haystacks or not self._compiled or shards == 1:
+            return self.match_list(haystacks)
+
+        chunk = -(-len(haystacks) // shards)
+        runs: List[List[Match]] = []
+        for s in range(0, len(haystacks), chunk):
+            sub = haystacks[s : s + chunk]
+            index, score, exact, end_col = self.match_arrays(sub)
+            runs.append([
+                Match(
+                    score=int(score[j]),
+                    index=int(index[j]) + s,
+                    exact=bool(exact[j]),
+                    end_col=int(end_col[j]),
+                )
+                for j in range(len(index))
+            ])
+        return k_merge(runs, self._config.sort)
+
+
+def k_merge(runs: List[List[Match]], strategy: SortStrategy) -> List[Match]:
+    """Merge pre-sorted runs under ``strategy``'s order (reference:
+    src/k_merge.rs), through ``sort.k_merge_matches_by_*``."""
+    return {
+        SortStrategy.SCORE_THEN_INDEX_ASC:
+            k_merge_matches_by_score_then_index_asc,
+        SortStrategy.SCORE_THEN_INDEX_DESC:
+            k_merge_matches_by_score_then_index_desc,
+        SortStrategy.INDEX_ASC: k_merge_matches_by_index_asc,
+        SortStrategy.INDEX_DESC: k_merge_matches_by_index_desc,
+    }[strategy](runs)
+
+
+def match_list(
+    needle: str, haystacks: Sequence[str], config: Optional[Config] = None,
+    **kw
+) -> Sequence[Match]:
+    """One-shot convenience API (reference: src/lib.rs:60-68); ``kw``
+    (``use_device``, ``device``) goes to the Matcher."""
+    return Matcher(needle, config, **kw).match_list(haystacks)
+
+
+def match_list_parallel(
+    needle: str,
+    haystacks: Sequence[str],
+    shards: int,
+    config: Optional[Config] = None,
+    **kw,
+) -> List[Match]:
+    return Matcher(needle, config, **kw).match_list_parallel(haystacks, shards)
+
+
+def fuzzy_match(
+    haystacks: Iterable[str],
+    needle: str,
+    config: Optional[Config] = None,
+    **kw,
+) -> Iterator[Match]:
+    """Lazy matching over any string iterable (reference:
+    src/matcher/iter.rs FuzzyMatchExt::fuzzy_match). Unsorted; yields in
+    input order."""
+    return Matcher(needle, config, **kw).match_iter(haystacks)
+
+
+def _yield_matches(index, score, exact, end_col, base=0):
+    """Yield Match objects in input (index-ascending) order from result
+    columns; ``tolist()`` amortizes the numpy-scalar unboxing."""
+    order = np.argsort(index, kind="stable")
+    idx = index[order]
+    if base:
+        idx = idx + base
+    idx_l = idx.tolist()
+    sc_l = score[order].tolist()
+    ex_l = exact[order].tolist()
+    ec_l = end_col[order].tolist()
+    for i in range(len(idx_l)):
+        yield Match(
+            score=sc_l[i], index=idx_l[i], exact=ex_l[i], end_col=ec_l[i]
+        )
 
 
 def _colstream_blocks_and_cap(corpus, statics, lens, needles_np, fetch_rows,
@@ -365,18 +896,20 @@ def _dispatch_batch_groups(
     """Group shape-uniform queries (same pattern count, per-pattern
     statics and needle lengths) and enqueue one batched device pass per
     group, with the device->host copy of each result started behind it.
-    Returns one (host_rows, ready_event, members) entry per group."""
+    Returns one (host_rows, ready_event, members) entry per group. Queries
+    no group takes (empty, not fused-supported, or of a unit mode other
+    than the corpus's) are in no entry: ``_collect_batch_groups`` leaves
+    them None for the per-query path."""
     groups = {}
     prepared = {}
     for i, m in enumerate(matchers):
+        if not m._fused_supported():
+            continue
         if m._compiled[0].engine.unicode != corpus.unicode:
             # the needle's unit mode (reference: src/matcher/mod.rs
             # respects_unicode) differs from the corpus packing: the
-            # reference repacks per query on its per-query path
-            raise NotImplementedError(
-                "a needle whose unit mode differs from the corpus packing "
-                "comes with the single-query Matcher slice"
-            )
+            # per-query path repacks
+            continue
         bits8, statics, use_kernel = m._fused_device_args(corpus)
         if not use_kernel or not config.sort.is_by_score:
             raise NotImplementedError(
@@ -435,9 +968,10 @@ def _dispatch_batch_groups(
     return pending
 
 
-def _collect_batch_groups(pending, n_queries) -> List[tuple]:
+def _collect_batch_groups(pending, n_queries) -> List[Optional[tuple]]:
     """Wait for each group's copy, then decode per-query (count, index,
-    score, exact, end_col, greedy) rows."""
+    score, exact, end_col, greedy) rows; None for queries no group
+    took."""
     results: List[Optional[tuple]] = [None] * n_queries
     for host_rows, ready, members in pending:
         if ready is not None:
@@ -477,16 +1011,69 @@ def match_topk_batch(
     return match_topk_batch_async(queries, corpus, config, k).result()
 
 
+def _run_batch_groups(
+    matchers: List[Matcher],
+    corpus: Corpus,
+    config: Config,
+    fetch_rows: int,
+) -> List[Optional[tuple]]:
+    """Dispatch and collect in one blocking call: per query (count,
+    index, score, exact, end_col, greedy) of the top ``fetch_rows``
+    device rows, or None for queries the per-query path serves."""
+    return _collect_batch_groups(
+        _dispatch_batch_groups(matchers, corpus, config, fetch_rows),
+        len(matchers),
+    )
+
+
+def match_arrays_batch(
+    queries: Sequence[Union[str, Matcher]],
+    corpus: Union[Sequence[str], Corpus],
+    config: Optional[Config] = None,
+    fetch_rows: int = 6144,
+) -> List[tuple]:
+    """Q independent queries (strings or prebuilt Matchers) against one
+    resident corpus in one device pass per shape group and one copy
+    back each. Returns per query the (index, score, exact, end_col)
+    arrays of all matches, ordered like ``Matcher.match_arrays``.
+    Queries whose result set exceeds ``fetch_rows``, and queries no
+    group takes, run through the per-query path."""
+    config = config or Config()
+    matchers, corpus = _resolve_batch(queries, corpus, config)
+    raw = _run_batch_groups(
+        matchers, corpus, config, min(fetch_rows, len(corpus))
+    )
+    results: List[Optional[tuple]] = [None] * len(queries)
+    for i, r in enumerate(raw):
+        if r is None:
+            continue
+        count, index, score, exact, end_col, greedy = r
+        if count > len(index):
+            continue  # overflow: the per-query path below fetches all
+        results[i] = matchers[i]._host_fixups(
+            corpus, index, score, exact, end_col, greedy
+        )
+    for i in range(len(queries)):
+        if results[i] is None:
+            results[i] = matchers[i].match_arrays(corpus)
+    return results
+
+
 def _finalize_topk(matchers, corpus, raw, k) -> List[tuple]:
     results: List[Optional[tuple]] = [None] * len(matchers)
     for i, r in enumerate(raw):
-        if r[0] > len(r[1]) and corpus.greedy_risk():
-            # unfetched rows may be greedy and rescoring can drop rows:
-            # the exact total needs the full per-query fetch
-            raise NotImplementedError(
-                "full-fetch fallback comes with the single-query Matcher "
-                "slice"
+        # unfetched rows may be greedy and greedy rescoring can drop
+        # rows: past the fetch window on a corpus that can produce
+        # greedy rows, the exact total and near-k order need the
+        # per-query full fetch (as match_arrays_batch's overflow guard)
+        if r is not None and r[0] > len(r[1]) and corpus.greedy_risk():
+            r = None
+        if r is None:
+            index, score, exact, end_col = matchers[i].match_arrays(corpus)
+            results[i] = (
+                len(index), index[:k], score[:k], exact[:k], end_col[:k]
             )
+            continue
         count, index, score, exact, end_col, greedy = r
         fetched = len(index)
         index, score, exact, end_col = matchers[i]._host_fixups(

@@ -281,13 +281,15 @@ def test_literal_topk_parity(matching):
 
 @pytest.mark.parametrize("needle,ok", [("d" * 16, True), ("d" * 17, False)])
 def test_literal_needle_length_gate(needle, ok):
-    """Literal needles of up to 16 bytes are served; longer ones raise,
-    naming the generic pipelines slice."""
+    """Literal needles of up to 16 bytes are served; longer ones raise at
+    match time on the device path, naming the generic pipelines slice."""
+    m = Matcher.from_query("^" + needle)
+    corpus = pack_corpus(["d" * 20, "abc"], device="cpu")
     if ok:
-        Matcher.from_query("^" + needle)
+        assert list(m.match_arrays(corpus)[0]) == [0]
         return
     with pytest.raises(NotImplementedError, match="generic pipelines"):
-        Matcher.from_query("^" + needle)
+        m.match_arrays(corpus)
 
 
 def test_literal_overflow_guard_matches_reference():

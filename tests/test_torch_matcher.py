@@ -1,7 +1,8 @@
 """The port's serving API — ``match_topk_batch`` and its pipelined form —
 against frizbee_tpu's ``match_topk_batch`` and its host oracle
 (``Matcher(use_device=False)``) on small datagen corpora, plus the
-slice's refusals and the package's import boundary."""
+empty query's copy path, the device path's refusals and the package's
+import boundary."""
 
 import ast
 import os
@@ -107,17 +108,45 @@ def test_async_equals_blocking():
     ("^deadbeefdeadbeefa", {}, "literal"),
     ("deadbeefdeadbeefa", {"matching": Matching.SUBSTRING}, "literal"),
     ("dead deadbeefdeadbeefdead", {}, "generic pipelines"),
-    ("abc إن", {}, "single-query Matcher"),
+    ("abc إن", {}, "generic pipelines"),
     ("^" + "é" * 17, {}, "generic pipelines"),
     ("deadbeef" * 8 + "a", {}, "generic pipelines"),
     ("deadbeefdeadbeef", {"max_typos": 9}, "generic pipelines"),
     ("^deadbeefd", {"max_typos": 9}, "generic pipelines"),
     ("dead", {"sort": SortStrategy.INDEX_ASC}, "index sort"),
-    ("", {}, "empty"),
 ])
 def test_unserved_queries_raise(query, cfg, match):
+    """Queries the reference serves through its generic pipelines
+    construct (the host oracle serves them) and raise at match time on
+    the device path, naming the slice that ports them."""
+    m = Matcher.from_query(query, Config(**cfg))
+    corpus = pack_corpus(["deadbeef", "abc إن"], device="cpu")
     with pytest.raises(NotImplementedError, match=match):
-        Matcher.from_query(query, Config(**cfg))
+        m.match_arrays(corpus)
+
+
+def test_empty_query_copy_path():
+    """The empty query (formerly refused) takes the copy path: every row
+    in index order (reversed under the descending sorts), score 0, as the
+    reference and its oracle return."""
+    hay = ["deadbeef", "", "x" * 2000, "abc"]
+    corpus = pack_corpus(hay, device="cpu")
+    ref = j_pack(hay, unicode=False)
+    for sort in SortStrategy:
+        cfg = Config(sort=sort)
+        jcfg = JConfig(sort=JSortStrategy[sort.name])
+        got = Matcher.from_query("", cfg).match_arrays(corpus)
+        for use_device in (True, False):
+            want = JMatcher.from_query(
+                "", jcfg, use_device=use_device).match_arrays(ref)
+            for a, b in zip(got, want):
+                np.testing.assert_array_equal(a, b)
+    res = match_topk_batch(["", "dead"], corpus, Config(), k=2)
+    want = j_topk(["", "dead"], ref, JConfig(), k=2)
+    for g, w in zip(res, want):
+        assert g[0] == w[0]
+        for a, b in zip(g[1:], w[1:]):
+            np.testing.assert_array_equal(a, b)
 
 
 def test_unserved_corpora_raise():
@@ -132,9 +161,11 @@ def test_unserved_corpora_raise():
         match_topk_batch(["dead"], pack_corpus(
             ["dead", "deadbeef"] * 10, bucket_widths=(48,), device="cpu"))
     # a typo budget beyond 8 is served when the needle clamps it to 8
-    Matcher.from_query("deadbeef", Config(max_typos=9))
+    corpus = pack_corpus(["deadbeef", "deadbeefd"], device="cpu")
+    Matcher.from_query("deadbeef", Config(max_typos=9)).match_arrays(corpus)
     with pytest.raises(NotImplementedError, match="generic pipelines"):
-        Matcher.from_query("deadbeefd", Config(max_typos=9))
+        Matcher.from_query("deadbeefd", Config(max_typos=9)).match_arrays(
+            corpus)
 
 
 def _port_files():
@@ -156,6 +187,7 @@ def test_port_imports_no_jax_and_no_reference():
     scanned = {os.path.relpath(p, ROOT) for p in files}
     for rel in ("ops/literal.py", "ops/kernels.py", "ops/batch.py",
                 "ops/pairing.py", "engine.py", "corpus.py", "types.py",
+                "sort.py", "matcher.py",
                 "oracle/prefilter.py", "oracle/smith_waterman.py",
                 "oracle/greedy.py", "oracle/literal.py",
                 "probes/__init__.py",

@@ -5,7 +5,8 @@ generator, a few thousand rows) for fuzzy T=0 and T=1 (column-stream
 fuzzy kernel), literal (column-stream literal kernel), T=4 (row-major
 kernel) and an ASCII needle under ``UnicodeMatching.ALWAYS`` over a
 mixed-script corpus; the decoded top-k against the reference's and its
-host oracle; and the slice's refusals.
+host oracle; the per-query path's repack of a needle of the other unit
+mode; and the device path's refusals.
 
 Inputs are made from a seed and handed to both packages; every
 comparison has zero tolerance. Column-stream batches compare element for
@@ -196,13 +197,26 @@ def test_strings_pack_in_codepoints_for_unicode_needles(monkeypatch):
 
 def test_unit_mode_mismatch_raises(arabic):
     """An ASCII needle under SMART over a codepoint corpus (and a unicode
-    needle over a byte corpus) takes the reference's per-query path."""
-    _hay, port, _ref = arabic
-    with pytest.raises(NotImplementedError, match="single-query Matcher"):
-        match_topk_batch(["abc"], port, Config(), k=5)
-    byte_corpus = pack_corpus(["abc", "إن"], device="cpu")
-    with pytest.raises(NotImplementedError, match="single-query Matcher"):
-        match_topk_batch(["إن"], byte_corpus, Config(), k=5)
+    needle over a byte corpus), formerly refused, takes the per-query
+    path: the batch leaves it to ``Matcher.match_arrays``, which repacks
+    the corpus in the needle's unit mode on its device, as the reference
+    does."""
+    hay, port, ref = arabic
+    byte_hay = ["abc", "إن", "xabcx", "إنن abc"]
+    cases = ((["abc", "إن"], port, ref, hay),
+             (["إن", "abc"], pack_corpus(byte_hay, device="cpu"),
+              j_pack(byte_hay, unicode=False), byte_hay))
+    for queries, corpus, jcorpus, rows in cases:
+        got = match_topk_batch(queries, corpus, Config(), k=5)
+        want = jm.match_topk_batch(queries, jcorpus, JConfig(), k=5)
+        oracle = [jm.Matcher.from_query(q, JConfig(), use_device=False)
+                  .match_arrays(rows) for q in queries]
+        for g, w, o in zip(got, want, oracle):
+            assert g[0] == w[0] == len(o[0])
+            for a, b, c in zip(g[1:], w[1:], o):
+                np.testing.assert_array_equal(a, b)
+                np.testing.assert_array_equal(a, c[:5])
+    assert got[0][0] > 0 and got[1][0] > 0
 
 
 def test_greedy_row_raises():
@@ -223,7 +237,10 @@ def test_greedy_row_raises():
 
 
 def test_long_unicode_literal_refused():
-    """Literal needles of more than 16 codepoints are not served."""
-    Matcher.from_query("^" + "إن" * 8)
+    """Literal needles of more than 16 codepoints are not served on the
+    device path: they raise at match time."""
+    corpus = pack_corpus(["إن" * 9, "abc"], unicode=True, device="cpu")
+    assert list(Matcher.from_query("^" + "إن" * 8).match_arrays(
+        corpus)[0]) == [0]
     with pytest.raises(NotImplementedError, match="generic pipelines"):
-        Matcher.from_query("^" + "إن" * 8 + "ا")
+        Matcher.from_query("^" + "إن" * 8 + "ا").match_arrays(corpus)
