@@ -77,6 +77,18 @@ Builds the package's CUDA kernels from ``frizbee_tpu_torch/csrc`` (one
    dispatch cache) and the median of 20 cached calls timed; "deadbeef"
    and the broad needle's whole results held equal to the port on a
    CPU-packed copy of the corpus;
+   indices phase: ``Matcher(q).match_list_indices`` for the same queries
+   over the same corpora (the match set from ``match_arrays`` on the
+   card, the traceback on the host: the batched NumPy walk for a single
+   fuzzy needle with at least 32 matches, else the per-row oracle),
+   paths of their own (``indices``, ``indices_unicode``) whose launches
+   join the kernels line's counts; each query's kernels asserted, its
+   entries in ``match_arrays``' order with its scores and exact flags,
+   2,000 entries (the first and last 500) equal to the per-row oracle,
+   the first call and the median of 5 cached calls timed with the share
+   inside ``match_arrays``, the host memory of a call;
+   and ``match_iter_indices`` over the Corpus for "deadbeef", equal to
+   the list in input order;
 4. timing phase: the launches of one more batch of each path, captured
    (``_build.CAPTURE``) and replayed per kernel — held bit-equal to its
    plain version on the same arguments, then timed (CUDA events, warmed
@@ -119,8 +131,9 @@ Builds the package's CUDA kernels from ``frizbee_tpu_torch/csrc`` (one
    ``match_list_parallel(shards=4)``, ``match_arrays_batch`` at Q=32, the
    empty query, an ASCII needle over an Arabic-packed corpus (the
    repack), a greedy-risk corpus past k through ``match_topk_batch`` (the
-   full-fetch fallback), and ``match_iter`` over 262,144 strings in
-   chunks of 65,536, each equal to the port on the CPU; and device memory
+   full-fetch fallback), ``match_iter`` over 262,144 strings in
+   chunks of 65,536, and ``match_list_indices`` of every single-phase
+   query, each equal to the port on the CPU; and device memory
    back at its level before a pack once the corpus a Matcher's dispatch
    cache held is dropped.
 
@@ -1335,7 +1348,7 @@ def single_phase(corpora, hay, serving, detail):
     detail["single_cpu_parity_seconds"] = time.perf_counter() - t0
     detail["single"] = out
     return [(path, [(x[2], x[3], x[4]) for x in queries if x[1] == path])
-            for path in SINGLE_PATHS]
+            for path in SINGLE_PATHS], results
 
 
 def _capture_single(calls_of):
@@ -1349,6 +1362,218 @@ def _capture_single(calls_of):
         Matcher.from_query(q, cfg).match_arrays(corpus)
     calls, _build.CAPTURE = _build.CAPTURE, None
     return calls
+
+
+# the indices phase: Matcher(q).match_list_indices over the 1M-row corpora
+# for every SINGLE_QUERIES query, a path of its own for each single path
+# (counters set to 0 just before, read just after); per query the first
+# call of a new Matcher and the median of INDICES_TIMED_CALLS cached ones,
+# INDICES_ORACLE_ENTRIES entries (the first and last 500 among them) held
+# to the per-row oracle, and the host memory of a call
+INDICES_PATHS = {"single": "indices", "single_unicode": "indices_unicode"}
+INDICES_TIMED_CALLS = 5
+INDICES_ORACLE_ENTRIES = 2000
+INDICES_ORACLE_ENDS = 500
+
+
+class _RssPeak:
+    """Resident set size of this process over a block: ``resource``'s
+    lifetime high-water mark before and after, and the peak above the
+    block's start sampled every 2 ms from /proc/self/statm (the
+    high-water mark only moves past the earlier phases' peak)."""
+
+    def __enter__(self):
+        import resource
+        import threading
+
+        self._page = os.sysconf("SC_PAGE_SIZE")
+        self.maxrss_before = resource.getrusage(
+            resource.RUSAGE_SELF).ru_maxrss * 1024
+        self.start = self._rss()
+        self.peak = self.start
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _rss(self):
+        with open("/proc/self/statm") as fh:
+            return int(fh.read().split()[1]) * self._page
+
+    def _sample(self):
+        while not self._stop.wait(0.002):
+            self.peak = max(self.peak, self._rss())
+
+    def __exit__(self, *exc):
+        import resource
+
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self._rss())
+        self.maxrss_after = resource.getrusage(
+            resource.RUSAGE_SELF).ru_maxrss * 1024
+        return False
+
+    def record(self):
+        return {"rss_start_bytes": self.start,
+                "rss_peak_above_start_bytes": self.peak - self.start,
+                "ru_maxrss_before_bytes": self.maxrss_before,
+                "ru_maxrss_after_bytes": self.maxrss_after}
+
+
+def _indices_rows(ms):
+    return [(m.score, m.index, m.exact, list(m.indices)) for m in ms]
+
+
+def indices_phase(corpora, single_results, serving, detail):
+    """Matched-character indices at 1M rows: ``Matcher(q).match_list_indices``
+    over the resident corpora for every SINGLE_QUERIES query. The match
+    set comes from ``match_arrays`` on the card; the traceback runs on the
+    host (the batched NumPy walk for one fuzzy pattern with at least 32
+    matches, else the per-row oracle). Per query: the kernels its first
+    call must launch; the first call of a new Matcher and the median of
+    INDICES_TIMED_CALLS cached calls (host clock), each split into the
+    time inside ``match_arrays`` and the rest (the host traceback); its
+    entries in the order and with the score and exact flag of the
+    ``single`` phase's ``match_arrays`` rows; INDICES_ORACLE_ENTRIES
+    entries, the first and last INDICES_ORACLE_ENDS among them, equal to
+    the per-row ``match_one_indices`` oracle; the host memory of the last
+    cached call (``_RssPeak``). Then ``match_iter_indices`` over
+    the 1M-row Corpus for "deadbeef", equal to its list in input
+    order."""
+    from frizbee_tpu_torch import Matcher
+    from frizbee_tpu_torch import matcher as fm
+    from frizbee_tpu_torch import traceback as tb
+    from frizbee_tpu_torch.ops import _build
+
+    queries = _single_queries(corpora)
+    out = {}
+    spent = []
+    walked = []
+    match_arrays = fm.Matcher.match_arrays
+    batched = tb.batched_match_indices
+
+    def timed_match_arrays(self, haystacks):
+        t0 = time.perf_counter()
+        try:
+            return match_arrays(self, haystacks)
+        finally:
+            spent.append(time.perf_counter() - t0)
+
+    def counting_batched(engine, rows):
+        walked.append(len(rows))
+        return batched(engine, rows)
+
+    def call(m, corpus):
+        spent.clear()
+        t0 = time.perf_counter()
+        res = m.match_list_indices(corpus)
+        total = (time.perf_counter() - t0) * 1e3
+        arrays = sum(spent) * 1e3
+        return res, total, arrays
+
+    rng = np.random.default_rng(11)
+    fm.Matcher.match_arrays = timed_match_arrays
+    tb.batched_match_indices = counting_batched
+    try:
+        for path in SINGLE_PATHS:
+            mine = [x for x in queries if x[1] == path]
+            _reset_counters()
+            torch.cuda.synchronize()
+            for label, _p, corpus, q, cfg, kernels in mine:
+                before = dict(_build.LAUNCHES)
+                walked.clear()
+                fresh = Matcher.from_query(q, cfg)
+                res, cold_ms, cold_arrays_ms = call(fresh, corpus)
+                cold_walk = list(walked)
+                single_fuzzy = (len(fresh._compiled) == 1
+                                and not fresh._compiled[0].negated
+                                and fresh._compiled[0].config
+                                .matching.is_fuzzy)
+                assert cold_walk == ([len(res)] if single_fuzzy
+                                     and len(res) >= 32 else []), (
+                    f"indices {label}: batched walk over {cold_walk} rows")
+                launched = {k: v - before.get(k, 0)
+                            for k, v in _build.LAUNCHES.items()
+                            if v - before.get(k, 0)}
+                for name in kernels:
+                    assert launched.get(name, 0) > 0, (
+                        f"indices {label}: kernel {name} never launched")
+                index, score, exact, _ec = single_results[label]
+                got = [m.index for m in res]
+                assert got == index.tolist(), (
+                    f"indices {label}: entries differ from match_arrays")
+                assert [m.score for m in res] == score.tolist(), label
+                assert [m.exact for m in res] == exact.tolist(), label
+                n = len(res)
+                ends = min(INDICES_ORACLE_ENDS, n)
+                pick = set(range(ends)) | set(range(n - ends, n))
+                rest = np.setdiff1d(np.arange(n), sorted(pick))
+                extra = max(INDICES_ORACLE_ENTRIES - len(pick), 0)
+                pick |= set(rng.choice(rest, size=min(extra, rest.size),
+                                       replace=False).tolist())
+                oracle = Matcher.from_query(q, cfg)
+                hay = corpus.haystacks
+                t0 = time.perf_counter()
+                for j in sorted(pick):
+                    e = res[j]
+                    want = oracle.match_one_indices(hay[e.index], e.index)
+                    assert want is not None and _indices_rows(
+                        [e]) == _indices_rows([want]), (
+                        f"indices {label}: entry {j} (row {e.index}) "
+                        f"differs from the per-row oracle")
+                oracle_s = time.perf_counter() - t0
+                cached = [call(fresh, corpus)[1:]
+                          for _ in range(INDICES_TIMED_CALLS - 1)]
+                with _RssPeak() as rss:
+                    cached.append(call(fresh, corpus)[1:])
+                totals = [t for t, _a in cached]
+                arrays = [a for _t, a in cached]
+                med = float(np.median(totals))
+                med_arrays = float(np.median(arrays))
+                out[label] = {
+                    "query": q, "corpus_rows": len(corpus),
+                    "max_typos": cfg.max_typos, "count": n,
+                    "batched_walk_rows": cold_walk,
+                    "launches": launched,
+                    "cold_ms": cold_ms,
+                    "cold_match_arrays_ms": cold_arrays_ms,
+                    "cold_traceback_share": 1 - cold_arrays_ms / cold_ms,
+                    "cached_ms": totals,
+                    "cached_match_arrays_ms": arrays,
+                    "cached_median_ms": med,
+                    "cached_median_match_arrays_ms": med_arrays,
+                    "cached_traceback_share": float(np.median(
+                        [1 - a / t for t, a in cached])),
+                    "oracle_entries": len(pick),
+                    "oracle_seconds": oracle_s,
+                    "host_memory": rss.record(),
+                }
+                if label == "fuzzy":
+                    fuzzy_rows = _indices_rows(res)
+                del res
+                print(f"indices phase, {label}: " + json.dumps(
+                    {k: v for k, v in out[label].items()
+                     if k not in ("cached_ms", "cached_match_arrays_ms")},
+                    ensure_ascii=False), flush=True)
+            if path == "single":
+                # the iterator over the resident Corpus: one match_arrays
+                # call, then the batched walk, in input order
+                t0 = time.perf_counter()
+                it = _indices_rows(Matcher.from_query(
+                    "deadbeef").match_iter_indices(corpora["ascii"]))
+                assert it and it == sorted(fuzzy_rows, key=lambda r: r[1]), (
+                    "match_iter_indices != match_list_indices")
+                del fuzzy_rows
+                out["iter_deadbeef"] = {
+                    "count": len(it), "seconds": time.perf_counter() - t0}
+            torch.cuda.synchronize()
+            serving[INDICES_PATHS[path]] = {
+                "launches": dict(_build.LAUNCHES)}
+    finally:
+        fm.Matcher.match_arrays = match_arrays
+        tb.batched_match_indices = batched
+    detail["indices"] = out
 
 
 def single_profile_phase(corpora, detail):
@@ -1699,7 +1924,8 @@ KERNELS = (
     # entry, kernel (its launch counter), source, TPU kernel it replaces,
     # paths it runs on (the unicode launches of the match kernels are
     # entries of their own; single and single_unicode are the
-    # single-query Matcher path's ASCII and Arabic calls; fuzzy_int16 drives the fuzzy batch's colstream
+    # single-query Matcher path's ASCII and Arabic calls, whose launch
+    # counts add those of the indices phase's paths; fuzzy_int16 drives the fuzzy batch's colstream
     # launches with int16 lanes, typo_int32 and long_needle_int32 those
     # batches' row-major launches with int32 lanes, contract the contract
     # phase)
@@ -1885,7 +2111,9 @@ def timing_phase(paths, single, serving, errs, detail):
         entries.append({
             "name": entry, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": sum(serving[p]["launches"][name] for p in paths),
+            "launches": sum(serving[p]["launches"][name] for p in paths)
+            + sum(serving[INDICES_PATHS[p]]["launches"][name]
+                  for p in paths if p in INDICES_PATHS),
             "max_abs_err": errs[entry],
             **nums,
         })
@@ -2221,9 +2449,10 @@ def single_cpu_parity_phase(detail):
     ``match_iter`` over strings, ``match_list_parallel(shards=4)``,
     ``match_arrays_batch`` at Q=32, the empty query, an ASCII needle over
     an Arabic-packed corpus (the repack), and a greedy-risk corpus past k
-    through ``match_topk_batch`` (the full-fetch fallback); then a
-    corpus that a Matcher's dispatch cache holds is dropped and device
-    memory returns to its level before the pack."""
+    through ``match_topk_batch`` (the full-fetch fallback),
+    ``match_list_indices`` of every SINGLE_QUERIES query (whole lists);
+    then a corpus that a Matcher's dispatch cache holds is dropped and
+    device memory returns to its level before the pack."""
     import gc
 
     from frizbee_tpu_torch import (
@@ -2308,6 +2537,27 @@ def single_cpu_parity_phase(detail):
          Matcher.from_query("deadbeef").match_arrays(ucard),
          Matcher.from_query("deadbeef").match_arrays(ucpu))
     seconds["repack"] = time.perf_counter() - t0
+
+    # match_list_indices of every SINGLE_QUERIES query: the whole lists;
+    # the 20k rows hold no "dead" prefix, so 64 rows gain one for "^dead"
+    t0 = time.perf_counter()
+    rows_of = {"ascii": hay + ["dead" + h for h in hay[:64]],
+               "long": _long_corpus(n_rows, seed=7), "arabic": arabic}
+    packed = {key: (pack_corpus(r, unicode=key == "arabic"),
+                    pack_corpus(r, unicode=key == "arabic", device="cpu"))
+              for key, r in rows_of.items()}
+    counts = {}
+    for label, key, q, cfg, _k in SINGLE_QUERIES:
+        card, cpu = packed[key]
+        got = _indices_rows(Matcher.from_query(
+            q, Config(**cfg)).match_list_indices(card))
+        want = _indices_rows(Matcher.from_query(
+            q, Config(**cfg), device="cpu").match_list_indices(cpu))
+        assert got and got == want, f"card != CPU: match_list_indices {label}"
+        counts[label] = len(got)
+    del packed, rows_of
+    detail["single_cpu_parity_indices_counts"] = counts
+    seconds["match_list_indices"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     greedy_hay = arabic + _greedy_rows(32)
@@ -2427,8 +2677,12 @@ def main():
     phases["serving"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     corpora = {"ascii": corpus, "long": long_corpus, "arabic": ucorpus}
-    single = single_phase(corpora, hay, serving, detail)
+    single, single_results = single_phase(corpora, hay, serving, detail)
     phases["single"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    indices_phase(corpora, single_results, serving, detail)
+    del single_results
+    phases["indices"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     entries = timing_phase(paths, single, serving, errs, detail)
     entries.append(contract_entry)

@@ -5,17 +5,21 @@ The port of ``frizbee_tpu``'s Matcher API and serving path: a resident
 packed corpus (byte units, or codepoint units for unicode needles)
 answers single queries (``Matcher(q).match_arrays`` / ``match_list`` /
 ``match_iter``, the one-shot ``match_list``, ``match_list_parallel`` and
-``fuzzy_match``) and batches of queries (``match_topk_batch`` /
-``match_topk_batch_async`` / ``match_arrays_batch``). The device kernels
+``fuzzy_match``; with matched-character indices ``match_list_indices`` /
+``match_iter_indices`` and the one-shot ``match_list_indices`` and
+``fuzzy_match_indices``, whose traceback runs on the host) and batches
+of queries (``match_topk_batch`` / ``match_topk_batch_async`` /
+``match_arrays_batch``). The device kernels
 of that path — the column-stream fuzzy and literal matches, the row-major
 match and the whole-row gather — are hand-written CUDA for ``sm_90a``
 (``csrc/``); everything else is plain PyTorch. Entry points run on the
 card unless the caller passes ``device="cpu"``, which runs the kernels'
 plain PyTorch versions.
 
-``config``, ``casefold``, ``pattern``, ``datagen``, ``types`` and
-``sort`` are copies of ``frizbee_tpu``'s modules of the same names: the
-package imports nothing of ``frizbee_tpu`` and nothing of JAX.
+``config``, ``casefold``, ``pattern``, ``datagen``, ``types``, ``sort``
+and ``traceback`` (its NumPy branch) are copies of ``frizbee_tpu``'s
+modules of the same names: the package imports nothing of
+``frizbee_tpu`` and nothing of JAX.
 """
 
 from .config import (
@@ -31,8 +35,10 @@ from .matcher import (
     BatchFuture,
     Matcher,
     fuzzy_match,
+    fuzzy_match_indices,
     match_arrays_batch,
     match_list,
+    match_list_indices,
     match_list_parallel,
     match_topk_batch,
     match_topk_batch_async,
@@ -59,8 +65,10 @@ __all__ = [
     "SortStrategy",
     "UnicodeMatching",
     "fuzzy_match",
+    "fuzzy_match_indices",
     "match_arrays_batch",
     "match_list",
+    "match_list_indices",
     "match_list_parallel",
     "match_topk_batch",
     "match_topk_batch_async",

@@ -4,9 +4,10 @@ device layouts the kernels stream.
 Counterpart of ``frizbee_tpu/corpus.py``. A unit is a byte on the ASCII
 path (one int8 matrix per bucket) and a codepoint on the unicode path (one
 int32 matrix per bucket, with the UTF-8 byte counts of each row beside
-it). Packing is vectorized NumPy; the per-unit context arrays of the
-generic pipelines are not built (the kernels derive the UTF-8 context
-from the codepoints, or read the colstream ctx plane). A packed
+it). Packing is vectorized NumPy; the per-unit UTF-8 context arrays are
+built only on the host, on demand, for the batched traceback
+(``PackedBucket._full_arrays``): the kernels derive that context from
+the codepoints, or read the colstream ctx plane. A packed
 ``Corpus`` is query-independent: build once, serve many batches — the
 production serving pattern. Its tensors live on the corpus device, which
 is the card unless the caller asks for the CPU.
@@ -164,6 +165,39 @@ class PackedBucket:
     def unicode(self) -> bool:
         """Codepoint units (int32) rather than bytes (int8)."""
         return self.cp.dtype != np.int8
+
+    def _full_arrays(self):
+        """(cp, first_byte, prev_last_byte, byte_off, byte_len), (B, W)
+        int32 host arrays of the unit values and their UTF-8 context
+        (cached): each unit's first byte, the previous unit's last byte
+        (-1 at a row's start), its byte offset within the row and its
+        byte length; padding holds 0, with -1 as the previous byte. The
+        batched traceback reads them (frizbee_tpu's
+        ``PackedBucket._full_arrays``); they never go to the device."""
+        if not hasattr(self, "_full"):
+            b, w = self.cp.shape
+            cols = np.arange(w, dtype=np.int32)[None, :]
+            valid = cols < self.n_units[:, None]
+            if self.unicode:
+                cp32 = np.where(valid, self.cp, 0).astype(np.int32)
+                first = np.where(valid, _utf8_lead_byte(cp32), 0)
+                last = _utf8_last_byte(cp32)
+                blen = np.where(valid, _utf8_len(cp32), 0).astype(np.int32)
+                boff = np.zeros((b, w), np.int32)
+                np.cumsum(blen[:, :-1], axis=1, out=boff[:, 1:])
+                boff = np.where(valid, boff, 0).astype(np.int32)
+            else:
+                cp32 = np.where(valid, self.cp.astype(np.int32) & 0xFF, 0)
+                first = last = cp32
+                boff = np.where(valid, cols, 0).astype(np.int32)
+                blen = valid.astype(np.int32)
+            prev = np.concatenate(
+                [np.full((b, 1), -1, np.int32), last[:, :-1]], axis=1
+            )
+            prev = np.where(valid, prev, -1).astype(np.int32)
+            self._full = (cp32.astype(np.int32), first.astype(np.int32),
+                          prev, boff, blen)
+        return self._full
 
     def presence_counts(self) -> np.ndarray:
         """(B, 128) uint8 per-row fold-bit occurrence counts capped at

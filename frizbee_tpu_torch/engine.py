@@ -6,7 +6,9 @@ unit tokenization, case and unicode resolution, the u16 overflow guards,
 the host needle arrays the dispatcher stacks per batch, the per-row
 host pipelines (``match_one``, ``match_many``) that score greedy-flagged
 rows (trimmed window over the 1024-byte DP cap) and XL rows (wider than
-the widest bucket) with the oracle's semantics, and ``match_corpus``,
+the widest bucket) with the oracle's semantics, the per-row traceback
+(``match_one_indices``) behind ``Matcher.match_list_indices``, and
+``match_corpus``,
 the per-pattern whole-corpus result the matcher combines when a query
 does not take the fused device path. Its host branch
 (``use_device=False``) is the reference's oracle; its device branch, the
@@ -25,11 +27,12 @@ from .oracle import (
     make_needle_units,
     match_greedy,
     prefilter_window,
+    sw_indices,
     tokenize,
 )
 from .oracle.smith_waterman import match_end_col, sw_matrices
 from .ops.fuzzy import SCORING_FIELDS
-from .types import Match
+from .types import Match, MatchIndices
 
 GENERIC_PIPELINES = (
     "the per-pattern device pipelines (queries whose atoms mix unit "
@@ -124,6 +127,19 @@ class FuzzyEngine(_NeedleEngine):
             rows, scoring.max_per_char_bonus(), scoring.max_one_time_bonus()
         )
 
+    def _window(self, data: bytes) -> Optional[Tuple[int, int]]:
+        """(wstart, wend) byte bounds of the trimmed prefilter window of a
+        row, or None when the prefilter rejects it."""
+        if len(data) < self.min_haystack_len:
+            return None
+        if self.config.max_typos is None:
+            return 0, len(data)
+        hay = tokenize(data, self.unicode)
+        matched, start, end = prefilter_window(
+            self.units, hay, len(data), self.config.max_typos
+        )
+        return (max(start - 1, 0), end) if matched else None
+
     def _host_pipeline(
         self, haystack: str
     ) -> Optional[Tuple[int, bool, int, int, int, bool]]:
@@ -131,20 +147,10 @@ class FuzzyEngine(_NeedleEngine):
         matcher past the DP cap. Returns (score, exact, end_col, wstart,
         wend, used_greedy) or None."""
         data = haystack.encode("utf-8")
-        if len(data) < self.min_haystack_len:
+        window = self._window(data)
+        if window is None:
             return None
-
-        if self.config.max_typos is None:
-            matched, start, end = True, 0, len(data)
-        else:
-            hay = tokenize(data, self.unicode)
-            matched, start, end = prefilter_window(
-                self.units, hay, len(data), self.config.max_typos
-            )
-        if not matched:
-            return None
-
-        wstart = max(start - 1, 0)
+        wstart, end = window
         include_exact = wstart == 0 and end == len(data)
         include_prefix = wstart == 0
         scoring = self.config.scoring
@@ -213,6 +219,59 @@ class FuzzyEngine(_NeedleEngine):
         score, exact, end_col, _, _, _ = res
         return Match(score=score, index=index, exact=exact, end_col=end_col)
 
+    def match_many_indices(self, haystacks) -> Optional[list]:
+        """The native batched score and traceback over rows (frizbee_tpu's
+        ``FuzzyEngine.match_many_indices``): per row None (no match) or
+        ``(score, exact, reversed matched byte offsets)``. It comes with
+        the native host matcher; until then this returns None, as the
+        reference does where its native library does not build, and
+        callers keep the per-row :meth:`match_one_indices` oracle."""
+        return None
+
+    def match_one_indices(self, haystack: str,
+                          index: int) -> Optional[MatchIndices]:
+        """Score + traceback indices (reference:
+        src/matcher/algo.rs:196-296): the prefilter window, then the
+        Smith-Waterman traceback over it, or the greedy matcher past the
+        DP cap."""
+        data = haystack.encode("utf-8")
+        window = self._window(data)
+        if window is None:
+            return None
+        wstart, end = window
+        include_exact = wstart == 0 and end == len(data)
+        include_prefix = wstart == 0
+        scoring = self.config.scoring
+
+        if end - wstart > MAX_HAYSTACK_LEN:
+            res = match_greedy(
+                self.needle_bytes,
+                data[wstart:end],
+                scoring,
+                self.case_sensitive,
+                include_prefix,
+            )
+            if res is None:
+                return MatchIndices(score=0, index=index, exact=False,
+                                    indices=[])
+            score, fwd = res
+            indices = [i + wstart for i in reversed(fwd)]
+        else:
+            win = tokenize(data, self.unicode, wstart, end)
+            score, indices = sw_indices(
+                self.units,
+                win,
+                scoring,
+                include_prefix,
+                self.config.max_typos,
+                haystack_start_pos=0,  # byte_off is already absolute
+            )
+        exact = include_exact and data[wstart:end] == self.needle_bytes
+        if exact:
+            score = min(score + scoring.exact_match_bonus, U16_MAX)
+        return MatchIndices(score=score, index=index, exact=exact,
+                            indices=indices)
+
 
 class LiteralEngine(_NeedleEngine):
     """Literal matching modes; max_typos is ignored
@@ -246,6 +305,18 @@ class LiteralEngine(_NeedleEngine):
         exact = pos == 0 and len(self.needle_bytes) == len(data)
         end_col = min(max(pos + len(self.needle_bytes) - 1, 0), U16_MAX)
         return Match(score=score, index=index, exact=exact, end_col=end_col)
+
+    def match_one_indices(self, haystack: str,
+                          index: int) -> Optional[MatchIndices]:
+        """The match and the needle's byte span at it, in reverse."""
+        m = self.match_one(haystack, index)
+        if m is None:
+            return None
+        pos = m.end_col - len(self.needle_bytes) + 1
+        indices = list(range(pos + len(self.needle_bytes) - 1, pos - 1, -1))
+        return MatchIndices(
+            score=m.score, index=index, exact=m.exact, indices=indices
+        )
 
     def match_corpus(self, corpus) -> MatchResult:
         """Every row's result for this pattern, in corpus order. The host

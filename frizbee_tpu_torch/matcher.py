@@ -6,7 +6,12 @@ against many corpora:
 
 - ``match_arrays`` / ``match_list`` / ``match_one`` / ``match_iter`` /
   ``match_list_parallel`` and the one-shot ``match_list``,
-  ``match_list_parallel`` and ``fuzzy_match``. A query the fused device
+  ``match_list_parallel`` and ``fuzzy_match``; with matched-character
+  indices, ``match_list_indices`` / ``match_one_indices`` /
+  ``match_iter_indices`` and the one-shot ``match_list_indices`` and
+  ``fuzzy_match_indices``, which take the match set from
+  ``match_arrays`` and run the traceback on the host (``traceback.py``,
+  or the per-row oracle). A query the fused device
   path serves runs the batched program at Q=1 (``_fused_dispatch``) over
   a tiered result window of ``max(Q1_WINDOW_MIN, N/8)`` rows, ships only
   the count and the first ``fetch_rows`` rows to the host, and
@@ -63,7 +68,7 @@ from .sort import (
     k_merge_matches_by_score_then_index_asc,
     k_merge_matches_by_score_then_index_desc,
 )
-from .types import Match, MatchList
+from .types import Match, MatchIndices, MatchList
 
 PatternLike = Union[str, Pattern]
 
@@ -601,6 +606,104 @@ class Matcher:
                 combined.end_col = max(combined.end_col, m.end_col)
         return combined
 
+    def match_list_indices(
+        self, haystacks: Union[Sequence[str], Corpus]
+    ) -> List[MatchIndices]:
+        """Matching with matched-character indices (reference:
+        src/matcher/mod.rs:229-270). Under ``use_device`` the match set
+        comes from ``match_arrays`` (the card's kernels); the traceback
+        runs on the host over the matching rows only: the batched NumPy
+        walk (``_batched_indices``) where it applies, else the per-row
+        oracle (``match_one_indices``)."""
+        if not self._compiled:
+            matches = [MatchIndices(0, i) for i in range(len(haystacks))]
+            if self._config.sort.is_reversed:
+                matches.reverse()
+            return matches
+        hay = (
+            haystacks.haystacks
+            if isinstance(haystacks, Corpus)
+            else haystacks
+        )
+        if self._use_device:
+            index = sorted(int(i) for i in self.match_arrays(haystacks)[0])
+        else:
+            index = [
+                i for i in range(len(hay))
+                if self.match_one(hay[i], i) is not None
+            ]
+        if self._config.sort.is_reversed:
+            index = index[::-1]
+        out = list(self._traced(hay, index))
+        if self._config.sort.is_by_score:
+            out.sort(key=lambda m: -m.score)  # stable, score only
+        return out
+
+    def _traced(self, hay, index, base: int = 0) -> Iterator[MatchIndices]:
+        """The MatchIndices of the matched rows ``index`` of ``hay``, in
+        that order, their indices offset by ``base``: the batched walk's
+        where it applies, the per-row oracle's for the rest."""
+        batched = self._batched_indices(hay, index) or {}
+        for i in index:
+            m = batched.get(i)
+            if m is None:
+                m = self.match_one_indices(hay[i], i + base)
+            else:
+                m.index += base
+            if m is not None:
+                yield m
+
+    def _batched_indices(self, hay, index) -> Optional[dict]:
+        """Batched host traceback of the selected matches (one non-negated
+        fuzzy pattern, device mode, at least 32 matches): {index:
+        MatchIndices}; rows the batched walk doesn't cover are missing
+        and fall back to the per-row oracle (see traceback.py)."""
+        if (
+            not self._use_device
+            or len(self._compiled) != 1
+            or self._compiled[0].negated
+            or not self._compiled[0].config.matching.is_fuzzy
+            or len(index) < 32
+        ):
+            return None
+        from .traceback import batched_match_indices
+
+        cp = self._compiled[0]
+        rows = [hay[i] for i in index]
+        res = batched_match_indices(cp.engine, rows)
+        out = {}
+        for i, r in zip(index, res):
+            if r is not None:
+                score, exact, inds = r
+                out[i] = MatchIndices(
+                    score=score, index=i, exact=exact, indices=list(inds),
+                )
+        return out
+
+    def match_one_indices(
+        self, haystack: str, index: int = 0
+    ) -> Optional[MatchIndices]:
+        """One row's match with its indices: no negated atom may match,
+        every other must; scores add saturating at 0xFFFF, exact ORs, and
+        the indices of all atoms merge, deduplicated, in reverse order
+        (reference: src/matcher/multi.rs:74-77)."""
+        if not self._compiled:
+            return MatchIndices.from_index(index)
+        combined = MatchIndices.from_index(index)
+        for cp in self._compiled:
+            if cp.negated:
+                if cp.engine.match_one(haystack, index) is not None:
+                    return None
+            else:
+                m = cp.engine.match_one_indices(haystack, index)
+                if m is None:
+                    return None
+                combined.score = sat_add_u16(combined.score, m.score)
+                combined.exact |= m.exact
+                combined.indices.extend(m.indices)
+        combined.indices = sorted(set(combined.indices), reverse=True)
+        return combined
+
     # Rows per chunk of the string iterator: large enough that a chunk's
     # fixed costs (a pack, a dispatch, one copy back) amortize
     iter_chunk: int = 65536
@@ -720,6 +823,34 @@ class Matcher:
                 b, res = inflight.popleft()
                 yield from emit(b, res)
 
+    def match_iter_indices(
+        self, haystacks: Union[Iterable[str], Corpus]
+    ) -> Iterator[MatchIndices]:
+        """Lazy matching with matched-byte indices, in input order
+        (reference: src/matcher/iter.rs). A ``Corpus`` selects its matches
+        in one ``match_arrays`` call; string input goes in the chunks of
+        ``_iter_chunks``, one ``match_arrays`` call each, with the index
+        rebased by the chunk's base; the traceback reuses the batched
+        walk."""
+        if not self._use_device or not self._compiled:
+            rows = (
+                haystacks.haystacks
+                if isinstance(haystacks, Corpus)
+                else haystacks
+            )
+            for i, h in enumerate(rows):
+                m = self.match_one_indices(h, i)
+                if m is not None:
+                    yield m
+            return
+        if isinstance(haystacks, Corpus):
+            index = sorted(int(i) for i in self.match_arrays(haystacks)[0])
+            yield from self._traced(haystacks.haystacks, index)
+            return
+        for base, chunk in self._iter_chunks(haystacks):
+            index = sorted(int(i) for i in self.match_arrays(chunk)[0])
+            yield from self._traced(chunk, index, base)
+
     def match_list_parallel(
         self, haystacks: Sequence[str], shards: int
     ) -> List[Match]:
@@ -773,6 +904,13 @@ def match_list(
     return Matcher(needle, config, **kw).match_list(haystacks)
 
 
+def match_list_indices(
+    needle: str, haystacks: Sequence[str], config: Optional[Config] = None,
+    **kw
+) -> List[MatchIndices]:
+    return Matcher(needle, config, **kw).match_list_indices(haystacks)
+
+
 def match_list_parallel(
     needle: str,
     haystacks: Sequence[str],
@@ -793,6 +931,17 @@ def fuzzy_match(
     src/matcher/iter.rs FuzzyMatchExt::fuzzy_match). Unsorted; yields in
     input order."""
     return Matcher(needle, config, **kw).match_iter(haystacks)
+
+
+def fuzzy_match_indices(
+    haystacks: Iterable[str],
+    needle: str,
+    config: Optional[Config] = None,
+    **kw,
+) -> Iterator[MatchIndices]:
+    """Lazy matching with matched-byte indices (reference:
+    src/matcher/iter.rs FuzzyMatchExt::fuzzy_match_indices)."""
+    return Matcher(needle, config, **kw).match_iter_indices(haystacks)
 
 
 def _yield_matches(index, score, exact, end_col, base=0):

@@ -187,7 +187,7 @@ def test_port_imports_no_jax_and_no_reference():
     scanned = {os.path.relpath(p, ROOT) for p in files}
     for rel in ("ops/literal.py", "ops/kernels.py", "ops/batch.py",
                 "ops/pairing.py", "engine.py", "corpus.py", "types.py",
-                "sort.py", "matcher.py",
+                "sort.py", "matcher.py", "traceback.py",
                 "oracle/prefilter.py", "oracle/smith_waterman.py",
                 "oracle/greedy.py", "oracle/literal.py",
                 "probes/__init__.py",
