@@ -1049,7 +1049,7 @@ def _counters():
     from frizbee_tpu_torch.ops import batch as fb
 
     return (_build.LAUNCHES, fb.FINALIZE_ROUTES, fb.ROW_MAJOR_ROUTES,
-            fb.COLSTREAM_FLOWS)
+            fb.COLSTREAM_FLOWS, fb.GENERIC_ROUTES)
 
 
 def _reset_counters():
@@ -1371,7 +1371,7 @@ def _capture_single(calls_of):
 # INDICES_ORACLE_ENTRIES entries (the first and last 500 among them) held
 # to the per-row oracle, and the host memory of a call
 INDICES_PATHS = {"single": "indices", "single_unicode": "indices_unicode"}
-INDICES_TIMED_CALLS = 5
+INDICES_TIMED_CALLS = 2
 INDICES_ORACLE_ENTRIES = 2000
 INDICES_ORACLE_ENDS = 500
 
@@ -1574,6 +1574,251 @@ def indices_phase(corpora, single_results, serving, detail):
         fm.Matcher.match_arrays = match_arrays
         tb.batched_match_indices = batched
     detail["indices"] = out
+
+
+# the generic pipelines at 1M rows: (label, corpus key, queries, config
+# keywords, the ops.batch.GENERIC_ROUTES entry every group must take, the
+# launch counters the path must raise, timed blocking batches after the
+# cold one). Index sorts and multi-pattern atoms beyond the colstream
+# budgets take the generic body over the row-major kernel (int16 lanes
+# on byte rows, int32 on codepoints); literal needles over 16 units the
+# literal fast path; needles over 64 units and budgets over 8 the plain
+# fuzzy pipeline over PackedBucket.device_arrays()
+GENERIC_TIMED_CALLS = 3
+GENERIC_LONG_FUZZY = 4
+
+
+def _long_literal_queries(hay, q, seed=12):
+    """``^`` prefixes of 17-32 bytes cut from seeded sampled rows (a
+    pasted path prefix): each matches at least its own row."""
+    rng = np.random.default_rng(seed)
+    rows = [h for h in hay[:200_000] if len(h) >= 32]
+    picks = rng.choice(len(rows), q, replace=False)
+    return ["^" + rows[j][:17 + i % 16] for i, j in enumerate(picks)]
+
+
+def _multi_long_queries(q):
+    """A 17-24-unit fuzzy atom (cut from the long needle's permutations,
+    the needle itself first) and a negated literal atom, the 4-byte
+    prefix of a "cafebabe" permutation: eight shape groups of q // 8."""
+    perms = _queries(q, LONG_NEEDLE)
+    other = _queries(q, "cafebabe")
+    return [f"{p[:17 + i % 8]} !^{o[:4]}"
+            for i, (p, o) in enumerate(zip(perms, other))]
+
+
+def _long_fuzzy_queries(hay, seed=13):
+    """(needles over 64 units: whole sampled rows of 65-96 bytes, the
+    w128 bucket's; 16-unit needles, for T=10)."""
+    rng = np.random.default_rng(seed)
+    rows = [h for h in hay[:200_000] if 65 <= len(h.encode()) <= 96]
+    picks = rng.choice(len(rows), GENERIC_LONG_FUZZY, replace=False)
+    short = [h for h in hay[:200_000] if len(h) >= 16]
+    spicks = rng.choice(len(short), GENERIC_LONG_FUZZY, replace=False)
+    return [rows[j] for j in picks], [short[j][:16] for j in spicks]
+
+
+def _generic_paths(corpora, hay):
+    """label -> (corpus, queries, Config, route, kernels, timed calls)."""
+    from frizbee_tpu_torch import Config, SortStrategy
+
+    long_q, short_q = _long_fuzzy_queries(hay)
+    return {
+        "index_sort": (corpora["ascii"], _queries(Q),
+                       Config(sort=SortStrategy.INDEX_ASC), "kernel_body",
+                       ("match_units_i16",), GENERIC_TIMED_CALLS),
+        "index_sort_unicode": (corpora["arabic"], _unicode_queries(UQ),
+                               Config(sort=SortStrategy.INDEX_DESC),
+                               "kernel_body", ("match_units",),
+                               GENERIC_TIMED_CALLS),
+        "multi_long": (corpora["long"], _multi_long_queries(Q), Config(),
+                       "kernel_body", ("match_units_i16",),
+                       GENERIC_TIMED_CALLS),
+        "long_literal": (corpora["ascii"], _long_literal_queries(hay, Q),
+                         Config(), "literal_fast", (), GENERIC_TIMED_CALLS),
+        "long_fuzzy": (corpora["ascii"], long_q, Config(max_typos=0),
+                       "pipeline_body", (), 1),
+        "long_fuzzy_t10": (corpora["ascii"], short_q, Config(max_typos=10),
+                           "pipeline_body", (), 1),
+    }
+
+
+def generic_phase(gpaths, serving, detail):
+    """The generic pipelines at 1M rows through ``match_topk_batch``, each
+    path with every counter set to 0 just before it and read just after:
+    one cold batch and the median of its timed blocking batches (host
+    clock, ending in a synchronise), peak device memory; asserts the
+    route every group took, the kernels it must launch (none launches
+    another), its counts against the score-sorted batches of the same
+    needles, the index order of the index sorts and a match for every
+    long literal."""
+    from frizbee_tpu_torch import match_topk_batch
+    from frizbee_tpu_torch.matcher import Matcher, _dispatch_batch_groups
+    from frizbee_tpu_torch.ops import _build
+    from frizbee_tpu_torch.ops import batch as fb
+
+    out = {}
+    for label, (corpus, queries, cfg, route, kernels, timed) in \
+            gpaths.items():
+        _reset_counters()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = match_topk_batch(queries, corpus, cfg, k=TOP_K)
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        times = []
+        for _ in range(timed):
+            t0 = time.perf_counter()
+            res = match_topk_batch(queries, corpus, cfg, k=TOP_K)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated()
+        launches = dict(_build.LAUNCHES)
+        routes = dict(fb.GENERIC_ROUTES)
+        groups = len({(m._statics(), tuple(
+            len(c.engine.units.orig) for c in m._compiled))
+            for m in (Matcher.from_query(q, cfg) for q in queries)})
+        batches = 1 + timed
+        assert routes[route] == groups * batches and sum(
+            routes.values()) == routes[route], (label, routes, groups)
+        for name in ("match_units", "match_units_i16", "colstream_fuzzy",
+                     "colstream_literal", "row_gather"):
+            assert (launches[name] > 0) == (name in kernels), (
+                label, launches)
+        counts = [int(r[0]) for r in res]
+        assert sum(counts) > 0, f"{label}: nothing matched"
+        med = float(np.median(times))
+        out[label] = {
+            "corpus_rows": len(corpus), "batch_queries": len(queries),
+            "groups": groups, "top_k": TOP_K, "max_typos": cfg.max_typos,
+            "sort": cfg.sort.name, "route": route,
+            "cold_batch_ms": cold_ms, "blocking_batch_ms": times,
+            "blocking_median_ms": med,
+            "blocking_haystacks_per_sec": len(queries) * len(corpus)
+            / (med / 1e3),
+            "peak_device_memory_bytes": peak, "launches": launches,
+            "generic_routes": routes, "match_counts": counts,
+        }
+        serving[label] = {"launches": launches}
+        if label.startswith("index_sort"):
+            base = serving["unicode_fuzzy" if "unicode" in label
+                           else "fuzzy"]
+            assert counts == base["match_counts"], (label, counts)
+            step = 1 if cfg.sort.name == "INDEX_ASC" else -1
+            for r in res:
+                assert np.all(np.diff(r[1]) * step > 0), label
+        if label == "long_literal":
+            assert min(counts) >= 1, counts
+        print(f"generic phase, {label}: " + json.dumps(
+            {k: v for k, v in out[label].items()
+             if k not in ("match_counts", "blocking_batch_ms")},
+            ensure_ascii=False), flush=True)
+        del res
+    detail["generic"] = out
+
+
+def generic_cpu_parity_phase(detail):
+    """Reduced size (20k rows): the card's arrays equal the CPU's on every
+    generic path — the serving arrays group by group and the decoded
+    top-k of each path of the generic phase, custom bucket widths (48,)
+    and (64, 128, 2048), INDEX_DESC and SCORE_THEN_INDEX_DESC — and so do
+    ``Matcher.match_arrays`` over atoms of mixed unit modes (the repack
+    in the other mode on the corpus device) and ``match_list_indices``
+    under INDEX_ASC."""
+    from frizbee_tpu_torch import (Config, SortStrategy, datagen,
+                                   match_topk_batch, pack_corpus)
+    from frizbee_tpu_torch.matcher import Matcher, _dispatch_batch_groups
+
+    n_rows, q = 20_000, 8
+    hay = datagen.partial_match_corpus(median_length=MEDIAN_LEN,
+                                       num_samples=n_rows, seed=9)
+    long_hay = _long_corpus(n_rows, seed=9)
+    arabic = _unicode_corpus(n_rows, "arabic", seed=9)
+    long_q, short_q = _long_fuzzy_queries(hay, seed=14)
+    wide_hay = hay + ["dead" + "x" * int(k) + "beef"
+                      for k in np.random.default_rng(9).integers(
+                          200, 1900, 200)]
+    idx_asc = Config(sort=SortStrategy.INDEX_ASC)
+    cases = [
+        ("index_sort", hay, _queries(q), idx_asc, False, None),
+        ("index_sort T=1", hay, _queries(q), Config(
+            sort=SortStrategy.INDEX_ASC, max_typos=1), False, None),
+        ("index_sort_unicode", arabic, _unicode_queries(q),
+         Config(sort=SortStrategy.INDEX_DESC), True, None),
+        ("multi_long", long_hay, _multi_long_queries(q), Config(), False,
+         None),
+        ("long_literal", hay, _long_literal_queries(hay, q), Config(),
+         False, None),
+        ("long_fuzzy", hay, long_q[:2], Config(max_typos=0), False, None),
+        ("long_fuzzy T=10", hay, short_q[:2], Config(max_typos=10), False,
+         None),
+        ("INDEX_DESC", hay, _queries(q), Config(
+            sort=SortStrategy.INDEX_DESC), False, None),
+        ("SCORE_THEN_INDEX_DESC", hay, _queries(q), Config(
+            sort=SortStrategy.SCORE_THEN_INDEX_DESC), False, None),
+        ("widths (48,)", hay, _queries(4), Config(), False, (48,)),
+        ("widths (64, 128, 2048) INDEX_DESC", wide_hay, ["dead", "beef"],
+         Config(sort=SortStrategy.INDEX_DESC), False, (64, 128, 2048)),
+    ]
+    seconds = {}
+    packed = {}
+    for label, rows, queries, cfg, unicode, widths in cases:
+        t0 = time.perf_counter()
+        key = (id(rows), widths)
+        if key not in packed:
+            kw = {} if widths is None else {"bucket_widths": widths}
+            packed[key] = (pack_corpus(rows, unicode=unicode, **kw),
+                           pack_corpus(rows, unicode=unicode, device="cpu",
+                                       **kw))
+        on_card, on_cpu = packed[key]
+        raw = []
+        for corpus in (on_card, on_cpu):
+            ms = [Matcher.from_query(x, cfg) for x in queries]
+            arrays = []
+            for out, ready, members in _dispatch_batch_groups(
+                    ms, corpus, cfg, TOP_K):
+                if ready is not None:
+                    ready.synchronize()
+                arrays.append((out.numpy().copy(), members))
+            raw.append(arrays)
+        assert len(raw[0]) == len(raw[1]) > 0, label
+        for (a, ma), (b, mb) in zip(*raw):
+            assert ma == mb and np.array_equal(a, b), (
+                f"card and CPU serving arrays differ: {label}")
+        got = match_topk_batch(queries, on_card, cfg, k=TOP_K)
+        want = match_topk_batch(queries, on_cpu, cfg, k=TOP_K)
+        for x, y in zip(got, want):
+            assert x[0] == y[0], label
+            for u, v in zip(x[1:], y[1:]):
+                assert np.array_equal(u, v), label
+        assert sum(x[0] for x in got) > 0, f"{label}: nothing matched"
+        seconds[label] = time.perf_counter() - t0
+    # atoms of mixed unit modes: the engines' device match_corpus
+    mixed = hay[:n_rows // 2] + arabic[:n_rows // 2] + [
+        "abc " + h for h in arabic[:200]] + ["إن dead" + h for h in hay[:200]]
+    on_card = pack_corpus(mixed)
+    on_cpu = pack_corpus(mixed, device="cpu")
+    for query in ("abc إن", "إن 'dead"):
+        t0 = time.perf_counter()
+        m = Matcher.from_query(query)
+        got, want = m.match_arrays(on_card), m.match_arrays(on_cpu)
+        assert len(got[0]) > 0, query
+        for u, v in zip(got, want):
+            assert np.array_equal(u, v), f"mixed unit modes: {query}"
+        seconds[f"mixed {query}"] = time.perf_counter() - t0
+    # matched-character indices under an index sort
+    t0 = time.perf_counter()
+    got = Matcher.from_query("deadbeef", idx_asc).match_list_indices(hay)
+    want = Matcher.from_query("deadbeef", idx_asc,
+                              device="cpu").match_list_indices(hay)
+    rows_of = [(m.index, m.score, m.exact, list(m.indices)) for m in got]
+    assert rows_of and rows_of == [
+        (m.index, m.score, m.exact, list(m.indices)) for m in want]
+    assert [r[0] for r in rows_of] == sorted(r[0] for r in rows_of)
+    seconds["match_list_indices INDEX_ASC"] = time.perf_counter() - t0
+    detail["generic_cpu_parity_seconds"] = seconds
+    print(f"generic card-vs-CPU phase ({n_rows} rows): equal, seconds "
+          f"{json.dumps(seconds, ensure_ascii=False)}", flush=True)
 
 
 def single_profile_phase(corpora, detail):
@@ -1948,7 +2193,8 @@ KERNELS = (
      ("typo_wide", "typo_int32", "long_needle_int32")),
     ("match_units_i16", "match_units_i16",
      "frizbee_tpu_torch/csrc/match_units.cu",
-     "frizbee_tpu/ops/kernels.py:632", ("typo", "long_needle", "single")),
+     "frizbee_tpu/ops/kernels.py:632",
+     ("typo", "long_needle", "single", "index_sort", "multi_long")),
     ("colstream_fuzzy_i16", "colstream_fuzzy_i16",
      "frizbee_tpu_torch/csrc/colstream_fuzzy.cu",
      "frizbee_tpu/ops/colstream.py:954", ("fuzzy_int16",)),
@@ -1964,7 +2210,8 @@ KERNELS = (
      "frizbee_tpu/ops/colstream.py:954", ("unicode_literal", "unicode_multi")),
     ("match_units_unicode", "match_units",
      "frizbee_tpu_torch/csrc/match_units.cu",
-     "frizbee_tpu/ops/kernels.py:632", ("unicode_typo", "single_unicode")),
+     "frizbee_tpu/ops/kernels.py:632",
+     ("unicode_typo", "single_unicode", "index_sort_unicode")),
 )
 
 
@@ -2062,7 +2309,7 @@ def ab_phase(calls, detail):
     return out
 
 
-def timing_phase(paths, single, serving, errs, detail):
+def timing_phase(paths, single, gpaths, serving, errs, detail):
     """Each kernel's time at its serving shapes: the launches of one batch
     of each path it runs on, captured and replayed, beside their bound,
     their plain version and, for the row gather, ``torch.index_select``.
@@ -2072,13 +2319,19 @@ def timing_phase(paths, single, serving, errs, detail):
     row-major launches with int32 lanes (which they no longer take), each
     a path of its own; then the int16/int32 A/B on the same launches.
     ``single`` holds the single-query paths' (path, [(corpus, query,
-    config)]): one cached ``match_arrays`` call of each is captured."""
+    config)]): one cached ``match_arrays`` call of each is captured.
+    ``gpaths`` holds the generic phase's paths: one batch of each that
+    launches a kernel is captured."""
     calls = {label: _capture(c, queries, cfg)
              for label, (c, queries, cfg, _k) in paths.items()}
     paths_q = {label: p[1] for label, p in paths.items()}
     for path, calls_of in single:
         calls[path] = _capture_single(calls_of)
         paths_q[path] = [q for _c, q, _cfg in calls_of]
+    for label, (c, queries, cfg, _r, kernels, _t) in gpaths.items():
+        if kernels:
+            calls[label] = _capture(c, queries, cfg)
+            paths_q[label] = queries
     for path, name, lanes in (("fuzzy", "colstream_fuzzy", "int16"),
                               ("typo", "match_units", "int32"),
                               ("long_needle", "match_units", "int32")):
@@ -2684,7 +2937,11 @@ def main():
     del single_results
     phases["indices"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    entries = timing_phase(paths, single, serving, errs, detail)
+    gpaths = _generic_paths(corpora, hay)
+    generic_phase(gpaths, serving, detail)
+    phases["generic"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    entries = timing_phase(paths, single, gpaths, serving, errs, detail)
     entries.append(contract_entry)
     phases["timing"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -2697,13 +2954,16 @@ def main():
     single_profile_phase(corpora, detail)
     phases["profile"] = time.perf_counter() - t0
     del corpus, hay, long_corpus, long_hay, ucorpus, uhay, paths, corpora
-    del single
+    del single, gpaths
     t0 = time.perf_counter()
     cpu_parity_phase(detail)
     phases["cpu_parity"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     single_cpu_parity_phase(detail)
     phases["single_cpu_parity"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    generic_cpu_parity_phase(detail)
+    phases["generic_cpu_parity"] = time.perf_counter() - t0
     detail["phase_seconds"] = phases
     detail["total_seconds"] = time.perf_counter() - t_start
     detail["kernels"] = entries

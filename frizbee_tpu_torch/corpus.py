@@ -199,6 +199,23 @@ class PackedBucket:
                           prev, boff, blen)
         return self._full
 
+    def device_arrays(self):
+        """The generic pipelines' 8-tuple on the corpus device (cached,
+        built on first use: five (B, W) int32 planes): (cp, first_byte,
+        prev_last_byte, byte_off, byte_len) of :meth:`_full_arrays`, then
+        n_units, n_bytes and indices (B,) int32 (-1 on size-class
+        padding) — the ``ops/fuzzy.fuzzy_pipeline`` /
+        ``ops/literal.literal_pipeline`` operands (frizbee_tpu's
+        ``device_arrays()``)."""
+        if not hasattr(self, "_device_full"):
+            dev = self.device
+            self._device_full = tuple(
+                torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+                for a in self._full_arrays() + (
+                    self.n_units, self.n_bytes, self.indices)
+            )
+        return self._device_full
+
     def presence_counts(self) -> np.ndarray:
         """(B, 128) uint8 per-row fold-bit occurrence counts capped at
         PLANES, in bucket row order (cached). Padding columns land in a
@@ -401,6 +418,15 @@ class Corpus:
                 flat.reshape(n_xl, 128), PLANES
             ).astype(np.uint8)
         return self._xl_presence
+
+    def device_xl_mask(self) -> torch.Tensor:
+        """(n,) bool mask of the XL (host-path) rows on the corpus
+        device (cached)."""
+        if "_xl_mask" not in self.__dict__:
+            m = np.zeros(len(self.haystacks), dtype=bool)
+            m[self.xl_indices] = True
+            self._xl_mask = torch.from_numpy(m).to(self.device)
+        return self._xl_mask
 
     _SAVE_VERSION = 1
 

@@ -10,9 +10,11 @@ the widest bucket) with the oracle's semantics, the per-row traceback
 (``match_one_indices``) behind ``Matcher.match_list_indices``, and
 ``match_corpus``,
 the per-pattern whole-corpus result the matcher combines when a query
-does not take the fused device path. Its host branch
-(``use_device=False``) is the reference's oracle; its device branch, the
-generic bucket pipelines, comes with the generic pipelines slice.
+does not take the fused device path (atoms of mixed unit modes). Its
+device branch runs the generic bucket pipelines (``ops/fuzzy``,
+``ops/literal``) over ``PackedBucket.device_arrays()`` on the corpus
+device and rescores greedy rows and XL rows on the host; its host
+branch (``use_device=False``) is the reference's oracle.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 from .config import MAX_HAYSTACK_LEN, U16_MAX, Config, sat_add_u16
 from .oracle import (
@@ -31,15 +34,9 @@ from .oracle import (
     tokenize,
 )
 from .oracle.smith_waterman import match_end_col, sw_matrices
-from .ops.fuzzy import SCORING_FIELDS
+from .ops.fuzzy import SCORING_FIELDS, fuzzy_match_bucket
+from .ops.literal import literal_match_bucket
 from .types import Match, MatchIndices
-
-GENERIC_PIPELINES = (
-    "the per-pattern device pipelines (queries whose atoms mix unit "
-    "modes, or that no fused device path serves) come with the generic "
-    "pipelines slice; Matcher(..., use_device=False) serves them on the "
-    "host"
-)
 
 
 class MatchResult:
@@ -67,6 +64,7 @@ class _NeedleEngine:
         self._guard_overflow()
         self.units = make_needle_units(needle, self.unicode, self.case_sensitive)
         self._host_args = None
+        self._device_args = {}
 
     def _guard_overflow(self) -> None:
         raise NotImplementedError
@@ -84,6 +82,24 @@ class _NeedleEngine:
                 ),
             )
         return self._host_args
+
+    def _device_needle(self, device):
+        """(orig (n,), flip (n,), scoring (9,)) int32 tensors on
+        ``device`` (cached per device): :meth:`_host_needle` uploaded."""
+        device = torch.device(device)
+        if device not in self._device_args:
+            self._device_args[device] = tuple(
+                torch.from_numpy(a).to(device) for a in self._host_needle()
+            )
+        return self._device_args[device]
+
+    def _scatter_rows(self, out: MatchResult, rows, res) -> None:
+        """Write (matched, score, exact, end_col) of corpus rows ``rows``."""
+        m, s, e, ec = res
+        out.matched[rows] = m
+        out.score[rows] = s
+        out.exact[rows] = e
+        out.end_col[rows] = ec
 
     def match_one(self, haystack: str, index: int) -> Optional[Match]:
         raise NotImplementedError
@@ -187,19 +203,53 @@ class FuzzyEngine(_NeedleEngine):
         return (score, exact, end_col, wstart, end, False)
 
     def match_corpus(self, corpus) -> MatchResult:
-        """Every row's result for this pattern, in corpus order. The host
-        branch runs the per-row oracle pipeline over every row, bucketed
-        or XL (the reference's differential baseline)."""
+        """Every row's result for this pattern, in corpus order. The
+        device branch runs the fuzzy pipeline over every bucket on the
+        corpus device (:meth:`_match_buckets_device`), then the XL rows
+        through the host pipeline (the reference's ``match_xl_rows``,
+        over its native XL blob, comes with the native host matcher; its
+        ``match_many`` fallback runs here). The host branch runs the
+        per-row oracle pipeline over every row, bucketed or XL (the
+        reference's differential baseline)."""
         assert corpus.unicode == self.unicode, (
             "corpus packed for wrong unicode mode")
         out = MatchResult(len(corpus))
         if not self.units.orig:
             return out  # empty needles take the Matcher's copy path
         if self.use_device:
-            raise NotImplementedError(GENERIC_PIPELINES)
+            self._match_buckets_device(corpus, out)
+            xi = corpus.xl_indices
+            if len(xi):
+                self._scatter_rows(out, xi, self.match_many(
+                    [corpus.haystacks[int(i)] for i in xi]))
+            return out
         for i, h in enumerate(corpus.haystacks):
             self._host_row(h, i, out)
         return out
+
+    def _match_buckets_device(self, corpus, out: MatchResult) -> None:
+        """Per bucket, :func:`ops.fuzzy.fuzzy_match_bucket` over its
+        ``device_arrays()``; rows flagged greedy (trimmed window over the
+        DP cap) are rescored on the host with :meth:`match_many`."""
+        orig, flip, sc = self._device_needle(corpus.device)
+        no_prefilter = self.config.max_typos is None
+        typos = 0 if no_prefilter else int(self.config.max_typos)
+        for bucket in corpus.buckets:
+            res = fuzzy_match_bucket(
+                *bucket.device_arrays()[:7], orig, flip, sc,
+                max_typos=typos, no_prefilter=no_prefilter)
+            matched, score, exact, end_col, greedy = (
+                x.cpu().numpy() for x in res[:5])
+            real = bucket.indices >= 0  # skip size-class padding rows
+            idx = bucket.indices[real]
+            self._scatter_rows(out, idx, (
+                matched[real], score[real], exact[real],
+                np.minimum(end_col[real], U16_MAX)))
+            gr = np.nonzero(greedy & real)[0]
+            if len(gr):
+                gi = bucket.indices[gr]
+                self._scatter_rows(out, gi, self.match_many(
+                    [corpus.haystacks[int(i)] for i in gi]))
 
     def _host_row(self, haystack: str, index: int, out: MatchResult) -> None:
         res = self._host_pipeline(haystack)
@@ -319,20 +369,39 @@ class LiteralEngine(_NeedleEngine):
         )
 
     def match_corpus(self, corpus) -> MatchResult:
-        """Every row's result for this pattern, in corpus order. The host
-        branch (``use_device=False``, or a corpus packed in the other
-        unit mode: literal units are byte sequences either way) runs the
-        per-row literal matcher over every row."""
+        """Every row's result for this pattern, in corpus order. The
+        device branch (a corpus packed in this engine's unit mode) runs
+        :func:`ops.literal.literal_match_bucket` over every bucket's
+        ``device_arrays()`` on the corpus device, then the XL rows on the
+        host; the host branch (``use_device=False``, or a corpus packed
+        in the other unit mode: literal units are byte sequences either
+        way) runs the per-row literal matcher over every row."""
         out = MatchResult(len(corpus))
         if not self.units.orig:
             return out
         if self.use_device and corpus.unicode == self.unicode:
-            raise NotImplementedError(GENERIC_PIPELINES)
-        m, s, e, ec = self.match_many(corpus.haystacks)
-        out.matched[:] = m
-        out.score[:] = np.where(m, s, 0)
-        out.exact[:] = e & m
-        out.end_col[:] = np.where(m, ec, 0)
+            orig, flip, sc = self._device_needle(corpus.device)
+            scoring = tuple(
+                int(getattr(self.config.scoring, f)) for f in SCORING_FIELDS
+            )
+            for bucket in corpus.buckets:
+                res = literal_match_bucket(
+                    *bucket.device_arrays()[:7], orig, flip, sc,
+                    mode=self.config.matching.value,
+                    needle_byte_len=len(self.needle_bytes), scoring=scoring)
+                m, s, e, ec = (x.cpu().numpy() for x in res[:4])
+                real = bucket.indices >= 0  # skip size-class padding rows
+                self._scatter_rows(out, bucket.indices[real], (
+                    m[real], s[real], (e & m)[real], ec[real]))
+            rows = corpus.xl_indices
+        else:
+            rows = np.arange(len(corpus.haystacks))
+        rows = np.asarray(rows, np.int64)
+        if len(rows):
+            m, s, e, ec = self.match_many(
+                [corpus.haystacks[int(i)] for i in rows])
+            self._scatter_rows(out, rows, (
+                m, np.where(m, s, 0), e & m, np.where(m, ec, 0)))
         return out
 
 

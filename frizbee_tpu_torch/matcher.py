@@ -25,19 +25,24 @@ against many corpora:
   take (empty, of mixed unit modes, or of a unit mode other than the
   corpus's) and greedy-risk overflow go through the per-query path.
 
-The fused device path serves queries with a score sort over corpora of
-bucket width <= 1024: a single fuzzy needle of up to 64 units with a typo
-budget of up to 8 (the column-stream kernel for up to 16 units and
-budgets of up to 3, the row-major kernel beyond), a single literal
-needle (exact, prefix, suffix, substring) of up to 16 units, or several
-atoms, negated ones among them (``foo !^bar``), when every atom fits the
-column-stream kernels and all share one unit mode. Greedy-flagged rows
-(trimmed window over the 1024-byte DP cap) and XL rows (wider than the
-widest bucket) are rescored on the host with the oracle's pipelines, as
-the reference does. Under ``use_device=True`` the rest raise
-NotImplementedError at match time, naming the generic pipelines slice;
-``use_device=False`` is the reference's host oracle and serves every
-query.
+The fused device path routes each query as the reference's does
+(``ops/batch.fused_match_sorted_batch``). Under a score sort over
+corpora of bucket width <= 1024, with needles of up to 64 units and
+typo budgets of up to 8 (``use_kernel``): a single fuzzy needle takes
+the column-stream kernel (up to 16 units, budgets up to 3) or the
+row-major kernel, a single literal needle the column-stream literal
+kernel (up to 16 units) or the literal pipeline, and several atoms,
+negated ones among them (``foo !^bar``), the column-stream kernels when
+every atom fits them. The rest — index sorts, longer atoms in a multi
+query, longer needles, larger budgets and custom bucket widths — take
+the generic body: fuzzy atoms through ``kernels.fuzzy_match_units``
+(the row-major kernel) where ``use_kernel`` holds, else the plain
+PyTorch fuzzy and literal pipelines over ``PackedBucket.device_arrays``.
+Atoms of mixed unit modes combine the engines' per-pattern device
+``match_corpus`` results. Greedy-flagged rows (trimmed window over the
+1024-byte DP cap) and XL rows (wider than the widest bucket) are
+rescored on the host with the oracle's pipelines, as the reference
+does. ``use_device=False`` is the reference's host oracle.
 """
 
 from __future__ import annotations
@@ -55,12 +60,13 @@ from .engine import MatchResult, make_engine
 from .ops.batch import (
     _pattern_s1_contributes,
     colstream_eligible_all,
+    fused_match_sorted,
     fused_match_sorted_batch,
-    unserved_reason,
     uses_colstream,
 )
 from .ops.colstream import FUZZY_MODE
 from .ops.fuzzy import SCORING_FIELDS
+from .ops.kernels import MAX_KERNEL_NEEDLE, MAX_KERNEL_TYPOS
 from .pattern import Pattern
 from .sort import (
     k_merge_matches_by_index_asc,
@@ -268,58 +274,63 @@ class Matcher:
     def _fused_device_args(self, corpus: Corpus):
         """(bits8, statics, use_kernel) for the batch: per-bucket presence
         planes, the pattern statics (typos, no_prefilter, negated,
-        scoring, mode, needle bytes), and whether every bucket width
-        fits the kernels."""
-        use_kernel = all(
-            (b.width % 128 == 0 or 128 % b.width == 0) and b.width <= 1024
-            for b in corpus.buckets
+        scoring, mode, needle bytes), and whether the kernels take the
+        query: every bucket width a divisor or multiple of 128 up to
+        1024, every needle of at most 64 units and every clamped typo
+        budget at most 8 (the reference's gate). Raises ValueError for a
+        bucket wider than 4095 units: end_col travels in a 14-bit meta
+        field, which would clamp it."""
+        if any(b.width * 4 > 0x3FFF for b in corpus.buckets):
+            raise ValueError(
+                "bucket width exceeds the 14-bit end_col meta field (max "
+                "4095 units)")
+        use_kernel = (
+            all(
+                (b.width % 128 == 0 or 128 % b.width == 0)
+                and b.width <= 1024
+                for b in corpus.buckets
+            )
+            and all(
+                len(cp.engine.units.orig) <= MAX_KERNEL_NEEDLE
+                for cp in self._compiled
+            )
+            and all(
+                min(cp.config.max_typos or 0, len(cp.engine.units.orig))
+                <= MAX_KERNEL_TYPOS
+                for cp in self._compiled
+            )
         )
         bits8 = tuple(b.device_presence_bits() for b in corpus.buckets)
         return bits8, self._statics(), use_kernel
 
-    def _unserved_reason(self, statics, lens, use_kernel) -> Optional[str]:
-        """None when the fast branch of the reference's ``_fused_dispatch``
-        (the batched program at Q=1) serves the query, else the
-        NotImplementedError message: the rest take the reference's
-        ``fused_match_sorted``, which comes with the generic pipelines
-        slice."""
-        if not self._config.sort.is_by_score:
-            return ("index sort strategies come with the generic pipelines "
-                    "slice")
-        if not use_kernel:
-            return "custom bucket widths come with the generic pipelines slice"
-        if len(statics) == 1 and not statics[0][2]:
-            return unserved_reason(statics[0], lens[0])
-        if not colstream_eligible_all(statics, lens):
-            return ("multi-pattern or negated queries with an atom outside "
-                    "the column-stream kernels' budgets come with the "
-                    "generic pipelines slice")
-        return None
-
     def _fused_prepare(self, corpus: Corpus, full_window: bool) -> tuple:
         """Everything a Q=1 launch needs that depends only on (corpus,
         window): presence planes, statics, the stacked needles on the
-        corpus device, the host-chosen finalize cap and the window. Its
-        device layouts are uploaded here, on the calling thread's current
-        stream."""
+        corpus device, and, where the batched program serves the query
+        (the kernel routes under a score sort, as the reference's
+        ``_fused_dispatch`` decides), the host-chosen finalize cap and
+        the window; else None in their place, and the generic
+        ``fused_match_sorted`` serves the whole corpus. Device layouts
+        are uploaded here, on the calling thread's current stream."""
         bits8, statics, use_kernel = self._fused_device_args(corpus)
         hosts = [cp.engine._host_needle() for cp in self._compiled]
         lens = [h[0].shape[0] for h in hosts]
-        reason = self._unserved_reason(statics, lens, use_kernel)
-        if reason is not None:
-            raise NotImplementedError(reason)
-        n = len(corpus)
-        window = n if full_window else min(n, max(Q1_WINDOW_MIN, n // 8))
         stacked = tuple(
             tuple(torch.from_numpy(a[None]).to(corpus.device) for a in h)
             for h in hosts
         )
+        single = len(statics) == 1 and not statics[0][2]
+        if not (use_kernel and self._config.sort.is_by_score
+                and (single or colstream_eligible_all(statics, lens))):
+            return bits8, statics, stacked, use_kernel, None
+        n = len(corpus)
+        window = n if full_window else min(n, max(Q1_WINDOW_MIN, n // 8))
         _cs, fin_cap, _perm = _colstream_blocks_and_cap(
             corpus, statics, lens,
             [np.concatenate(h[:2])[None, :] for h in hosts],
-            window, single=len(statics) == 1 and not statics[0][2],
+            window, single=single,
         )  # perm is the identity at Q=1
-        return bits8, statics, stacked, fin_cap, window
+        return bits8, statics, stacked, use_kernel, (fin_cap, window)
 
     def _fused_dispatch(self, corpus: Corpus, full_window: bool = False,
                         prep=None):
@@ -356,11 +367,22 @@ class Matcher:
                     ),
                     prep,
                 )
-        bits8, statics, stacked, fin_cap, window = prep
-        out = fused_match_sorted_batch(
-            bits8, stacked, n=len(corpus), pattern_statics=statics,
-            fetch_rows=window, buckets=corpus.buckets, finalize_cap=fin_cap,
-        )[0]
+        bits8, statics, stacked, use_kernel, batched = prep
+        if batched is None:
+            out = fused_match_sorted(
+                corpus.buckets, tuple(tuple(a[0] for a in p)
+                                      for p in stacked),
+                n=len(corpus), pattern_statics=statics,
+                sort_by_score=self._config.sort.is_by_score,
+                use_kernel=use_kernel, bits8=bits8,
+            )
+        else:
+            fin_cap, window = batched
+            out = fused_match_sorted_batch(
+                bits8, stacked, n=len(corpus), pattern_statics=statics,
+                fetch_rows=window, buckets=corpus.buckets,
+                finalize_cap=fin_cap,
+            )[0]
         # only the head (count + the first fetch_rows rows) crosses to the
         # host; the rest of the window stays on the device
         head = out[: 1 + min(self.fetch_rows, len(corpus))]
@@ -477,8 +499,10 @@ class Matcher:
                     end_col = np.concatenate([end_col, xec[xm]])
                     resort = True
         if resort:
-            # the fused path serves score sorts only
-            order = np.lexsort((index, -score))
+            if strategy.is_by_score:
+                order = np.lexsort((index, -score))
+            else:
+                order = np.argsort(index, kind="stable")
             index, score, exact, end_col = (
                 index[order], score[order], exact[order], end_col[order]
             )
@@ -486,6 +510,10 @@ class Matcher:
             order = np.lexsort((-index, -score))
             index, score, exact, end_col = (
                 index[order], score[order], exact[order], end_col[order]
+            )
+        elif strategy is SortStrategy.INDEX_DESC:
+            index, score, exact, end_col = (
+                index[::-1], score[::-1], exact[::-1], end_col[::-1]
             )
         return index, score, exact, end_col
 
@@ -1012,11 +1040,15 @@ def _colstream_finalize_cap(corpus, pattern_needles, fetch_rows):
     n_gtot = 0
     for b in corpus.buckets:
         blk = b.host_blk_bits().astype(np.int32)  # (nG, PLANES*128)
-        n_gtot += blk.shape[0]
-        mask = np.ones((blk.shape[0], Q), bool)
-        for (need, tot), typos in needs:
-            mask &= (blk @ need) >= (tot - typos)[None, :]
-        alive_tot += mask.sum(axis=0)
+        n_g = blk.shape[0]
+        n_gtot += n_g
+        if b.width <= 1024:  # colstream-served: real flags
+            mask = np.ones((n_g, Q), bool)
+            for (need, tot), typos in needs:
+                mask &= (blk @ need) >= (tot - typos)[None, :]
+            alive_tot += mask.sum(axis=0)
+        else:  # a wider bucket counts as all alive, as the reference's
+            alive_tot += n_g
     min_blocks = min(-(-fetch_rows // GROUP_ROWS) + 1, n_gtot)
     if min_blocks >= -(-n_gtot // 2):
         return None
@@ -1060,33 +1092,30 @@ def _dispatch_batch_groups(
             # per-query path repacks
             continue
         bits8, statics, use_kernel = m._fused_device_args(corpus)
-        if not use_kernel or not config.sort.is_by_score:
-            raise NotImplementedError(
-                "custom bucket widths and index sorts come with the "
-                "generic pipelines slice"
-            )
         hosts = tuple(cp.engine._host_needle() for cp in m._compiled)
         lens = tuple(h[0].shape[0] for h in hosts)
-        groups.setdefault((statics, lens), []).append(i)
+        groups.setdefault((statics, lens, use_kernel), []).append(i)
         prepared[i] = (bits8, hosts)
 
     pending = []
-    for (statics, lens), members in groups.items():
+    for (statics, lens, use_kernel), members in groups.items():
         bits8 = prepared[members[0]][0]
         n_pat = len(statics)
-        needles_np = [
-            np.stack([np.concatenate(prepared[i][1][p][:2])
-                      for i in members])
-            for p in range(n_pat)
-        ]
-        _cs, fin_cap, perm = _colstream_blocks_and_cap(
-            corpus, statics, list(lens), needles_np,
-            min(fetch_rows, len(corpus)),
-            single=(n_pat == 1 and not statics[0][2]),
-        )
-        if perm is not None:
-            # mixed finalize: selective queries first; members follow
-            members = [members[j] for j in perm]
+        fin_cap = None
+        if use_kernel and config.sort.is_by_score:
+            needles_np = [
+                np.stack([np.concatenate(prepared[i][1][p][:2])
+                          for i in members])
+                for p in range(n_pat)
+            ]
+            _cs, fin_cap, perm = _colstream_blocks_and_cap(
+                corpus, statics, list(lens), needles_np,
+                min(fetch_rows, len(corpus)),
+                single=(n_pat == 1 and not statics[0][2]),
+            )
+            if perm is not None:
+                # mixed finalize: selective queries first; members follow
+                members = [members[j] for j in perm]
         stacked = tuple(
             tuple(
                 torch.from_numpy(
@@ -1104,6 +1133,8 @@ def _dispatch_batch_groups(
             fetch_rows=min(fetch_rows, len(corpus)),
             buckets=corpus.buckets,
             finalize_cap=fin_cap,
+            sort_by_score=config.sort.is_by_score,
+            use_kernel=use_kernel,
         )
         if out.is_cuda:
             host_rows = torch.empty(out.shape, dtype=out.dtype,

@@ -1,18 +1,24 @@
 """Q-batched serving: stage-1 presence, then either the column-stream
-flow (fuzzy needles the colstream kernel holds, and every literal mode)
-with per-group flags, or the row-major flow (longer fuzzy needles and
-larger typo budgets) over per-query survivor orders, and the top-k
-finalize — one pass of tensor ops on the corpus device. Multi-pattern
-and negated queries take the multi flow: every pattern's colstream
-kernel in columns mode over the same flag-gated blocks, then the
-combine (scores sum, exact and greedy OR, end_col max, negation veto).
+flow (fuzzy needles the colstream kernel holds, and literal needles of
+up to 16 units) with per-group flags, or the row-major flow (longer
+fuzzy needles and larger typo budgets) over per-query survivor orders,
+and the top-k finalize — one pass of tensor ops on the corpus device.
+Multi-pattern and negated queries take the multi flow: every pattern's
+colstream kernel in columns mode over the same flag-gated blocks, then
+the combine (scores sum, exact and greedy OR, end_col max, negation
+veto). The rest take the generic routes: the generic body (index sorts,
+atoms beyond the colstream budgets, and everything the kernels do not
+hold: its fuzzy atoms run ``kernels.fuzzy_match_units`` where they fit
+the row-major kernel, else the plain fuzzy and literal pipelines of
+``ops/fuzzy`` and ``ops/literal``), and the literal fast path for single
+literal needles over 16 units.
 
-Counterpart of ``frizbee_tpu/ops/batch._fused_match_batch_fast`` and
-``_fused_multi_batch_fast``. The
-result is the same ``(Q, 1 + fetch_rows, 2)`` int32 array: row 0 is
-``[match_count, 0]``, rows 1.. are ``[index, meta]`` with meta =
-score<<16 | exact<<15 | greedy<<14 | end_col, best first (score desc,
-index asc).
+Counterpart of ``frizbee_tpu/ops/batch.py``: ``fused_match_sorted_batch``
+routes as the reference's does, and the result is the same ``(Q, 1 +
+fetch_rows, 2)`` int32 array: row 0 is ``[match_count, 0]``, rows 1..
+are ``[index, meta]`` with meta = score<<16 | exact<<15 | greedy<<14 |
+end_col, best first (score desc, index asc), or by index under an index
+sort.
 
 Where JAX branches inside the program (``lax.cond``), this module either
 branches on host-known statics or selects on the device with
@@ -41,22 +47,31 @@ from .colstream import (
     match_units_colstream,
     row_gather,
 )
+from .fuzzy import fuzzy_pipeline
 from .kernels import (
     INT64_MAX,
-    MAX_KERNEL_NEEDLE,
-    MAX_KERNEL_TYPOS,
+    _survivor_order,
+    fuzzy_match_units,
     int16_lanes_dispatch,
     match_units,
     pack_keys,
     pack_needle_scalars,
 )
-from .literal import LITERAL_MODES
+from .literal import (
+    LITERAL_MODES,
+    ascii_planes,
+    literal_context,
+    literal_match_ctx,
+    units_planes,
+)
 from .presence import needle_need_matrix, presence_hits
 
 # Batched result sorts keep Q x total keys; past this total-element budget
 # (int64 keys count as two words) each query's keys sort and slice on
 # their own. Module constant so tests can force the per-query path.
 SORT_BODY_BUDGET = 1 << 29
+
+INT32_MAX = (1 << 31) - 1
 
 # Broad-needle result selection: R slots per tournament block
 BROAD_TOPK_R = 128
@@ -83,6 +98,15 @@ COLSTREAM_FLOWS = {"single": 0, "multi": 0}
 # card the launch counters (_build.LAUNCHES "match_units_i16" and
 # "match_units") say the same.
 ROW_MAJOR_LANES = {"int16": 0, "int32": 0}
+
+# Generic routes taken, per batch: kernel_body (the generic body over
+# the kernels' row arrays: fuzzy atoms through kernels.fuzzy_match_units,
+# literal atoms through the literal pipelines — index sorts and
+# multi-pattern atoms beyond the column-stream budgets), pipeline_body
+# (the generic body over PackedBucket.device_arrays(): needles over 64
+# units, budgets over 8, bucket widths the kernels do not hold) and
+# literal_fast (single literal needles over 16 units)
+GENERIC_ROUTES = {"kernel_body": 0, "pipeline_body": 0, "literal_fast": 0}
 
 
 def _to_int32(v: torch.Tensor) -> torch.Tensor:
@@ -206,29 +230,15 @@ def _finalize(keys, counts, *, presorted, flags_cat, Q, fetch_rows,
     return torch.cat([header[:, None, :], rows], dim=1)
 
 
-def unserved_reason(st, nlen: int):
-    """None when the batch path serves a single-pattern group of needle
-    length ``nlen`` and statics ``st``, else the NotImplementedError
-    message naming the slice that ports it. The reference's kernel gate:
-    longer needles and larger budgets (and literal needles the colstream
-    kernel cannot hold) take its generic pipelines."""
-    typos, _nopre, _neg, _sc, mode, _nbl = st
-    if nlen > MAX_KERNEL_NEEDLE or min(int(typos), nlen) > MAX_KERNEL_TYPOS:
-        return (f"a needle of {nlen} units with max_typos={typos} comes "
-                "with the generic pipelines slice")
-    if mode != FUZZY_MODE and not colstream_literal_supported(nlen):
-        return (f"literal needles of {nlen} units (over 16) come with the "
-                "generic pipelines slice")
-    return None
-
-
 def uses_colstream(st, nlen: int) -> bool:
-    """Whether a served single-pattern group takes the column-stream flow:
-    every literal mode, and fuzzy needles within the colstream kernel's
-    needle and typo budgets; the rest take the row-major flow."""
+    """Whether a single-pattern group of the kernel routes takes the
+    column-stream flow: literal needles within the literal kernel's
+    budget, and fuzzy needles within the fuzzy kernel's needle and typo
+    budgets. Other fuzzy needles take the row-major flow, other literal
+    needles ``_fused_literal_batch_fast``."""
     typos, nopre, _neg, _sc, mode, _nbl = st
     if mode != FUZZY_MODE:
-        return True
+        return colstream_literal_supported(nlen)
     return colstream_supported(nlen, min(int(typos), nlen), nopre)
 
 
@@ -286,23 +296,6 @@ def _serve_keys(keys, *, flags_cat, Q, fetch_rows, finalize_cap, idx_bits,
         Q=Q, fetch_rows=fetch_rows, finalize_cap=finalize_cap,
         idx_bits=idx_bits, idx_mask=idx_mask,
     )
-
-
-def _survivor_order(s1, nu, W):
-    """(Q, B) int32 row order per query: stage-1 survivors first, each
-    part by (unit count, row) — one sort of packed [reject | n_units |
-    row] keys (``survivor_perms`` in the reference), so survivors of
-    similar length share warps."""
-    Q, B = s1.shape
-    bbits = max((B - 1).bit_length(), 1)
-    wbits = W.bit_length()
-    # holds for every bucket pack_corpus builds (corpus.max_bucket_rows)
-    assert bbits + wbits + 1 <= 31, (B, W)
-    iota = torch.arange(B, dtype=torch.int32, device=s1.device)
-    keyb = (nu << bbits) | iota
-    key = torch.where(s1, keyb, keyb | (1 << (bbits + wbits)))
-    # a transposed mask carries its strides through where and sort
-    return (torch.sort(key, dim=1).values & ((1 << bbits) - 1)).contiguous()
 
 
 def _row_major_flow(bits8, buckets_rm, needles_q, *, T, no_prefilter,
@@ -437,52 +430,20 @@ def _fused_multi_batch_fast(bits8, buckets, stacked_patterns, *, n,
     )
 
 
-def fused_match_sorted_batch(
-    bits8,  # per bucket PackedBucket.device_presence_bits()
-    stacked_patterns,  # one (orig (Q,n), flip (Q,n), sc (Q,9)) per pattern
-    *,
-    n: int,  # corpus rows (sets the key's index width)
-    pattern_statics: Tuple,  # per pattern (typos, no_prefilter, negated,
-    #                          scoring, mode, nbl)
-    fetch_rows: int,
-    buckets,  # the corpus's PackedBuckets, each at most 1024 wide
-    finalize_cap=None,  # host-chosen (cap_blocks, n_sel), or None
-):
-    """Serve Q shape-uniform queries against one resident corpus: (Q, 1 +
-    fetch_rows, 2) int32 on the corpus device.
-
-    One non-negated pattern: :func:`uses_colstream` picks the flow. The
-    colstream flow reads each bucket's ``device_arrays_colstream()``
-    (with the ctx plane of a unicode bucket; it takes ``finalize_cap``),
-    the row-major flow its ``device_arrays_rowmajor()`` (bytes, or the
-    codepoints of a unicode bucket). Several patterns, or one negated
-    pattern, whose atoms pass :func:`colstream_eligible_all` take
-    :func:`_fused_multi_batch_fast` (with ``finalize_cap``). Queries
-    outside these raise NotImplementedError naming the slice that ports
-    them."""
-    if len(pattern_statics) != 1 or pattern_statics[0][2]:
-        lens = tuple(p[0].shape[1] for p in stacked_patterns)
-        if not colstream_eligible_all(pattern_statics, lens):
-            raise NotImplementedError(
-                "multi-pattern or negated queries with an atom outside "
-                "the column-stream kernels' budgets come with the generic "
-                "pipelines slice"
-            )
-        return _fused_multi_batch_fast(
-            bits8, buckets, stacked_patterns, n=n,
-            pattern_statics=pattern_statics, fetch_rows=fetch_rows,
-            finalize_cap=finalize_cap,
-        )
-    st = pattern_statics[0]
-    typos, no_prefilter, _neg, scoring, mode, nbl = st
+def _fused_match_batch_fast(bits8, buckets, pattern, *, n, statics,
+                            fetch_rows, finalize_cap=None):
+    """Q-batched single-pattern serving over the kernels: the colstream
+    flow (fuzzy needles the colstream kernel holds, and literal needles
+    of up to 16 units) with per-group stage-1 flags and the finalize,
+    or the row-major flow (longer fuzzy needles and larger budgets) over
+    per-query survivor orders. The reference's ``_fused_match_batch_fast``
+    (with its column-stream literal twin)."""
+    typos, no_prefilter, _neg, scoring, mode, nbl = statics
     literal = mode != FUZZY_MODE
     if literal and mode not in LITERAL_MODES:
         raise ValueError(f"unknown match mode {mode!r}")
-    orig_q, flip_q, _sc = stacked_patterns[0]
+    orig_q, flip_q, _sc = pattern
     Q, nlen = orig_q.shape
-    reason = unserved_reason(st, nlen)
-    if reason is not None:
-        raise NotImplementedError(reason)
     # literal matching ignores the typo budget: its stage-1 presence
     # reject runs at T=0, sound a fortiori for contiguous runs
     T = 0 if literal else min(int(typos), nlen)
@@ -495,7 +456,7 @@ def fused_match_sorted_batch(
     if not bits8:
         return torch.zeros((Q, 1 + fetch_rows, 2), dtype=torch.int32,
                            device=dev)
-    if not uses_colstream(st, nlen):
+    if not uses_colstream(statics, nlen):
         return _row_major_flow(
             bits8, [b.device_arrays_rowmajor() for b in buckets],
             needles_q,
@@ -548,3 +509,321 @@ def fused_match_sorted_batch(
         # no query has a stage-1 survivor: the all-zero result
         out = torch.where(empty, torch.zeros_like(out), out)
     return out
+
+
+def order_keys(matched, score, index):
+    """(primary, secondary) ascending-sort keys realizing (matched first,
+    score desc, index asc); unmatched rows sort last as (1, INT32_MAX).
+    Shared with the sharded top-k so the two orders cannot diverge."""
+    neg_score = torch.where(matched, -score, 1)
+    idx = torch.where(matched, index, INT32_MAX)
+    return neg_score.to(torch.int32), idx.to(torch.int32)
+
+
+def _pack_meta(score, exact, greedy, end_col):
+    """meta word: score<<16 | exact<<15 | greedy<<14 | end_col (14 bits),
+    int32 (a score of 0x8000 or more rides the sign bit)."""
+    meta = (
+        ((score.to(torch.int64) & 0xFFFF) << 16)
+        | (exact.to(torch.int64) << 15)
+        | (greedy.to(torch.int64) << 14)
+        | torch.clamp(end_col.to(torch.int64), max=0x3FFF)
+    )
+    return _to_int32(meta & 0xFFFFFFFF)
+
+
+def _select_sorted(matched, score, exact, end_col, greedy, index, n,
+                   score_bound, sort_by_score):
+    """(count, rows): the match count and [index, meta] int32 rows with
+    every match first in the configured order, through one packed int64
+    sort key — by score: -((score << idx_bits) | (idx_mask - index)) << 16
+    | meta_low16; by index: index << 32 | meta_u32. Ascending order
+    realizes the configured total order; unmatched rows carry INT64_MAX
+    and decode (past the count) to the reference's bit patterns. The
+    columns are (B,) or (Q, B); ``score_bound`` is unused, as in the
+    reference."""
+    count = matched.sum(dim=-1, dtype=torch.int32)
+    B = matched.shape[-1]
+    if B == 0:
+        return count, torch.zeros(matched.shape[:-1] + (0, 2),
+                                  dtype=torch.int32, device=matched.device)
+    meta = _pack_meta(score, exact, greedy, end_col).to(torch.int64)
+    idx_bits = max((n - 1).bit_length(), 1)
+    idx_mask = (1 << idx_bits) - 1
+    index = index.to(torch.int64)
+    if sort_by_score:
+        comp = (score.to(torch.int64) << idx_bits) | (idx_mask - index)
+        k64 = ((-comp) << 16) | (meta & 0xFFFF)
+    else:
+        k64 = (index << 32) | (meta & 0xFFFFFFFF)
+    k = torch.sort(torch.where(matched, k64, INT64_MAX), dim=-1).values
+    if sort_by_score:
+        comp2 = -(k >> 16)
+        # logical shift: the sentinel's comp2 is negative
+        score2 = (comp2 >> idx_bits) & ((1 << (64 - idx_bits)) - 1)
+        i2 = _to_int32((idx_mask - (comp2 & idx_mask)) & 0xFFFFFFFF)
+        m2 = _to_int32(((score2 & 0xFFFFFFFF) << 16 | (k & 0xFFFF))
+                       & 0xFFFFFFFF)
+    else:
+        i2 = _to_int32((k >> 32) & 0xFFFFFFFF)
+        m2 = _to_int32(k & 0xFFFFFFFF)
+    return count, torch.stack([i2, m2], dim=-1)
+
+
+def _bucket_pattern_result(bucket, pattern, statics, *, use_kernel,
+                           bits=None):
+    """One pattern over one bucket for every query of a group: (matched,
+    score, exact, end_col, greedy), each (Q, B). With ``use_kernel``, a
+    fuzzy atom runs :func:`kernels.fuzzy_match_units` (one
+    ``match_units`` launch for all Q queries, stage 1 from the bucket's
+    presence planes ``bits``) and a literal atom the literal pipeline
+    over context derived from the kernels' rows; without, the fuzzy and
+    literal pipelines run over ``PackedBucket.device_arrays()``, a query
+    at a time. The needle-independent literal context is computed once a
+    bucket."""
+    typos, nopre, _neg, scoring, mode, nbl = statics
+    orig_q, flip_q, _sc = pattern
+    Q, nlen = orig_q.shape
+    if mode == FUZZY_MODE and use_kernel:
+        cp, nu, _idx = bucket.device_arrays_rowmajor()
+        needles = torch.cat([orig_q, flip_q], dim=1).to(torch.int32)
+        T = min(int(typos), nlen)
+        s1 = None
+        if bits is not None and not nopre and nlen > T:
+            need, tot = needle_need_matrix(needles)
+            s1 = (presence_hits(bits, need) >= (tot - T)[None, :]).T
+        return fuzzy_match_units(
+            cp, nu, needles, max_typos=T, no_prefilter=nopre,
+            scoring=scoring, survivors=s1)
+    if mode == FUZZY_MODE:
+        arrays = bucket.device_arrays()[:7]
+        cols = [fuzzy_pipeline(*arrays, orig_q[q], flip_q[q], scoring,
+                               max_typos=typos, no_prefilter=nopre)[:5]
+                for q in range(Q)]
+        return tuple(torch.stack(c) for c in zip(*cols))
+    if mode not in LITERAL_MODES:
+        raise ValueError(f"unknown match mode {mode!r}")
+    if use_kernel:
+        cp_k, nu, _idx = bucket.device_arrays_rowmajor()
+        if bucket.unicode:
+            cp, first, prev, boff, _blen, n_bytes = units_planes(cp_k, nu)
+        else:
+            cp, first, prev, boff, n_bytes = ascii_planes(cp_k, nu)
+    else:
+        cp, first, prev, boff, _blen, nu, n_bytes, _idx = (
+            bucket.device_arrays())
+    B, W = cp.shape
+    zeros = torch.zeros((Q, B), dtype=torch.int32, device=cp.device)
+    false = torch.zeros((Q, B), dtype=torch.bool, device=cp.device)
+    if nlen == 0 or nlen > W:
+        return false, zeros, false, zeros, false
+    ctx = literal_context(first, prev, boff, nu, n=nlen, W=W,
+                          scoring=scoring)
+    cols = [literal_match_ctx(
+        ctx, cp, nu, n_bytes, boff, orig_q[q], flip_q[q], mode=mode,
+        needle_byte_len=nbl, scoring=scoring) for q in range(Q)]
+    m, sc, e, ec = (torch.stack(c) for c in zip(*cols))
+    return m, sc, e, ec, false
+
+
+def _fused_match_body(bits8, buckets, stacked_patterns, *, n,
+                      pattern_statics, sort_by_score, use_kernel,
+                      fetch_rows):
+    """The generic body for Q queries: per bucket, every pattern's
+    columns (:func:`_bucket_pattern_result`) fold into the combined
+    state —
+    non-negated atoms AND into matched, add their score (saturating at
+    0xFFFF), OR exact and greedy and take the larger end_col; negated
+    atoms veto (reference: src/matcher/multi.rs:84-152); size-class
+    padding rows (index -1) never match — then :func:`_select_sorted`
+    over the concatenated buckets. Returns (Q, 1 + min(total,
+    fetch_rows), 2): the reference's scan over queries, one query's body
+    per step, each sliced to ``fetch_rows`` rows after the header."""
+    Q = stacked_patterns[0][0].shape[0]
+    dev = stacked_patterns[0][0].device
+    parts = []
+    for bi, b in enumerate(buckets):
+        if use_kernel:
+            idx = b.device_arrays_rowmajor()[2]
+        else:
+            idx = b.device_arrays()[7]
+        cm = (idx >= 0)[None, :].expand(Q, -1)
+        cs = torch.zeros(cm.shape, dtype=torch.int32, device=dev)
+        ce = torch.zeros(cm.shape, dtype=torch.bool, device=dev)
+        cec = torch.zeros_like(cs)
+        cg = torch.zeros_like(ce)
+        for pat, st in zip(stacked_patterns, pattern_statics):
+            m, sc, e, ec, g = _bucket_pattern_result(
+                b, pat, st, use_kernel=use_kernel,
+                bits=bits8[bi] if bits8 else None)
+            if st[2]:  # negated
+                cm = cm & ~m
+            else:
+                cm = cm & m
+                cs = torch.clamp(cs + torch.where(m, sc, 0), max=0xFFFF)
+                ce = ce | (e & m)
+                cec = torch.maximum(cec, torch.where(m, ec, 0))
+                cg = cg | (g & m)
+        parts.append((cm, cs, ce, cec, cg, idx[None, :].expand(Q, -1)))
+    if not parts:  # every row XL (or an empty corpus): no device rows
+        z = torch.zeros((Q, 0), dtype=torch.int32, device=dev)
+        parts = [(z.bool(), z, z.bool(), z, z.bool(), z)]
+    cols = [torch.cat([p[i] for p in parts], dim=1) for i in range(6)]
+    total = cols[0].shape[1]
+    if Q * total * 2 > SORT_BODY_BUDGET:
+        res = [_select_sorted(*(c[q] for c in cols), n, None, sort_by_score)
+               for q in range(Q)]
+        counts = torch.stack([r[0] for r in res])
+        rows = torch.stack([r[1][:fetch_rows] for r in res])
+    else:
+        counts, rows = _select_sorted(*cols, n, None, sort_by_score)
+        rows = rows[:, :fetch_rows]
+    header = torch.stack([counts, torch.zeros_like(counts)], dim=1)
+    return torch.cat([header[:, None, :], rows], dim=1)
+
+
+def fused_match_sorted(buckets, patterns, *, n, pattern_statics,
+                       sort_by_score=True, use_kernel=False, bits8=None):
+    """One-call corpus match of one query: (1 + rows, 2) int32 on the
+    corpus device. Row 0 is [match_count, 0]; rows 1.. are [index, meta]
+    with meta = score<<16 | exact<<15 | greedy<<14 | end_col, matches
+    first in (score desc, index asc) order when ``sort_by_score``, else
+    index asc. ``patterns`` holds one (orig (n,), flip (n,), sc (9,))
+    per pattern; ``bits8`` (per bucket presence planes) gives the kernel
+    route its stage-1 reject."""
+    GENERIC_ROUTES["kernel_body" if use_kernel else "pipeline_body"] += 1
+    stacked = tuple(tuple(a[None] for a in p) for p in patterns)
+    total = sum(b.size for b in buckets)
+    return _fused_match_body(
+        bits8, buckets, stacked, n=n, pattern_statics=pattern_statics,
+        sort_by_score=sort_by_score, use_kernel=use_kernel,
+        fetch_rows=total)[0]
+
+
+def _fused_literal_batch_fast(buckets, pattern, *, n, statics, fetch_rows):
+    """Q-batched single literal needles the column-stream literal kernel
+    does not hold (over 16 units): the needle-value-independent context
+    (:func:`literal.literal_context` over context derived from the
+    kernels' rows) once per bucket, the per-query match, keys in the
+    single flow's layout (``kernels.pack_keys``) and one sort over (Q,
+    total) int64 keys, or one a query past ``SORT_BODY_BUDGET``."""
+    _typos, _nopre, _neg, scoring, mode, nbl = statics
+    orig_q, flip_q, _sc = pattern
+    Q, nlen = orig_q.shape
+    dev = orig_q.device
+    idx_bits = max((n - 1).bit_length(), 1)
+    idx_mask = (1 << idx_bits) - 1
+    GENERIC_ROUTES["literal_fast"] += 1
+    if not buckets or nlen == 0:
+        return torch.zeros((Q, 1 + fetch_rows, 2), dtype=torch.int32,
+                           device=dev)
+    prep = []
+    for b in buckets:
+        cp_k, nu, idx = b.device_arrays_rowmajor()
+        B, W = cp_k.shape
+        if nlen > W:
+            prep.append((None, B, idx))
+            continue
+        if b.unicode:
+            cp, first, prev, boff, _blen, n_bytes = units_planes(cp_k, nu)
+        else:
+            cp, first, prev, boff, n_bytes = ascii_planes(cp_k, nu)
+        ctx = literal_context(first, prev, boff, nu, n=nlen, W=W,
+                              scoring=scoring)
+        prep.append(((ctx, cp, nu, n_bytes, boff), B, idx))
+    total = sum(p[1] for p in prep)
+    sort_in_body = Q * total * 2 > SORT_BODY_BUDGET
+    keys = []
+    for q in range(Q):
+        kq = []
+        for args, B, idx in prep:
+            if args is None:  # needle longer than the bucket width
+                kq.append(torch.full((B,), INT64_MAX, dtype=torch.int64,
+                                     device=dev))
+                continue
+            ctx, cp, nu, n_bytes, boff = args
+            m, sc, e, ec = literal_match_ctx(
+                ctx, cp, nu, n_bytes, boff, orig_q[q], flip_q[q], mode=mode,
+                needle_byte_len=nbl, scoring=scoring)
+            kq.append(pack_keys(m, sc, e, ec, torch.zeros_like(m), idx,
+                                idx_bits))
+        kq = torch.cat(kq)
+        if sort_in_body:
+            kq = torch.sort(kq).values[:fetch_rows]
+        keys.append(kq)
+    keys = torch.stack(keys)
+    counts = (keys != INT64_MAX).sum(dim=1, dtype=torch.int32)
+    if not sort_in_body:
+        keys = torch.sort(keys, dim=1).values
+    kc = keys[:, :fetch_rows]
+    index, metas = _decode_keys(kc, idx_bits, idx_mask)
+    rows = torch.stack([index, metas], dim=2)
+    if rows.shape[1] < fetch_rows:
+        rows = torch.cat([rows, torch.zeros(
+            (Q, fetch_rows - rows.shape[1], 2), dtype=torch.int32,
+            device=dev)], dim=1)
+    header = torch.stack([counts, torch.zeros_like(counts)], dim=1)
+    return torch.cat([header[:, None, :], rows], dim=1)
+
+
+def fused_match_sorted_batch(
+    bits8,  # per bucket PackedBucket.device_presence_bits()
+    stacked_patterns,  # one (orig (Q,n), flip (Q,n), sc (Q,9)) per pattern
+    *,
+    n: int,  # corpus rows (sets the key's index width)
+    pattern_statics: Tuple,  # per pattern (typos, no_prefilter, negated,
+    #                          scoring, mode, nbl)
+    fetch_rows: int,
+    buckets,  # the corpus's PackedBuckets
+    finalize_cap=None,  # host-chosen (cap_blocks, n_sel), or None
+    sort_by_score: bool = True,
+    use_kernel: bool = True,  # every bucket width and atom fits the kernels
+):
+    """Serve Q shape-uniform queries against one resident corpus: (Q, 1 +
+    fetch_rows, 2) int32 on the corpus device (fewer rows on the generic
+    routes when the buckets hold fewer than ``fetch_rows``, as the
+    reference's scan slices them).
+
+    Routes, decided as the reference's ``fused_match_sorted_batch``
+    decides them. With ``use_kernel`` and a score sort: one non-negated
+    fuzzy pattern takes :func:`_fused_match_batch_fast` (colstream or
+    row-major flow, :func:`uses_colstream`), as does one non-negated
+    literal needle of up to 16 units (colstream flow); several patterns,
+    or one negated, whose atoms all pass :func:`colstream_eligible_all`
+    take :func:`_fused_multi_batch_fast`; a single literal needle over
+    16 units takes :func:`_fused_literal_batch_fast`. Everything else —
+    index sorts, atoms beyond the column-stream budgets, and
+    ``use_kernel=False`` (needles over 64 units, budgets over 8, widths
+    the kernels do not hold) — takes the generic body
+    (:func:`_fused_match_body`). ``finalize_cap`` applies to the
+    colstream flows only."""
+    mode0 = pattern_statics[0][4] if pattern_statics else None
+    nlen0 = stacked_patterns[0][0].shape[1] if stacked_patterns else 0
+    single = (use_kernel and sort_by_score and len(pattern_statics) == 1
+              and not pattern_statics[0][2])
+    if single and (mode0 == FUZZY_MODE
+                   or colstream_literal_supported(nlen0)):
+        return _fused_match_batch_fast(
+            bits8, buckets, stacked_patterns[0], n=n,
+            statics=pattern_statics[0], fetch_rows=fetch_rows,
+            finalize_cap=finalize_cap,
+        )
+    if use_kernel and sort_by_score and colstream_eligible_all(
+        pattern_statics, tuple(p[0].shape[1] for p in stacked_patterns)
+    ):
+        return _fused_multi_batch_fast(
+            bits8, buckets, stacked_patterns, n=n,
+            pattern_statics=pattern_statics, fetch_rows=fetch_rows,
+            finalize_cap=finalize_cap,
+        )
+    if single:
+        return _fused_literal_batch_fast(
+            buckets, stacked_patterns[0], n=n, statics=pattern_statics[0],
+            fetch_rows=fetch_rows,
+        )
+    GENERIC_ROUTES["kernel_body" if use_kernel else "pipeline_body"] += 1
+    return _fused_match_body(
+        bits8, buckets, stacked_patterns, n=n,
+        pattern_statics=pattern_statics, sort_by_score=sort_by_score,
+        use_kernel=use_kernel, fetch_rows=fetch_rows,
+    )

@@ -17,6 +17,10 @@ ported as the ``int16_lanes`` instantiation: on the card, two rows a thread
 in the s16x2 halves of 32-bit registers (Hopper's DPX add-max); in the
 plain version, DP state in ``torch.int16``. ASCII rows only, and only where
 :func:`score_fits_int16` holds (pinned in tests/test_torch_int16_lanes.py).
+:func:`fuzzy_match_units` runs the kernel in columns mode for the generic
+body (index sorts, multi-pattern atoms beyond the colstream budgets): a
+stage-1 reject, the kernel over each query's survivors, the columns back
+in bucket row order.
 """
 
 from __future__ import annotations
@@ -520,3 +524,84 @@ def match_units(
         count="match_units_i16" if int16_lanes else None,
     )
     return keys if keys is not None else cols
+
+
+def _survivor_order(s1, nu, W):
+    """(Q, B) int32 row order per query: stage-1 survivors first, each
+    part by (unit count, row) — one sort of packed [reject | n_units |
+    row] keys (``survivor_perms`` in the reference), so survivors of
+    similar length share warps."""
+    Q, B = s1.shape
+    bbits = max((B - 1).bit_length(), 1)
+    wbits = W.bit_length()
+    # holds for every bucket pack_corpus builds (corpus.max_bucket_rows)
+    assert bbits + wbits + 1 <= 31, (B, W)
+    iota = torch.arange(B, dtype=torch.int32, device=s1.device)
+    keyb = (nu << bbits) | iota
+    key = torch.where(s1, keyb, keyb | (1 << (bbits + wbits)))
+    # a transposed mask carries its strides through where and sort
+    return (torch.sort(key, dim=1).values & ((1 << bbits) - 1)).contiguous()
+
+
+def fuzzy_match_units(cp, n_units, needle_packed, *, max_typos: int = 0,
+                      no_prefilter: bool = False, scoring=DEFAULT_SCORING,
+                      survivors=None):
+    """Full fused fuzzy match of a bucket: the stage-1 presence reject,
+    then :func:`match_units` in columns mode over each query's survivors
+    (through a survivor order and a live count, in place of the
+    reference's compaction and capacity switch), then the columns back
+    in bucket row order.
+
+    cp (B, W) int8 bytes or int32 codepoints (W a divisor or multiple of
+    128, at most 1024), n_units (B,) or (B, 1), ``needle_packed`` (2n,)
+    or (Q, 2n) int32: orig then flip. Returns (matched bool, score int32,
+    exact bool, end_col int32, greedy bool), each (B,), or (Q, B) for
+    (Q, 2n) needles; every column is zero (False) where matched is
+    False. The int16-lane instantiation serves the rows where
+    :func:`int16_lanes_dispatch` holds, as the reference's ``(not
+    unicode) and score_fits_int16(...) and (interpret or
+    INT16_MOSAIC_OK)`` does.
+
+    Stage 1 runs when the DP is conditional (``no_prefilter`` false and
+    n > T) and the caller gives ``survivors``, a (B,) or (Q, B) bool
+    stage-1 mask: the reference's per-row per-character
+    ``presence.stage1_presence``, or the capped-count matmul of
+    ``presence.presence_hits`` over the resident presence planes (the
+    batch flows, one matmul for all Q). Either is a sound superset of
+    the kernel's own prefilter, so the result equals the kernel over
+    every row; it is ANDed into ``matched`` as the reference does."""
+    B, W = cp.shape
+    single = needle_packed.dim() == 1
+    needles = needle_packed.reshape(-1, needle_packed.shape[-1]).to(
+        torch.int32)
+    Q, n2 = needles.shape
+    n = n2 // 2
+    assert (W % 128 == 0 or 128 % W == 0) and W <= MAX_HAYSTACK_LEN, W
+    assert 1 <= n <= MAX_KERNEL_NEEDLE, n
+    T = min(int(max_typos), n)
+    int16 = int16_lanes_dispatch(cp.device, cp.dtype != torch.int8,
+                                 scoring, n, W)
+    nu = n_units.reshape(-1)
+    scal = pack_needle_scalars(needles, B)
+    s1 = order = None
+    if survivors is not None and not no_prefilter and n > T:
+        s1 = survivors.reshape(Q, B)
+        scal[:, 0] = s1.sum(dim=1, dtype=torch.int32)
+        order = _survivor_order(s1, nu, W)
+    out = match_units(cp, nu, scal, order, None, n=n, max_typos=T,
+                      scoring=scoring, no_prefilter=no_prefilter,
+                      int16_lanes=int16)
+    if order is not None:
+        # logical row i of query q is bucket row order[q, i]; rows past
+        # the live count came back zero
+        out = torch.zeros_like(out).scatter_(
+            1, order.to(torch.int64)[:, :, None].expand(Q, B, 8), out)
+    matched = out[..., 0] > 0
+    if s1 is not None:
+        matched = matched & s1
+    score = torch.where(matched, out[..., 1], 0)
+    exact = matched & (out[..., 2] > 0)
+    end_col = torch.where(matched, out[..., 3], 0)
+    greedy = matched & (out[..., 4] > 0)
+    res = (matched, score, exact, end_col, greedy)
+    return tuple(r[0] for r in res) if single else res

@@ -84,3 +84,67 @@ def presence_hits(bits: torch.Tensor, need: torch.Tensor) -> torch.Tensor:
     return torch.matmul(bits.to(torch.float32), need.to(torch.float32)).to(
         torch.int32
     )
+
+
+# Per-row presence masks: PLANES planes of 4 int32 words (128 fold-bits)
+MASK_WORDS = 4
+
+
+def presence_mask(cp: torch.Tensor, n_units: torch.Tensor) -> torch.Tensor:
+    """(B, PLANES*4) int32 capped-count presence masks of a packed bucket:
+    words [4k, 4k+4) hold plane k, bit c set when fold-bit c occurs more
+    than k times in the row (bit 31 of a word rides the int32 sign).
+
+    ``cp`` is (B, W) int8 bytes or int32 codepoints, ``n_units`` (B,) or
+    (B, 1). The reference's ``presence_mask``."""
+    B, W = cp.shape
+    u = cp.to(torch.int32)
+    if cp.dtype == torch.int8:
+        u = u & 0xFF
+    col = torch.arange(W, dtype=torch.int32, device=cp.device)[None, :]
+    valid = col < n_units.reshape(B, 1)
+    # padding columns land in a sentinel bin 128
+    v = torch.where(valid, _fold_bit(u), 128).to(torch.int64)
+    counts = torch.zeros((B, 129), dtype=torch.int32, device=cp.device)
+    counts.scatter_add_(1, v, torch.ones_like(v, dtype=torch.int32))
+    bit = torch.arange(32, dtype=torch.int64, device=cp.device)
+    words = []
+    for plane in range(PLANES):
+        on = (counts[:, :128] > plane).to(torch.int64).reshape(
+            B, MASK_WORDS, 32)
+        w = (on << bit).sum(dim=2)
+        words.append(torch.where(w >= (1 << 31), w - (1 << 32), w))
+    return torch.cat(words, dim=1).to(torch.int32)
+
+
+def presence_bits(mask: torch.Tensor) -> torch.Tensor:
+    """Expand (B, PLANES*4) int32 masks to the (B, PLANES*128) int8 0/1
+    bit matrix of the stage-1 matmul (``PackedBucket
+    .device_presence_bits`` builds the same from the host counts)."""
+    B = mask.shape[0]
+    bit = torch.arange(32, dtype=torch.int32, device=mask.device)
+    # (x >> k) & 1 reads bit k whether the shift is arithmetic or not
+    bits = (mask[:, :, None] >> bit) & 1
+    return bits.reshape(B, PLANES * 128).to(torch.int8)
+
+
+def stage1_presence(mask: torch.Tensor, needle_packed: torch.Tensor,
+                    max_typos: int) -> torch.Tensor:
+    """(B,) bool: rows that may still match, missing needle units <= the
+    typo budget. Per needle unit, the OR of its orig and flip fold-bits
+    (exact for unicode case pairs whose fold-bits differ), read from the
+    >= 1-occurrence plane (words 0..3 of :func:`presence_mask`). The
+    reference's ``stage1_presence``, the per-row reject of
+    ``kernels.fuzzy_match_units``."""
+    n = needle_packed.shape[0] // 2
+    mask4 = mask[:, :MASK_WORDS]
+    units = needle_packed.to(torch.int32).cpu().tolist()
+
+    def present(val):
+        v = (val + 0x20 if 0x41 <= val <= 0x5A else val) & 127
+        return (mask4[:, v >> 5] >> (v & 31)) & 1
+
+    miss = torch.zeros(mask.shape[0], dtype=torch.int32, device=mask.device)
+    for k in range(n):
+        miss = miss + 1 - (present(units[k]) | present(units[n + k]))
+    return miss <= int(max_typos)

@@ -281,15 +281,20 @@ def test_literal_topk_parity(matching):
 
 @pytest.mark.parametrize("needle,ok", [("d" * 16, True), ("d" * 17, False)])
 def test_literal_needle_length_gate(needle, ok):
-    """Literal needles of up to 16 bytes are served; longer ones raise at
-    match time on the device path, naming the generic pipelines slice."""
+    """Literal needles of up to 16 bytes take the column-stream literal
+    kernel; longer ones (``ok`` False: refused before the generic
+    pipelines were ported) take the literal pipeline. Both equal the
+    reference's device path."""
+    before = dict(tbatch.GENERIC_ROUTES)
     m = Matcher.from_query("^" + needle)
-    corpus = pack_corpus(["d" * 20, "abc"], device="cpu")
-    if ok:
-        assert list(m.match_arrays(corpus)[0]) == [0]
-        return
-    with pytest.raises(NotImplementedError, match="generic pipelines"):
-        m.match_arrays(corpus)
+    hay = ["d" * 20, "abc"]
+    got = m.match_arrays(pack_corpus(hay, device="cpu"))
+    assert list(got[0]) == [0]
+    want = jm.Matcher.from_query("^" + needle).match_arrays(hay)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    assert (tbatch.GENERIC_ROUTES["literal_fast"]
+            == before["literal_fast"] + (not ok))
 
 
 def test_literal_overflow_guard_matches_reference():

@@ -162,9 +162,10 @@ def test_empty_query(hay, sort):
 
 @pytest.mark.parametrize("sort", list(SortStrategy))
 def test_sort_strategies(hay, sort):
-    """Every strategy on the host oracle equals the reference's device path
-    and oracle; under use_device=True the port refuses index sorts at
-    match time, as its match_arrays does."""
+    """Every strategy, on the host oracle and on the device path (index
+    sorts through the generic body, refused before it was ported, with
+    match_iter_indices in input order), equals the reference's device
+    path and oracle."""
     cfg = {"sort": sort}
     want = _rows(jm.Matcher.from_query("deadbeef", _jcfg(cfg))
                  .match_list_indices(hay))
@@ -173,13 +174,11 @@ def test_sort_strategies(hay, sort):
     assert want == _rows(jm.Matcher.from_query(
         "deadbeef", _jcfg(cfg), use_device=False).match_list_indices(hay))
     dev = Matcher.from_query("deadbeef", Config(**cfg), device="cpu")
-    if sort.is_by_score:
-        assert _rows(dev.match_list_indices(hay)) == want
-        return
-    with pytest.raises(NotImplementedError, match="index sort strategies"):
-        dev.match_list_indices(hay)
-    with pytest.raises(NotImplementedError, match="index sort strategies"):
-        next(dev.match_iter_indices(hay))
+    assert _rows(dev.match_list_indices(hay)) == want
+    if not sort.is_by_score:
+        assert _rows(dev.match_iter_indices(hay)) == _rows(
+            jm.Matcher.from_query("deadbeef", _jcfg(cfg))
+            .match_iter_indices(hay))
 
 
 @pytest.mark.parametrize("query,cfg", [

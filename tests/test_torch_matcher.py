@@ -1,8 +1,9 @@
 """The port's serving API — ``match_topk_batch`` and its pipelined form —
 against frizbee_tpu's ``match_topk_batch`` and its host oracle
 (``Matcher(use_device=False)``) on small datagen corpora, plus the
-empty query's copy path, the device path's refusals and the package's
-import boundary."""
+empty query's copy path, the queries and corpora the generic pipelines
+serve (refused before they were ported) and the package's import
+boundary."""
 
 import ast
 import os
@@ -12,6 +13,7 @@ import pytest
 import torch
 
 from frizbee_tpu.config import Config as JConfig
+from frizbee_tpu.config import Matching as JMatching
 from frizbee_tpu.config import SortStrategy as JSortStrategy
 from frizbee_tpu.corpus import pack_corpus as j_pack
 from frizbee_tpu.matcher import Matcher as JMatcher
@@ -116,13 +118,24 @@ def test_async_equals_blocking():
     ("dead", {"sort": SortStrategy.INDEX_ASC}, "index sort"),
 ])
 def test_unserved_queries_raise(query, cfg, match):
-    """Queries the reference serves through its generic pipelines
-    construct (the host oracle serves them) and raise at match time on
-    the device path, naming the slice that ports them."""
-    m = Matcher.from_query(query, Config(**cfg))
-    corpus = pack_corpus(["deadbeef", "abc إن"], device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        m.match_arrays(corpus)
+    """Queries the reference serves through its generic pipelines (``match``
+    names the refusal the device path raised before they were ported):
+    the device path now equals the reference's device path and its host
+    oracle."""
+    hay = ["deadbeef", "abc إن", "deadbeefdeadbeefabc", "é" * 18,
+           "x_deadbeefdeadbeefdeadbeef", "deadbeef" * 9, "dead abc إن"]
+    jcfg = JConfig(**{
+        key: (JSortStrategy[v.name] if key == "sort"
+              else JMatching[v.name] if key == "matching" else v)
+        for key, v in cfg.items()
+    })
+    got = Matcher.from_query(query, Config(**cfg)).match_arrays(
+        pack_corpus(hay, device="cpu"))
+    for use_device in (True, False):
+        want = JMatcher.from_query(
+            query, jcfg, use_device=use_device).match_arrays(hay)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
 
 
 def test_empty_query_copy_path():
@@ -157,15 +170,26 @@ def test_unserved_corpora_raise():
     assert got[0][0] == want[0][0] == 2
     for a, b in zip(got[0][1:], want[0][1:]):
         np.testing.assert_array_equal(a, b)
-    with pytest.raises(NotImplementedError, match="custom bucket"):
-        match_topk_batch(["dead"], pack_corpus(
-            ["dead", "deadbeef"] * 10, bucket_widths=(48,), device="cpu"))
-    # a typo budget beyond 8 is served when the needle clamps it to 8
-    corpus = pack_corpus(["deadbeef", "deadbeefd"], device="cpu")
-    Matcher.from_query("deadbeef", Config(max_typos=9)).match_arrays(corpus)
-    with pytest.raises(NotImplementedError, match="generic pipelines"):
-        Matcher.from_query("deadbeefd", Config(max_typos=9)).match_arrays(
-            corpus)
+    # custom bucket widths (formerly refused) take the generic pipelines
+    hay = ["dead", "deadbeef", "xdeadx"] * 10
+    got = match_topk_batch(["dead"], pack_corpus(
+        hay, bucket_widths=(48,), device="cpu"))
+    want = j_topk(["dead"], j_pack(hay, unicode=False, bucket_widths=(48,)),
+                  JConfig())
+    assert got[0][0] == want[0][0] == 30
+    for a, b in zip(got[0][1:], want[0][1:]):
+        np.testing.assert_array_equal(a, b)
+    # a typo budget beyond 8: clamped to 8 by an 8-unit needle (the
+    # kernels), or over 8 on a longer one (formerly refused; the generic
+    # pipeline)
+    hay = ["deadbeef", "deadbeefd", "xyz"]
+    corpus = pack_corpus(hay, device="cpu")
+    for q in ("deadbeef", "deadbeefd"):
+        got = Matcher.from_query(q, Config(max_typos=9)).match_arrays(corpus)
+        want = JMatcher.from_query(q, JConfig(max_typos=9)).match_arrays(hay)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+        assert len(got[0]) == 3
 
 
 def _port_files():
@@ -186,6 +210,7 @@ def test_port_imports_no_jax_and_no_reference():
     assert len(files) > 10
     scanned = {os.path.relpath(p, ROOT) for p in files}
     for rel in ("ops/literal.py", "ops/kernels.py", "ops/batch.py",
+                "ops/fuzzy.py", "ops/presence.py",
                 "ops/pairing.py", "engine.py", "corpus.py", "types.py",
                 "sort.py", "matcher.py", "traceback.py",
                 "oracle/prefilter.py", "oracle/smith_waterman.py",

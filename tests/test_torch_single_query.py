@@ -332,8 +332,10 @@ def test_greedy_risk_past_k_full_fetch():
     ("^" + "é" * 17, {}),
 ])
 def test_host_oracle_serves_generic_queries(query, cfg):
-    """Under use_device=False the port serves what its device path
-    refuses, equal to the reference's oracle; use_device=True raises."""
+    """Under use_device=False the port serves the generic queries equal to
+    the reference's oracle, and under use_device=True (refused before the
+    generic pipelines were ported) equal to the reference's device
+    path."""
     rows = datagen.partial_match_corpus(median_length=20, num_samples=300,
                                         seed=4)
     rows = rows + ["abc إن" + r for r in rows[:40]] + ["é" * 18, "deadbeef" * 9]
@@ -343,9 +345,10 @@ def test_host_oracle_serves_generic_queries(query, cfg):
     _assert_cols(got.match_arrays(pack_corpus(rows, device="cpu")),
                  want.match_arrays(rows))
     assert len(got.match_arrays(rows)[0]) > 0
-    with pytest.raises(NotImplementedError, match="generic pipelines|index"):
+    _assert_cols(
         Matcher.from_query(query, Config(**cfg)).match_arrays(
-            pack_corpus(rows, device="cpu"))
+            pack_corpus(rows, device="cpu")),
+        jm.Matcher.from_query(query, _jcfg(cfg)).match_arrays(rows))
 
 
 def test_head_slice_only(partial, monkeypatch):

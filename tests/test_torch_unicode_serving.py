@@ -237,10 +237,15 @@ def test_greedy_row_raises():
 
 
 def test_long_unicode_literal_refused():
-    """Literal needles of more than 16 codepoints are not served on the
-    device path: they raise at match time."""
-    corpus = pack_corpus(["إن" * 9, "abc"], unicode=True, device="cpu")
-    assert list(Matcher.from_query("^" + "إن" * 8).match_arrays(
-        corpus)[0]) == [0]
-    with pytest.raises(NotImplementedError, match="generic pipelines"):
-        Matcher.from_query("^" + "إن" * 8 + "ا").match_arrays(corpus)
+    """Literal needles of more than 16 codepoints (refused on the device
+    path before the generic pipelines were ported) take the literal
+    pipeline, equal to the reference's device path, as the 16-codepoint
+    needle on the column-stream kernel is."""
+    hay = ["إن" * 9, "abc", "ءإن" * 9]
+    corpus = pack_corpus(hay, unicode=True, device="cpu")
+    for q in ("^" + "إن" * 8, "^" + "إن" * 8 + "ا", "'" + "إن" * 9):
+        got = Matcher.from_query(q).match_arrays(corpus)
+        want = jm.Matcher.from_query(q).match_arrays(hay)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+        assert len(got[0]) >= 1 or "ا" in q
