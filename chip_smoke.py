@@ -3,7 +3,9 @@
     python3 chip_smoke.py
 
 Builds the package's CUDA kernels from ``frizbee_tpu_torch/csrc`` (one
-``nvcc`` per source, all at once), then:
+``nvcc`` per source, all at once) and its native host library and
+extension from ``frizbee_tpu_torch/native`` (printing the compilers, the
+build seconds and the OpenMP thread count), then:
 
 1. kernel phase: each kernel against its plain PyTorch version on the
    card, bit-equal, at the shapes of the 1M-row corpus — the column-stream
@@ -79,16 +81,23 @@ Builds the package's CUDA kernels from ``frizbee_tpu_torch/csrc`` (one
    CPU-packed copy of the corpus;
    indices phase: ``Matcher(q).match_list_indices`` for the same queries
    over the same corpora (the match set from ``match_arrays`` on the
-   card, the traceback on the host: the batched NumPy walk for a single
+   card, the traceback on the host: the batched native walk for a single
    fuzzy needle with at least 32 matches, else the per-row oracle),
    paths of their own (``indices``, ``indices_unicode``) whose launches
    join the kernels line's counts; each query's kernels asserted, its
    entries in ``match_arrays``' order with its scores and exact flags,
    2,000 entries (the first and last 500) equal to the per-row oracle,
-   the first call and the median of 5 cached calls timed with the share
-   inside ``match_arrays``, the host memory of a call;
+   the first call and a cached call timed with the share inside
+   ``match_arrays``, the host memory of a call, one more cached call
+   through the NumPy walk equal to the native one and timed beside it;
    and ``match_iter_indices`` over the Corpus for "deadbeef", equal to
    the list in input order;
+   native phase: the native host components at 1M rows, each equal to
+   its NumPy or per-row twin (``native._FORCE_NUMPY``) and timed beside
+   it: the packer over the ASCII and Arabic rows, and the host fixups
+   of fuzzy T=0/T=1 and multi batches (Q=32) over the 1M rows plus XL
+   rows, and of fuzzy and multi batches (Q=16) over the Arabic rows
+   plus greedy rows;
 4. timing phase: the launches of one more batch of each path, captured
    (``_build.CAPTURE``) and replayed per kernel — held bit-equal to its
    plain version on the same arguments, then timed (CUDA events, warmed
@@ -1371,7 +1380,9 @@ def _capture_single(calls_of):
 # INDICES_ORACLE_ENTRIES entries (the first and last 500 among them) held
 # to the per-row oracle, and the host memory of a call
 INDICES_PATHS = {"single": "indices", "single_unicode": "indices_unicode"}
-INDICES_TIMED_CALLS = 2
+# cached calls a query takes with the native fill and walk; one more takes
+# the NumPy walk (traceback._FORCE_NUMPY) where the query walks at all
+INDICES_TIMED_CALLS = 1
 INDICES_ORACLE_ENTRIES = 2000
 INDICES_ORACLE_ENDS = 500
 
@@ -1429,11 +1440,13 @@ def indices_phase(corpora, single_results, serving, detail):
     """Matched-character indices at 1M rows: ``Matcher(q).match_list_indices``
     over the resident corpora for every SINGLE_QUERIES query. The match
     set comes from ``match_arrays`` on the card; the traceback runs on the
-    host (the batched NumPy walk for one fuzzy pattern with at least 32
+    host (the batched native walk for one fuzzy pattern with at least 32
     matches, else the per-row oracle). Per query: the kernels its first
     call must launch; the first call of a new Matcher and the median of
     INDICES_TIMED_CALLS cached calls (host clock), each split into the
-    time inside ``match_arrays`` and the rest (the host traceback); its
+    time inside ``match_arrays`` and the rest (the host traceback); one
+    more cached call through the NumPy walk (``traceback._FORCE_NUMPY``)
+    where the query walks, equal to the native one and timed beside it; its
     entries in the order and with the score and exact flag of the
     ``single`` phase's ``match_arrays`` rows; INDICES_ORACLE_ENTRIES
     entries, the first and last INDICES_ORACLE_ENDS among them, equal to
@@ -1527,6 +1540,23 @@ def indices_phase(corpora, single_results, serving, detail):
                           for _ in range(INDICES_TIMED_CALLS - 1)]
                 with _RssPeak() as rss:
                     cached.append(call(fresh, corpus)[1:])
+                numpy_walk = None
+                if cold_walk:
+                    # the same cached call through the NumPy fill and walk
+                    # (the native walk's twin) must give the same entries
+                    tb._FORCE_NUMPY = True
+                    try:
+                        twin, twin_ms, twin_arrays_ms = call(fresh, corpus)
+                    finally:
+                        tb._FORCE_NUMPY = False
+                    assert _indices_rows(twin) == _indices_rows(res), (
+                        f"indices {label}: the NumPy walk differs from "
+                        f"the native walk")
+                    del twin
+                    numpy_walk = {"ms": twin_ms,
+                                  "match_arrays_ms": twin_arrays_ms,
+                                  "ms_a_row": (twin_ms - twin_arrays_ms)
+                                  / max(n, 1)}
                 totals = [t for t, _a in cached]
                 arrays = [a for _t, a in cached]
                 med = float(np.median(totals))
@@ -1545,6 +1575,8 @@ def indices_phase(corpora, single_results, serving, detail):
                     "cached_median_match_arrays_ms": med_arrays,
                     "cached_traceback_share": float(np.median(
                         [1 - a / t for t, a in cached])),
+                    "native_walk_ms_a_row": (med - med_arrays) / max(n, 1),
+                    "numpy_walk": numpy_walk,
                     "oracle_entries": len(pick),
                     "oracle_seconds": oracle_s,
                     "host_memory": rss.record(),
@@ -1574,6 +1606,169 @@ def indices_phase(corpora, single_results, serving, detail):
         fm.Matcher.match_arrays = match_arrays
         tb.batched_match_indices = batched
     detail["indices"] = out
+
+
+# the native phase: rows of datagen.xl_heavy_corpus (wider than the widest
+# bucket) beside the 1M main rows, and greedy Arabic rows (_greedy_rows)
+# beside the 1M Arabic rows; the hooked per-row twin scores every
+# candidate in Python, so these counts bound the phase's time
+NATIVE_XL_ROWS = 128
+NATIVE_GREEDY_ROWS = 256
+
+
+def _buckets_equal(label, a, b):
+    assert len(a.buckets) == len(b.buckets), label
+    assert np.array_equal(a.xl_indices, b.xl_indices), label
+    for x, y in zip(a.buckets, b.buckets):
+        assert x.width == y.width, label
+        for name in ("indices", "cp", "n_units", "n_bytes"):
+            u, v = getattr(x, name), getattr(y, name)
+            assert u.dtype == v.dtype and np.array_equal(u, v), (
+                f"{label}: bucket w{x.width} {name} differs between the "
+                f"native packer and its NumPy twin")
+
+
+def _hooked(native, fn, *args, **kw):
+    """``fn`` with the engines' and the packer's NumPy twins
+    (``native._FORCE_NUMPY``)."""
+    native._FORCE_NUMPY = True
+    try:
+        return fn(*args, **kw)
+    finally:
+        native._FORCE_NUMPY = False
+
+
+def native_phase(hay, uhay, detail):
+    """The native host components at 1M rows, each against its NumPy or
+    per-row twin (the test hook ``native._FORCE_NUMPY``):
+
+    (a) the packer: the main ASCII rows and the Arabic rows packed on the
+        host by the native packer and by its NumPy twin, every bucket
+        array equal, both timed;
+    (b) XL rows: the 1M main rows plus NATIVE_XL_ROWS rows of
+        ``datagen.xl_heavy_corpus`` (most wider than the widest bucket),
+        served at Q=32, k=TOP_K as fuzzy T=0,
+        fuzzy T=1 and multi batches; the native host fixups (XL rows off
+        the corpus's encoded blob) and the per-row twin give equal
+        results, and some XL row is served;
+    (c) greedy rows: the 1M Arabic rows plus NATIVE_GREEDY_ROWS rows of
+        ``_greedy_rows``, fuzzy and multi at Q=UQ, the same way, and some
+        greedy row is served.
+
+    The host fixups' time (``Matcher._host_fixups``, host clock) is
+    summed per batch each way."""
+    from frizbee_tpu_torch import Config, datagen, match_topk_batch, native
+    from frizbee_tpu_torch import pack_corpus
+    from frizbee_tpu_torch import matcher as fm
+
+    out = {}
+    for label, rows, unicode in (("pack_ascii", hay, False),
+                                 ("pack_arabic", uhay, True)):
+        t0 = time.perf_counter()
+        nat = pack_corpus(rows, unicode=unicode, device="cpu")
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        twin = _hooked(native, pack_corpus, rows, unicode=unicode,
+                       device="cpu")
+        numpy_s = time.perf_counter() - t0
+        _buckets_equal(label, nat, twin)
+        out[label] = {"rows": len(rows), "native_s": native_s,
+                      "numpy_s": numpy_s,
+                      "buckets": [(b.width, b.size) for b in nat.buckets]}
+        del nat, twin
+        print(f"native phase, {label}: " + json.dumps(out[label]),
+              flush=True)
+
+    fixup_s = []
+    # rows past first_extra[0] (the XL or greedy rows) the fixups served,
+    # and greedy-flagged rows they rescored
+    first_extra = [0]
+    served = {"extra": 0, "greedy": 0}
+    host_fixups = fm.Matcher._host_fixups
+
+    def timed_fixups(self, *args):
+        t0 = time.perf_counter()
+        try:
+            res = host_fixups(self, *args)
+        finally:
+            fixup_s.append(time.perf_counter() - t0)
+        served["extra"] += int((res[0] >= first_extra[0]).sum())
+        served["greedy"] += int(np.asarray(args[-1]).sum())
+        return res
+
+    def serve(label, corpus, queries, cfg, extra_from):
+        """Both ways, native first, the results equal; some row past
+        ``extra_from`` is served."""
+        first_extra[0] = extra_from
+        res, ms = [], []
+        for hook in (False, True):
+            fixup_s.clear()
+            served.update(extra=0, greedy=0)
+            t0 = time.perf_counter()
+            if hook:
+                got = _hooked(native, match_topk_batch, queries, corpus,
+                              cfg, k=TOP_K)
+            else:
+                got = match_topk_batch(queries, corpus, cfg, k=TOP_K)
+            ms.append(((time.perf_counter() - t0) * 1e3,
+                       sum(fixup_s) * 1e3))
+            res.append(got)
+            if not hook:
+                rows_served = dict(served)
+        for x, y in zip(*res):
+            assert x[0] == y[0], label
+            for u, v in zip(x[1:], y[1:]):
+                assert np.array_equal(u, v), (
+                    f"{label}: native host fixups differ from the twin")
+        assert rows_served["extra"] > 0, (
+            f"{label}: no XL or greedy row served")
+        out[label] = {
+            "queries": len(queries), "k": TOP_K,
+            "max_typos": cfg.max_typos,
+            "counts": [int(x[0]) for x in res[0]],
+            "extra_rows_served": rows_served["extra"],
+            "greedy_rows_rescored": rows_served["greedy"],
+            "native_batch_ms": ms[0][0], "native_fixups_ms": ms[0][1],
+            "numpy_batch_ms": ms[1][0], "numpy_fixups_ms": ms[1][1],
+        }
+        print(f"native phase, {label}: " + json.dumps(
+            {k: v for k, v in out[label].items() if k != "counts"}),
+            flush=True)
+
+    fm.Matcher._host_fixups = timed_fixups
+    try:
+        xl_hay = hay + datagen.xl_heavy_corpus(num_samples=NATIVE_XL_ROWS,
+                                               seed=7)
+        corpus = pack_corpus(xl_hay)
+        # the generator's lengths spread around 2048: the rows of 1024
+        # units or fewer land in the widest bucket
+        out["xl_rows_past_buckets"] = len(corpus.xl_indices)
+        assert len(corpus.xl_indices) > NATIVE_XL_ROWS // 2
+        # a first batch builds the corpus's device blocks and XL blob
+        match_topk_batch(_queries(2), corpus, Config(), k=TOP_K)
+        for label, queries, cfg in (
+                ("xl_fuzzy_t0", _queries(Q), Config(max_typos=0)),
+                ("xl_fuzzy_t1", _queries(Q), Config(max_typos=1)),
+                ("xl_multi", _multi_queries(Q), Config())):
+            serve(label, corpus, queries, cfg, len(hay))
+            assert out[label]["greedy_rows_rescored"] == 0, label
+        del corpus, xl_hay
+        g_hay = uhay + _greedy_rows(NATIVE_GREEDY_ROWS)
+        ucorpus = pack_corpus(g_hay, unicode=True)
+        queries = _unicode_queries(UQ, kind=4)
+        match_topk_batch(queries[:2], ucorpus, Config(), k=TOP_K)
+        for label, qs, cfg in (
+                ("greedy_fuzzy", queries, Config(max_typos=1)),
+                ("greedy_multi", [p[:4] + " " + p[4:] for p in queries],
+                 Config(max_typos=0))):
+            serve(label, ucorpus, qs, cfg, len(uhay))
+            assert out[label]["greedy_rows_rescored"] > 0, label
+        del ucorpus, g_hay
+    finally:
+        fm.Matcher._host_fixups = host_fixups
+    out["xl_rows"] = NATIVE_XL_ROWS
+    out["greedy_rows"] = NATIVE_GREEDY_ROWS
+    detail["native"] = out
 
 
 # the generic pipelines at 1M rows: (label, corpus key, queries, config
@@ -2848,6 +3043,36 @@ def single_cpu_parity_phase(detail):
           f"device memory {base} -> {packed} -> {after} bytes", flush=True)
 
 
+def native_build():
+    """Build (or find built) the native host library and the fastmatch
+    extension: the compilers' versions, each build's seconds (absent when
+    it was already built), the OpenMP threads the library sees and the
+    host CPU. Raises when either fails to build or load."""
+    import platform
+
+    from frizbee_tpu_torch import native
+
+    native.get_fastmatch()
+    threads = native.omp_threads()
+    model = "unknown"
+    with open("/proc/cpuinfo") as fh:
+        for line in fh:
+            if line.startswith("model name"):
+                model = line.split(":", 1)[1].strip()
+                break
+    return {
+        "g++": subprocess.run(["g++", "--version"], capture_output=True,
+                              text=True).stdout.splitlines()[0],
+        "gcc": subprocess.run(["gcc", "--version"], capture_output=True,
+                              text=True).stdout.splitlines()[0],
+        "build_seconds": dict(native.BUILD_SECONDS),
+        "build_dir": os.path.relpath(native.build_dir(), ROOT),
+        "omp_threads": threads,
+        "cpu_model": model, "cpu_machine": platform.machine(),
+        "cpu_count": os.cpu_count(),
+    }
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2871,6 +3096,8 @@ def main():
     print(smi, flush=True)
     print(f"kernel build: {build_s:.1f} s ({len(built)} libraries, "
           f"nvcc in parallel)", flush=True)
+    detail["native_build"] = native_build()
+    print("native build: " + json.dumps(detail["native_build"]), flush=True)
 
     t0 = time.perf_counter()
     hay = datagen.partial_match_corpus(median_length=MEDIAN_LEN,
@@ -2941,6 +3168,9 @@ def main():
     generic_phase(gpaths, serving, detail)
     phases["generic"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    native_phase(hay, uhay, detail)
+    phases["native"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     entries = timing_phase(paths, single, gpaths, serving, errs, detail)
     entries.append(contract_entry)
     phases["timing"] = time.perf_counter() - t0
@@ -2967,6 +3197,9 @@ def main():
     detail["phase_seconds"] = phases
     detail["total_seconds"] = time.perf_counter() - t_start
     detail["kernels"] = entries
+    print("phase seconds: " + json.dumps(
+        {k: round(v, 3) for k, v in phases.items()})
+        + f"; total {detail['total_seconds']:.3f} s", flush=True)
 
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_detail.json"), "w") as fh:

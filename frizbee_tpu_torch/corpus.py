@@ -4,10 +4,12 @@ device layouts the kernels stream.
 Counterpart of ``frizbee_tpu/corpus.py``. A unit is a byte on the ASCII
 path (one int8 matrix per bucket) and a codepoint on the unicode path (one
 int32 matrix per bucket, with the UTF-8 byte counts of each row beside
-it). Packing is vectorized NumPy; the per-unit UTF-8 context arrays are
-built only on the host, on demand, for the batched traceback
-(``PackedBucket._full_arrays``): the kernels derive that context from
-the codepoints, or read the colstream ctx plane. A packed
+it). Packing runs in the native packer (``native/packer.cpp``, one
+OpenMP pass a bucket; its NumPy twin is reached through the test hook
+``native._FORCE_NUMPY``); the per-unit UTF-8 context arrays are built
+only on the host, on demand, for the batched traceback and the generic
+pipelines (``PackedBucket._full_arrays``): the kernels derive that
+context from the codepoints, or read the colstream ctx plane. A packed
 ``Corpus`` is query-independent: build once, serve many batches — the
 production serving pattern. Its tensors live on the corpus device, which
 is the card unless the caller asks for the CPU.
@@ -16,11 +18,12 @@ is the card unless the caller asks for the CPU.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from . import native
 from .ops.presence import PLANES
 
 # ctx-plane bit layout of the colstream unicode blocks (frizbee_tpu's
@@ -392,32 +395,50 @@ class Corpus:
 
     def xl_presence(self) -> np.ndarray:
         """(n_xl, 128) uint8 capped fold-bit occurrence counts of the XL
-        (host-path) rows, in ``xl_indices`` order, computed once: the
-        host twin of stage 1 that lets the matcher presence-reject XL
-        rows before their per-row host pipeline. Units are UTF-8 bytes,
-        or codepoints in a unicode corpus; each folds A-Z to a-z, then
-        keeps its low 7 bits; counts cap at the device planes' depth."""
+        (host-path) rows, in ``xl_indices`` order, computed once off the
+        resident encoded blob (:meth:`xl_blob`; one vectorized bincount):
+        the host twin of stage 1 that lets the matcher presence-reject XL
+        rows before their host pipeline. Units are UTF-8 bytes, or
+        codepoints in a unicode corpus; each folds A-Z to a-z, then keeps
+        its low 7 bits; counts cap at the device planes' depth."""
         if "_xl_presence" not in self.__dict__:
             n_xl = len(self.xl_indices)
-            rows = [self.haystacks[int(i)] for i in self.xl_indices]
+            blob = self.xl_blob()
             if self.unicode:
-                parts = [np.frombuffer(h.encode("utf-32-le"), np.uint32)
-                         for h in rows]
+                units = blob["joined_u32"].astype(np.int64)
+                starts = blob["ustarts"]
             else:
-                parts = [np.frombuffer(h.encode("utf-8"), np.uint8)
-                         for h in rows]
-            lens = np.array([len(p) for p in parts], np.int64)
-            units = (np.concatenate(parts).astype(np.int64) if parts
-                     else np.zeros(0, np.int64))
+                units = np.frombuffer(blob["joined"], np.uint8).astype(
+                    np.int64)
+                starts = blob["bstarts"]
             fold = np.where(
                 (units >= 0x41) & (units <= 0x5A), units + 0x20, units
             ) & 127
-            row_of = np.repeat(np.arange(n_xl, dtype=np.int64), lens)
+            row_of = np.repeat(np.arange(n_xl, dtype=np.int64),
+                               np.diff(starts))
             flat = np.bincount(row_of * 128 + fold, minlength=n_xl * 128)
             self._xl_presence = np.minimum(
                 flat.reshape(n_xl, 128), PLANES
             ).astype(np.uint8)
         return self._xl_presence
+
+    def xl_blob(self) -> Dict[str, np.ndarray]:
+        """The XL (host-path) rows encoded once, in ``xl_indices`` order
+        (cached): ``joined`` (UTF-8 bytes) and ``bstarts`` (its (n_xl+1,)
+        int64 row offsets) and, in a unicode corpus, ``joined_u32`` (UTF-32
+        codepoints) and ``ustarts``. The engines' ``match_xl_rows`` score
+        per-query candidate subsets straight off it through the native host
+        pipelines, so a row's encoding is paid once a corpus."""
+        if "_xl_blob" not in self.__dict__:
+            joined, bstarts, joined_u32, ustarts = native.encode_rows(
+                [self.haystacks[int(i)] for i in self.xl_indices],
+                self.unicode)
+            blob = {"joined": joined, "bstarts": bstarts}
+            if self.unicode:
+                blob["joined_u32"] = joined_u32
+                blob["ustarts"] = ustarts
+            self._xl_blob = blob
+        return self._xl_blob
 
     def device_xl_mask(self) -> torch.Tensor:
         """(n,) bool mask of the XL (host-path) rows on the corpus
@@ -429,6 +450,41 @@ class Corpus:
         return self._xl_mask
 
     _SAVE_VERSION = 1
+
+    def save(self, path: str) -> None:
+        """Write the packed corpus to ``path`` in ``frizbee_tpu``'s format
+        (npz, version 1; the path is used verbatim, no ``.npz`` suffix is
+        appended), so either package's ``Corpus.load`` reads it. Codepoint
+        buckets also write their per-unit UTF-8 context arrays
+        (``_full_arrays``), as the reference's packer stores them: its
+        generic pipelines read them rather than derive them."""
+        data = [h.encode("utf-8") for h in self.haystacks]
+        lens = np.fromiter((len(d) for d in data), dtype=np.int64,
+                           count=len(data))
+        arrs: Dict[str, np.ndarray] = {
+            "version": np.int64(self._SAVE_VERSION),
+            "unicode": np.int64(int(self.unicode)),
+            "hay_blob": np.frombuffer(b"".join(data), dtype=np.uint8),
+            "hay_lens": lens,
+            "xl_indices": self.xl_indices,
+            "n_buckets": np.int64(len(self.buckets)),
+        }
+        for i, b in enumerate(self.buckets):
+            arrs[f"b{i}_width"] = np.int64(b.width)
+            arrs[f"b{i}_indices"] = b.indices
+            arrs[f"b{i}_cp"] = b.cp
+            arrs[f"b{i}_n_units"] = b.n_units
+            arrs[f"b{i}_n_bytes"] = b.n_bytes
+            if b.unicode:
+                _cp, first, prev, boff, blen = b._full_arrays()
+                arrs[f"b{i}_first"] = first
+                arrs[f"b{i}_prev"] = prev
+                arrs[f"b{i}_boff"] = boff
+                arrs[f"b{i}_blen"] = blen
+        # through a handle: np.savez(str) appends ".npz" to a path
+        # without it, which load(path) would then miss
+        with open(path, "wb") as fh:
+            np.savez(fh, **arrs)
 
     @classmethod
     def from_numpy(cls, haystacks: Sequence[str], buckets, xl_indices,
@@ -460,9 +516,10 @@ class Corpus:
 
     @classmethod
     def load(cls, path: str, device=None) -> "Corpus":
-        """Read a corpus written by ``frizbee_tpu``'s ``Corpus.save``
-        (npz, format version 1). The per-unit context arrays some
-        versions store are not needed here and are skipped."""
+        """Read a corpus written by :meth:`save` or by ``frizbee_tpu``'s
+        ``Corpus.save`` (npz, format version 1). The per-unit context
+        arrays a file may hold derive from the codepoints here
+        (``PackedBucket._full_arrays``), so they are not read."""
         with np.load(path) as z:
             version = int(z["version"])
             if version != cls._SAVE_VERSION:
@@ -489,6 +546,23 @@ class Corpus:
             )
 
 
+def _gather_rows(flat: np.ndarray, starts: np.ndarray, rows: np.ndarray,
+                 counts: np.ndarray, w: int) -> np.ndarray:
+    """(len(rows), w) zero-padded matrix of each row's units, fully
+    vectorized: the NumPy twin of ``native.pack_rows_u8`` /
+    ``pack_rows_u32`` (row -1 is size-class padding)."""
+    b = len(rows)
+    cp = np.zeros((b, w), flat.dtype)
+    unit_rows = np.repeat(np.arange(b), counts)
+    cum = np.zeros(b + 1, dtype=np.int64)
+    np.cumsum(counts, out=cum[1:])
+    col_idx = np.arange(cum[-1], dtype=np.int64) - cum[:-1][unit_rows]
+    cp[unit_rows, col_idx] = flat[
+        starts[np.maximum(rows, 0)][unit_rows] + col_idx
+    ]
+    return cp
+
+
 def pack_corpus(
     haystacks: Sequence[str],
     unicode: bool = False,
@@ -499,7 +573,8 @@ def pack_corpus(
     card): byte units, or codepoint units when ``unicode``. Bucket
     assignment, sparse-bucket consolidation, chained splits and
     size-class padding follow frizbee_tpu's ``pack_corpus`` exactly, so
-    both packings hold the same rows."""
+    both packings hold the same rows. Rows are copied into the buckets by
+    the native packer (its NumPy twin under ``native._FORCE_NUMPY``)."""
     dev = resolve_device(device)
     if bucket_widths is None:
         bucket_widths = LANE_BUCKETS
@@ -517,23 +592,28 @@ def pack_corpus(
         unit_counts = np.fromiter((len(h) for h in haystacks),
                                   dtype=np.int64, count=n)
         flat = np.frombuffer("".join(haystacks).encode("utf-32-le"),
-                             dtype=np.uint32).astype(np.int32)
+                             dtype=np.uint32)
+        joined = None
     else:
         data = [h.encode("utf-8") for h in haystacks]
         unit_counts = np.fromiter((len(d) for d in data), dtype=np.int64,
                                   count=n)
-        flat = np.frombuffer(b"".join(data), dtype=np.uint8)
+        joined = b"".join(data)
+        flat = np.frombuffer(joined, dtype=np.uint8)
         del data
     starts = np.zeros(n + 1, dtype=np.int64)
     np.cumsum(unit_counts, out=starts[1:])
-    if unicode:
+    use_native = not native._FORCE_NUMPY
+    if not unicode:
+        nbytes = unit_counts  # bytes == units
+    elif use_native:
+        nbytes = native.utf8_lengths(flat, starts)
+    else:
         # UTF-8 bytes per row: a global cumsum of unit byte lengths
         glob = np.zeros(flat.shape[0] + 1, dtype=np.int64)
-        np.cumsum(_utf8_len(flat), out=glob[1:])
+        np.cumsum(_utf8_len(flat.view(np.int32)), out=glob[1:])
         nbytes = glob[starts[1:]] - glob[starts[:-1]]
         del glob
-    else:
-        nbytes = unit_counts  # bytes == units
 
     widths = sorted(set(int(w) for w in bucket_widths))
     max_w = widths[-1]
@@ -571,19 +651,16 @@ def pack_corpus(
                     [rows, np.full(b - rows.size, -1, np.int64)]
                 )
             counts = np.where(rows >= 0, unit_counts[np.maximum(rows, 0)], 0)
-            # flat gather of each row's units, fully vectorized
-            cp = np.zeros((b, w), flat.dtype)
-            unit_rows = np.repeat(np.arange(b), counts)
-            cum = np.zeros(b + 1, dtype=np.int64)
-            np.cumsum(counts, out=cum[1:])
-            col_idx = np.arange(cum[-1], dtype=np.int64) - cum[:-1][unit_rows]
-            cp[unit_rows, col_idx] = flat[
-                starts[np.maximum(rows, 0)][unit_rows] + col_idx
-            ]
+            if not use_native:
+                cp = _gather_rows(flat, starts, rows, counts, w)
+            elif unicode:
+                cp = native.pack_rows_u32(flat, starts, rows, w)
+            else:
+                cp = native.pack_rows_u8(joined, starts, rows, w)
             buckets.append(PackedBucket(
                 width=w,
                 indices=rows.astype(np.int64),
-                cp=cp if unicode else cp.view(np.int8),
+                cp=cp.view(np.int32) if unicode else cp.view(np.int8),
                 n_units=counts.astype(np.int32),
                 n_bytes=np.where(rows >= 0, nbytes[np.maximum(rows, 0)],
                                  0).astype(np.int32),

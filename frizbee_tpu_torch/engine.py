@@ -3,12 +3,14 @@ pipelines that rescore the rows the device does not finish.
 
 Counterpart of ``frizbee_tpu/engine.FuzzyEngine`` and ``LiteralEngine``:
 unit tokenization, case and unicode resolution, the u16 overflow guards,
-the host needle arrays the dispatcher stacks per batch, the per-row
-host pipelines (``match_one``, ``match_many``) that score greedy-flagged
-rows (trimmed window over the 1024-byte DP cap) and XL rows (wider than
-the widest bucket) with the oracle's semantics, the per-row traceback
-(``match_one_indices``) behind ``Matcher.match_list_indices``, and
-``match_corpus``,
+the host needle arrays the dispatcher stacks per batch, the batched host
+pipelines (``match_many``, ``match_xl_rows`` over the corpus's encoded XL
+blob, ``match_many_indices``; OpenMP C++ in ``native/packer.cpp``) that
+score greedy-flagged rows (trimmed window over the 1024-byte DP cap) and
+XL rows (wider than the widest bucket) with the oracle's semantics, the
+per-row pipelines (``match_one``, ``match_one_indices``) that are their
+differential twins (reached through ``native._FORCE_NUMPY``) and serve
+single rows, and ``match_corpus``,
 the per-pattern whole-corpus result the matcher combines when a query
 does not take the fused device path (atoms of mixed unit modes). Its
 device branch runs the generic bucket pipelines (``ops/fuzzy``,
@@ -24,6 +26,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from . import native
+from .casefold import case_needle_bytes
 from .config import MAX_HAYSTACK_LEN, U16_MAX, Config, sat_add_u16
 from .oracle import (
     literal_find,
@@ -33,6 +37,7 @@ from .oracle import (
     sw_indices,
     tokenize,
 )
+from .oracle.literal import _needle_variants
 from .oracle.smith_waterman import match_end_col, sw_matrices
 from .ops.fuzzy import SCORING_FIELDS, fuzzy_match_bucket
 from .ops.literal import literal_match_bucket
@@ -105,11 +110,12 @@ class _NeedleEngine:
         raise NotImplementedError
 
     def match_many(self, haystacks) -> tuple:
-        """(matched, score, exact, end_col) arrays over a list of rows,
-        one :meth:`match_one` a row. The reference's native batch and its
-        ``match_xl_rows`` over the resident XL blob come with the native
-        host matcher slice; this per-row pipeline is the reference's
-        native-less route and its differential oracle."""
+        """(matched, score, exact, end_col) arrays over a list of rows:
+        the engine's native batch (:meth:`_native_many`), or one
+        :meth:`match_one` a row for an empty needle or under the test
+        hook ``native._FORCE_NUMPY`` (the differential oracle)."""
+        if self.units.orig and haystacks and not native._FORCE_NUMPY:
+            return self._native_many(haystacks)
         R = len(haystacks)
         matched = np.zeros(R, bool)
         score = np.zeros(R, np.int64)
@@ -121,6 +127,9 @@ class _NeedleEngine:
                 matched[r] = True
                 score[r], exact[r], end_col[r] = m.score, m.exact, m.end_col
         return matched, score, exact, end_col
+
+    def _native_many(self, haystacks) -> tuple:
+        raise NotImplementedError
 
 
 class FuzzyEngine(_NeedleEngine):
@@ -206,9 +215,8 @@ class FuzzyEngine(_NeedleEngine):
         """Every row's result for this pattern, in corpus order. The
         device branch runs the fuzzy pipeline over every bucket on the
         corpus device (:meth:`_match_buckets_device`), then the XL rows
-        through the host pipeline (the reference's ``match_xl_rows``,
-        over its native XL blob, comes with the native host matcher; its
-        ``match_many`` fallback runs here). The host branch runs the
+        through the native host batch over the corpus's XL blob
+        (:meth:`match_xl_rows`). The host branch runs the
         per-row oracle pipeline over every row, bucketed or XL (the
         reference's differential baseline)."""
         assert corpus.unicode == self.unicode, (
@@ -220,8 +228,11 @@ class FuzzyEngine(_NeedleEngine):
             self._match_buckets_device(corpus, out)
             xi = corpus.xl_indices
             if len(xi):
-                self._scatter_rows(out, xi, self.match_many(
-                    [corpus.haystacks[int(i)] for i in xi]))
+                res = self.match_xl_rows(corpus, np.arange(len(xi)))
+                if res is None:
+                    res = self.match_many(
+                        [corpus.haystacks[int(i)] for i in xi])
+                self._scatter_rows(out, xi, res)
             return out
         for i, h in enumerate(corpus.haystacks):
             self._host_row(h, i, out)
@@ -230,7 +241,8 @@ class FuzzyEngine(_NeedleEngine):
     def _match_buckets_device(self, corpus, out: MatchResult) -> None:
         """Per bucket, :func:`ops.fuzzy.fuzzy_match_bucket` over its
         ``device_arrays()``; rows flagged greedy (trimmed window over the
-        DP cap) are rescored on the host with :meth:`match_many`."""
+        DP cap) are rescored on the host with the batched
+        :meth:`match_many`."""
         orig, flip, sc = self._device_needle(corpus.device)
         no_prefilter = self.config.max_typos is None
         typos = 0 if no_prefilter else int(self.config.max_typos)
@@ -269,14 +281,70 @@ class FuzzyEngine(_NeedleEngine):
         score, exact, end_col, _, _, _ = res
         return Match(score=score, index=index, exact=exact, end_col=end_col)
 
+    def _native_many(self, haystacks) -> tuple:
+        return self._native_batch(
+            *native.encode_rows(haystacks, self.unicode), None)
+
     def match_many_indices(self, haystacks) -> Optional[list]:
-        """The native batched score and traceback over rows (frizbee_tpu's
-        ``FuzzyEngine.match_many_indices``): per row None (no match) or
-        ``(score, exact, reversed matched byte offsets)``. It comes with
-        the native host matcher; until then this returns None, as the
-        reference does where its native library does not build, and
-        callers keep the per-row :meth:`match_one_indices` oracle."""
-        return None
+        """The native batched score and traceback over rows: per row None
+        (no match) or ``(score, exact, reversed matched byte offsets)``,
+        the ``MatchIndices`` contract with the typo budget enforced by
+        the walk. Returns None for an empty needle or row list, or under
+        ``native._FORCE_NUMPY``; callers then keep the per-row
+        :meth:`match_one_indices` oracle."""
+        if not self.units.orig or not haystacks or native._FORCE_NUMPY:
+            return None
+        cap = max(4 * len(self.units.orig), len(self.needle_bytes), 1)
+        m, s, e, _ec, idx, icnt = self._native_batch(
+            *native.encode_rows(haystacks, self.unicode), None,
+            indices_cap=cap)
+        return [
+            (int(s[r]), bool(e[r]), idx[r, : icnt[r]].tolist())
+            if m[r] else None
+            for r in range(len(haystacks))
+        ]
+
+    def match_xl_rows(self, corpus, positions) -> Optional[tuple]:
+        """The native batch over the corpus's encoded XL rows
+        (``corpus.xl_blob()``) at ``positions`` (indices into
+        ``xl_indices``): (matched, score, exact, end_col) arrays. None for
+        an empty needle, a unicode engine over a byte corpus's blob, or
+        under ``native._FORCE_NUMPY``; callers then run
+        :meth:`match_many` on the strings."""
+        if not self.units.orig or native._FORCE_NUMPY:
+            return None
+        blob = corpus.xl_blob()
+        if self.unicode and "joined_u32" not in blob:
+            return None
+        return self._native_batch(
+            blob["joined"], blob["bstarts"],
+            blob.get("joined_u32"), blob.get("ustarts"),
+            np.asarray(positions, np.int64),
+        )
+
+    def _native_batch(self, joined, bstarts, joined_u32, ustarts, rows,
+                      indices_cap=0):
+        """``native.host_match_batch`` (byte units) or
+        ``host_match_batch_u32`` (codepoint units) with this engine's
+        needle, scoring and budget; score and end_col widened to int64."""
+        orig, flip, scoring9 = self._host_needle()
+        common = dict(
+            scoring9=scoring9, max_typos=self.config.max_typos,
+            dp_cap=MAX_HAYSTACK_LEN, min_len=self.min_haystack_len,
+            needle_bytes=self.needle_bytes, rows=rows,
+            indices_cap=indices_cap,
+        )
+        if self.unicode:
+            pairs = case_needle_bytes(self.needle_bytes, self.case_sensitive)
+            res = native.host_match_batch_u32(
+                joined, bstarts, joined_u32, ustarts, orig, flip,
+                np.array([o for o, _ in pairs], np.int32),
+                np.array([f for _, f in pairs], np.int32), **common)
+        else:
+            res = native.host_match_batch(joined, bstarts, orig, flip,
+                                          **common)
+        m, s, e, ec = res[:4]
+        return (m, s.astype(np.int64), e, ec.astype(np.int64)) + res[4:]
 
     def match_one_indices(self, haystack: str,
                           index: int) -> Optional[MatchIndices]:
@@ -368,6 +436,47 @@ class LiteralEngine(_NeedleEngine):
             score=m.score, index=index, exact=m.exact, indices=indices
         )
 
+    def _unit_pairs(self):
+        """Per-unit (orig, flip) byte strings (cached): the oracle's
+        ``_needle_variants``, shared with the native batch."""
+        if getattr(self, "_pairs", None) is None:
+            self._pairs = _needle_variants(
+                self.needle, self.unicode, self.case_sensitive)
+        return self._pairs
+
+    def _literal_batch(self, joined, starts, rows=None) -> tuple:
+        """``native.host_literal_batch`` over ragged UTF-8 rows (literal
+        units are byte sequences, so one blob serves byte and codepoint
+        needles alike), decoded to (matched, score, exact, end_col)."""
+        matched, score, pos = native.host_literal_batch(
+            joined, starts, self._unit_pairs(), self.config.matching.value,
+            self._host_needle()[2], len(self.needle_bytes), rows=rows)
+        starts = np.asarray(starts, np.int64)
+        sel = np.arange(len(starts) - 1) if rows is None else rows
+        lens = starts[sel + 1] - starts[sel]
+        nb = len(self.needle_bytes)
+        exact = matched & (pos == 0) & (lens == nb)
+        end_col = np.minimum(
+            np.maximum(pos.astype(np.int64) + nb - 1, 0), U16_MAX)
+        return (matched, score.astype(np.int64), exact,
+                np.where(matched, end_col, 0))
+
+    def _native_many(self, haystacks) -> tuple:
+        return self._literal_batch(
+            *native.encode_rows(haystacks, unicode=False)[:2])
+
+    def match_xl_rows(self, corpus, positions) -> Optional[tuple]:
+        """The native literal batch over the corpus's encoded XL rows
+        (``corpus.xl_blob()``) at ``positions`` (indices into
+        ``xl_indices``). None for an empty needle or under
+        ``native._FORCE_NUMPY``; callers then run :meth:`match_many` on
+        the strings."""
+        if not self.units.orig or native._FORCE_NUMPY:
+            return None
+        blob = corpus.xl_blob()
+        return self._literal_batch(blob["joined"], blob["bstarts"],
+                                   np.asarray(positions, np.int64))
+
     def match_corpus(self, corpus) -> MatchResult:
         """Every row's result for this pattern, in corpus order. The
         device branch (a corpus packed in this engine's unit mode) runs
@@ -375,7 +484,8 @@ class LiteralEngine(_NeedleEngine):
         ``device_arrays()`` on the corpus device, then the XL rows on the
         host; the host branch (``use_device=False``, or a corpus packed
         in the other unit mode: literal units are byte sequences either
-        way) runs the per-row literal matcher over every row."""
+        way) runs the batched host literal matcher (:meth:`match_many`)
+        over every row."""
         out = MatchResult(len(corpus))
         if not self.units.orig:
             return out

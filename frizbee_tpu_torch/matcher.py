@@ -74,7 +74,7 @@ from .sort import (
     k_merge_matches_by_score_then_index_asc,
     k_merge_matches_by_score_then_index_desc,
 )
-from .types import Match, MatchIndices, MatchList
+from .types import Match, MatchIndices, MatchList, build_matches
 
 PatternLike = Union[str, Pattern]
 
@@ -439,19 +439,39 @@ class Matcher:
         end_col = (meta & np.uint32(0x3FFF)).astype(np.int64)
         return index, score, exact, end_col, greedy
 
-    def _match_many_host(self, rows) -> tuple:
-        """(matched, score, exact, end_col) arrays over a list of rows with
-        the multi-pattern combine (reference: src/matcher/multi.rs:84-152):
+    def _match_many_host(self, rows, xl=None) -> tuple:
+        """(matched, score, exact, end_col) arrays over many rows with the
+        multi-pattern combine (reference: src/matcher/multi.rs:84-152):
         every non-negated pattern must match (scores sum saturating at
         0xFFFF, exact ORs, end_col maxes) and no negated one may. Each
-        engine runs its per-row host pipeline (``engine.match_many``)."""
-        R = len(rows)
+        engine runs its native batch (``engine.match_many``).
+
+        With ``xl=(corpus, positions)``, ``rows`` may be a callable that
+        returns the row list (called at most once): engines then score
+        straight off the corpus's encoded XL blob
+        (``engine.match_xl_rows``), and the strings are built only for an
+        engine that cannot (a unicode atom over a byte corpus, or the
+        ``native._FORCE_NUMPY`` test hook)."""
+        mat_rows = None if callable(rows) else rows
+
+        def get_rows():
+            nonlocal mat_rows
+            if mat_rows is None:
+                mat_rows = rows()
+            return mat_rows
+
+        R = len(xl[1]) if xl is not None else len(get_rows())
         matched = np.ones(R, bool)
         score = np.zeros(R, np.int64)
         exact = np.zeros(R, bool)
         end_col = np.zeros(R, np.int64)
         for cp in self._compiled:
-            m, s, e, ec = cp.engine.match_many(rows)
+            res = None
+            if xl is not None:
+                res = cp.engine.match_xl_rows(*xl)
+            if res is None:
+                res = cp.engine.match_many(get_rows())
+            m, s, e, ec = res
             if cp.negated:
                 matched &= ~m
             else:
@@ -466,9 +486,10 @@ class Matcher:
     ) -> tuple:
         """Greedy and XL host rescoring, then the final strategy ordering.
         Greedy rows (trimmed window over the 1024-byte DP cap) are
-        rescored on the host, which can drop them; XL rows (wider than the
-        widest bucket) that pass the host presence gate run the host
-        pipeline and join the result."""
+        rescored by the native host batch, which can drop them; XL rows
+        (wider than the widest bucket) that pass the host presence gate
+        run the native batch off the corpus's XL blob and join the
+        result."""
         strategy = self._config.sort
         resort = False
         if greedy.any():
@@ -488,7 +509,8 @@ class Matcher:
             cand = corpus.xl_indices[pos]
             if len(cand):
                 xm, xs, xe, xec = self._match_many_host(
-                    [corpus.haystacks[int(i)] for i in cand]
+                    lambda: [corpus.haystacks[int(i)] for i in cand],
+                    xl=(corpus, pos),
                 )
                 if xm.any():
                     index = np.concatenate(
@@ -974,19 +996,17 @@ def fuzzy_match_indices(
 
 def _yield_matches(index, score, exact, end_col, base=0):
     """Yield Match objects in input (index-ascending) order from result
-    columns; ``tolist()`` amortizes the numpy-scalar unboxing."""
+    columns, built in one C loop (``types.build_matches``)."""
     order = np.argsort(index, kind="stable")
     idx = index[order]
     if base:
         idx = idx + base
-    idx_l = idx.tolist()
-    sc_l = score[order].tolist()
-    ex_l = exact[order].tolist()
-    ec_l = end_col[order].tolist()
-    for i in range(len(idx_l)):
-        yield Match(
-            score=sc_l[i], index=idx_l[i], exact=ex_l[i], end_col=ec_l[i]
-        )
+    yield from build_matches(
+        np.ascontiguousarray(idx, np.int64),
+        np.ascontiguousarray(score[order], np.int64),
+        np.ascontiguousarray(exact[order], np.uint8),
+        np.ascontiguousarray(end_col[order], np.int64),
+    )
 
 
 def _colstream_blocks_and_cap(corpus, statics, lens, needles_np, fetch_rows,

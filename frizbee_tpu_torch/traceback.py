@@ -1,32 +1,35 @@
-"""Batched alignment traceback on the host: a vectorized NumPy fill and a
-lockstep walk over all matched rows.
+"""Batched alignment traceback on the host: a native per-row fill and walk
+over all matched rows, with its NumPy twin (a vectorized fill and a lockstep
+walk).
 
-Copy of ``frizbee_tpu/traceback.py``'s NumPy branch.
-``Matcher.match_list_indices`` selects and orders the matches on the
-card (``match_arrays``); the matched-byte indices come from an alignment
-traceback, which runs here, on the host, in NumPy, as in the reference
-(its own walk is a native matrix walk per match, reference:
-src/smith_waterman/alignment_iter.rs:112-181):
+Copy of ``frizbee_tpu/traceback.py``. ``Matcher.match_list_indices``
+selects and orders the matches on the card (``match_arrays``); the
+matched-byte indices come from an alignment traceback, which runs here, on
+the host, as in the reference (its own walk is a native matrix walk per
+match, reference: src/smith_waterman/alignment_iter.rs:112-181):
 
 1. The matched haystacks pack into width buckets on the CPU (the same
    packer the device corpus uses, ``pack_corpus(..., device="cpu")``);
    each bucket's UTF-8 context comes from ``PackedBucket._full_arrays``.
-2. Prefilter windows, the (n+1)-row score matrices and the match masks
-   fill vectorized over all rows at once: each needle row is one NumPy
-   pass whose left-gap propagation is the exact max-plus prefix scan
-   (np.maximum.accumulate), the recurrence the device kernels and the
-   scalar oracle implement (see oracle/smith_waterman.py).
-3. The traceback walks all rows in lockstep: one (R,) gather per step,
-   at most needle_len + width steps, emitting matched units into flat
-   arrays that expand to reversed byte offsets at the end.
+2. Prefilter windows fill vectorized over all rows at once.
+3. ``native.sw_indices_batch`` (``native/packer.cpp``, OpenMP over rows)
+   fills each row's (n+1)-row score matrix over its window and walks it,
+   emitting reversed matched byte offsets.
 
-The fill and walk run on at most ``FILL_CELLS`` matrix cells at a time
-(rows of one bucket in chunks), which bounds the host memory of a large
-match set and leaves every row's result unchanged. Greedy windows (over
-MAX_HAYSTACK_LEN bytes) and XL rows stay with the per-row oracle
-(``Matcher.match_one_indices``); the reference's native fill and walk and
-its native batch for those rows (``engine.match_many_indices``) come
-with the native host matcher.
+Under the test hook ``_FORCE_NUMPY`` step 3 is the NumPy twin: the score
+matrices and match masks fill vectorized over all rows (each needle row
+one NumPy pass whose left-gap propagation is the exact max-plus prefix
+scan, np.maximum.accumulate, the recurrence the device kernels and the
+scalar oracle implement, see oracle/smith_waterman.py), then the
+traceback walks all rows in lockstep, one (R,) gather per step. That fill
+and walk run on at most ``FILL_CELLS`` matrix cells at a time (rows of
+one bucket in chunks), which bounds the host memory of a large match set
+and leaves every row's result unchanged.
+
+Greedy windows (over MAX_HAYSTACK_LEN bytes) and XL rows take the engine's
+native batch with traceback (``engine.match_many_indices``); under
+``_FORCE_NUMPY`` they stay None and the caller serves them through the
+per-row oracle (``Matcher.match_one_indices``).
 
 int32 accumulators stand in for the reference's u16 saturating arithmetic:
 configs that pass the overflow guard never saturate above, and chained
@@ -39,16 +42,16 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from . import native
 from .config import MAX_HAYSTACK_LEN, Scoring
 from .corpus import DEFAULT_BUCKETS, pack_corpus
 
-# Test hook, as in frizbee_tpu: skip the tail call to
-# engine.match_many_indices (the native batch, None until the native host
-# matcher is ported). The fill and walk are NumPy either way.
+# Test hook, as in frizbee_tpu: the NumPy fill and walk in place of
+# native.sw_indices_batch, and no tail call to engine.match_many_indices.
 _FORCE_NUMPY = False
 
-# Matrix cells (rows x (n+1) x (W+1)) of one fill and walk: bounds the
-# (H, MM) pair at 5 bytes a cell
+# Matrix cells (rows x (n+1) x (W+1)) of one NumPy fill and walk: bounds
+# the (H, MM) pair at 5 bytes a cell
 FILL_CELLS = 1 << 25
 
 
@@ -296,10 +299,10 @@ def walk_indices(
 
 def batched_match_indices(engine, haystacks: List[str]) -> List[Optional[tuple]]:
     """(score, exact, reversed byte indices) per haystack via the batched
-    walk; None marks rows this path doesn't cover (greedy/XL/too-long
-    windows): the caller falls back to the per-row oracle for those.
-    Entries are also None for rows that turn out not to match (callers pass
-    device-selected matches, so that only happens for size-gated rows)."""
+    fill and walk. None marks a row that does not match (callers pass
+    device-selected matches, so that only happens for size-gated rows),
+    and under ``_FORCE_NUMPY`` the greedy and XL rows too: the caller
+    serves those through the per-row oracle."""
     cfg = engine.config
     scoring = cfg.scoring
     results: List[Optional[tuple]] = [None] * len(haystacks)
@@ -308,8 +311,7 @@ def batched_match_indices(engine, haystacks: List[str]) -> List[Optional[tuple]]
     # host code: the repack never goes to the card
     corpus = pack_corpus(haystacks, engine.unicode,
                          bucket_widths=DEFAULT_BUCKETS, device="cpu")
-    orig = np.array(engine.units.orig, np.int32)
-    flip = np.array(engine.units.flip, np.int32)
+    orig, flip, scoring9 = engine._host_needle()
     needle_bytes = engine.needle_bytes
 
     for bucket in corpus.buckets:
@@ -328,23 +330,47 @@ def batched_match_indices(engine, haystacks: List[str]) -> List[Optional[tuple]]
         wstart = np.maximum(ws_raw - 1, 0)
         small = (we - wstart) <= MAX_HAYSTACK_LEN
         # compact to the rows being walked (callers pass matches, but the
-        # bucket also carries size-class padding and gated rows), a chunk
-        # of at most FILL_CELLS matrix cells at a time
+        # bucket also carries size-class padding and gated rows); the
+        # NumPy twin takes them a chunk of at most FILL_CELLS matrix
+        # cells at a time
         todo_all = np.nonzero(matched & real & small)[0]
-        step = max(1, FILL_CELLS // ((len(orig) + 1) * (bucket.width + 1)))
+        step = max(todo_all.size, 1)
+        if _FORCE_NUMPY:
+            step = max(1, FILL_CELLS // ((len(orig) + 1)
+                                         * (bucket.width + 1)))
         for s in range(0, todo_all.size, step):
             todo = todo_all[s : s + step]
             cp_c, fb_c, pb_c = cp[todo], fbyte[todo], pbyte[todo]
             bo_c, bl_c = boff[todo], blen[todo]
             ws_c, we_c, nu_c = wstart[todo], we[todo], nu[todo]
-            H, MM = sw_fill(
-                cp_c, fb_c, pb_c, bo_c, bl_c, nu_c, ws_c, we_c, orig,
-                flip, scoring,
-            )
-            score, idx_lists = walk_indices(
-                H, MM, bo_c, bl_c, cfg.max_typos
-            )
-            del H, MM
+            if _FORCE_NUMPY:
+                H, MM = sw_fill(
+                    cp_c, fb_c, pb_c, bo_c, bl_c, nu_c, ws_c, we_c, orig,
+                    flip, scoring,
+                )
+                score, idx_lists = walk_indices(
+                    H, MM, bo_c, bl_c, cfg.max_typos
+                )
+                del H, MM
+            else:
+                # the window in unit columns: the units wholly inside the
+                # trimmed byte window
+                cols = np.arange(cp_c.shape[1], dtype=np.int32)[None, :]
+                act = (
+                    (cols < nu_c[:, None])
+                    & (bo_c >= ws_c[:, None])
+                    & (bo_c + bl_c <= we_c[:, None])
+                )
+                m_units = act.sum(axis=1).astype(np.int32)
+                su = np.where(
+                    m_units > 0, np.argmax(act, axis=1), 0
+                ).astype(np.int32)
+                score, cnt, idx = native.sw_indices_batch(
+                    cp_c, fb_c, pb_c, bo_c, bl_c, su, su + m_units,
+                    ws_c == 0, orig, flip, scoring9, cfg.max_typos,
+                )
+                idx_lists = [idx[r, : cnt[r]].tolist()
+                             for r in range(len(todo))]
             # the full-string equality check only runs when the byte
             # length already matches the needle's (the common case skips
             # encode())
@@ -366,9 +392,8 @@ def batched_match_indices(engine, haystacks: List[str]) -> List[Optional[tuple]]
 
     # Long rows the bucket walk can't cover (greedy windows beyond the DP
     # cap, XL rows beyond the widest bucket) go to the engine's native
-    # batch, which returns None until the native host matcher is ported;
-    # rows it can't serve stay None and fall back to the per-row
-    # match_one_indices oracle in the caller.
+    # batch with traceback; under _FORCE_NUMPY they stay None and fall back
+    # to the per-row match_one_indices oracle in the caller.
     if not _FORCE_NUMPY:
         missing = [i for i, r in enumerate(results) if r is None]
         if missing:

@@ -2,8 +2,9 @@
 ``MatchIndices`` record.
 
 Copy of ``frizbee_tpu/types.py`` (reference: src/lib.rs:141-232) with the
-same ordering contract, (score desc, index asc), without its native
-``Match``: ``Match`` here is the dataclass the reference falls back to.
+same ordering contract, (score desc, index asc). ``Match`` binds to the C
+type of ``native/fastmatch.c`` at import; the dataclass stays as
+``PY_MATCH``, its behavioral oracle.
 """
 
 from __future__ import annotations
@@ -16,7 +17,8 @@ from typing import List
 @dataclass(slots=True)
 class Match:
     """One matched haystack (reference: src/lib.rs:141-152): the
-    pure-Python record, ``frizbee_tpu``'s ``PY_MATCH``."""
+    pure-Python record, kept as ``PY_MATCH`` once ``Match`` binds to the
+    C type."""
 
     score: int = 0
     index: int = 0
@@ -97,23 +99,15 @@ class MatchList(Sequence):
         )
 
     def __iter__(self):
-        if build_matches is not None:
-            import numpy as np
+        import numpy as np
 
-            return iter(build_matches(
-                np.ascontiguousarray(self._index, np.int64),
-                np.ascontiguousarray(self._score, np.int64),
-                np.ascontiguousarray(self._exact, np.uint8),
-                np.ascontiguousarray(self._end_col, np.int64),
-            ))
-        # tolist() amortizes the numpy-scalar unboxing across the sweep
-        return (
-            Match(s, i, x, e)
-            for s, i, x, e in zip(
-                self._score.tolist(), self._index.tolist(),
-                self._exact.tolist(), self._end_col.tolist(),
-            )
-        )
+        # one C loop builds every object (native/fastmatch.c)
+        return iter(build_matches(
+            np.ascontiguousarray(self._index, np.int64),
+            np.ascontiguousarray(self._score, np.int64),
+            np.ascontiguousarray(self._exact, np.uint8),
+            np.ascontiguousarray(self._end_col, np.int64),
+        ))
 
     def arrays(self):
         """The underlying (index, score, exact, end_col) columns."""
@@ -172,18 +166,27 @@ class MatchIndices:
         return self.sort_key() < other.sort_key()
 
 
-# ---- bulk construction ----------------------------------------------------
-# frizbee_tpu binds ``Match`` and ``build_matches`` to its C extension
-# (native/fastmatch.c) when that builds; the native host matcher slice
-# ports it. Until then ``Match`` is the dataclass above (frizbee_tpu's
-# ``PY_MATCH`` fallback) and ``build_matches`` is None, so MatchList and
-# the iterator APIs build objects through ``tolist()``.
+# ---- C extension Match (native/fastmatch.c) --------------------------------
+# The dataclass above stays as PY_MATCH: the behavioral oracle the C type is
+# held to (construction, mutation, equality, ordering, repr, serde, pickle).
+# ``Match`` and ``build_matches`` (the bulk column -> list constructor that
+# MatchList.__iter__ and the iterator APIs use) bind to the extension at
+# import, so the class identity is stable for the process lifetime; the
+# one-time gcc build is the price. A failed build raises here.
 PY_MATCH = Match
-build_matches = None
 
 
 def _rebuild_match(score, index, exact, end_col):
-    """Pickle factory at a stable importable path (frizbee_tpu's C
-    ``Match.__reduce__`` names its own): unpickling builds whatever
-    ``Match`` binds to here."""
+    """Pickle factory referenced by the C ``Match.__reduce__``, at a stable
+    importable path: unpickling builds whatever ``Match`` binds to here."""
     return Match(score, index, exact, end_col)
+
+
+def _bind_fastmatch():
+    from .native import get_fastmatch
+
+    fm = get_fastmatch()
+    return fm.Match, fm.build_matches
+
+
+Match, build_matches = _bind_fastmatch()

@@ -7,6 +7,7 @@ boundary."""
 
 import ast
 import os
+import re
 
 import numpy as np
 import pytest
@@ -205,14 +206,16 @@ def _port_files():
 def test_port_imports_no_jax_and_no_reference():
     """The port runs where JAX is absent: no file of the package (its
     probes included), and neither chip_smoke.py nor kernel_probe.py,
-    imports jax, frizbee_tpu or the reference's benchmarks."""
+    imports jax, frizbee_tpu or the reference's benchmarks; and no native
+    source of the port (``native/*.c``, ``*.cpp``) names the reference
+    package (a module it imports, or a type name it pickles under)."""
     files = list(_port_files())
     assert len(files) > 10
     scanned = {os.path.relpath(p, ROOT) for p in files}
     for rel in ("ops/literal.py", "ops/kernels.py", "ops/batch.py",
                 "ops/fuzzy.py", "ops/presence.py",
                 "ops/pairing.py", "engine.py", "corpus.py", "types.py",
-                "sort.py", "matcher.py", "traceback.py",
+                "sort.py", "matcher.py", "traceback.py", "native/__init__.py",
                 "oracle/prefilter.py", "oracle/smith_waterman.py",
                 "oracle/greedy.py", "oracle/literal.py",
                 "probes/__init__.py",
@@ -235,3 +238,12 @@ def test_port_imports_no_jax_and_no_reference():
                                     "benchmarks"), (
                     f"{path} imports {name}"
                 )
+    native_dir = os.path.join(ROOT, "frizbee_tpu_torch", "native")
+    sources = sorted(f for f in os.listdir(native_dir)
+                     if f.endswith((".c", ".cpp")))
+    assert sources == ["fastmatch.c", "packer.cpp"]
+    for f in sources:
+        with open(os.path.join(native_dir, f)) as fh:
+            text = fh.read()
+        hits = re.findall(r"frizbee_tpu(?!_torch)\S*", text)
+        assert not hits, f"native/{f} names the reference: {hits}"

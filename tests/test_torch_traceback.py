@@ -6,7 +6,8 @@ included; ``prefilter_windows``, ``sw_fill`` (H and MM) and
 the reference's NumPy branch (``_FORCE_NUMPY``) and its default (its
 native fill and walk where that library builds) over typo budgets,
 casing and delimiters, custom scoring and unicode; the chunked fill; and
-the greedy and XL rows the batched walk leaves to the per-row oracle.
+the greedy and XL rows, served by the engine's native batch or, under
+``_FORCE_NUMPY``, left to the per-row oracle.
 
 Inputs are made from a seed, the same in both packages; every comparison
 has zero tolerance (integer arrays element for element, results tuple for
@@ -129,14 +130,19 @@ def test_fill_and_walk_stages_equal_reference(hay, arabic, needle, typos,
 
 
 def _batched_equal(rows, needle, **cfg):
+    """The port's native fill and walk (its default) and its NumPy branch
+    (``_FORCE_NUMPY``) both equal the reference's NumPy branch and its
+    default."""
     eng, jeng = _engines(needle, **cfg)
     got = ttb.batched_match_indices(eng, rows)
-    jtb._FORCE_NUMPY = True
+    jtb._FORCE_NUMPY = ttb._FORCE_NUMPY = True
     try:
         numpy_branch = jtb.batched_match_indices(jeng, rows)
+        port_numpy = ttb.batched_match_indices(eng, rows)
     finally:
-        jtb._FORCE_NUMPY = False
+        jtb._FORCE_NUMPY = ttb._FORCE_NUMPY = False
     assert got == numpy_branch
+    assert port_numpy == numpy_branch
     assert got == jtb.batched_match_indices(jeng, rows)
     assert sum(r is not None and r[0] > 0 for r in got) > 0
     return got
@@ -178,32 +184,48 @@ def _greedy_row(rng, units=600):
     return "إ" + "".join(rng.choice(GREEDY_LETTERS, size=units)) + "ن"
 
 
-def test_greedy_and_xl_rows_fall_back(hay, arabic):
-    """The batched walk leaves greedy windows and XL rows as None (the
-    port has no native batch yet); match_list_indices serves them through
-    the per-row oracle, equal to the reference's native and oracle
-    paths."""
+def test_greedy_and_xl_rows_fall_back(hay, arabic, monkeypatch):
+    """Greedy windows and XL rows: under ``_FORCE_NUMPY`` the batched walk
+    leaves them None and match_list_indices serves them through the
+    per-row oracle; by default the engine's native batch
+    (``match_many_indices``) serves them. Both equal the reference's
+    native and oracle paths."""
     rng = np.random.default_rng(11)
     rows = arabic[:150] + [_greedy_row(rng) for _ in range(3)]
     greedy = [150, 151, 152]
     eng, jeng = _engines("إن")
-    got = ttb.batched_match_indices(eng, rows)
-    assert all(got[i] is None for i in greedy)
-    assert sum(r is not None for r in got) >= 32
     xl_rows = hay[:200] + ["x" * 700 + "deadbeef" + "y" * 700]
     xl = pack_corpus(xl_rows, device="cpu")
     assert list(xl.xl_indices) == [200]
-    assert ttb.batched_match_indices(
-        FuzzyEngine("deadbeef", Config()), xl_rows)[200] is None
+    xl_eng, xl_jeng = _engines("deadbeef")
+
+    native = ttb.batched_match_indices(eng, rows)
+    assert all(native[i] is not None for i in greedy)
+    assert native == jtb.batched_match_indices(jeng, rows)
+    xl_native = ttb.batched_match_indices(xl_eng, xl_rows)
+    assert xl_native[200] is not None
+    assert xl_native == jtb.batched_match_indices(xl_jeng, xl_rows)
+    for i in greedy:
+        want = jeng.match_one_indices(rows[i], i)
+        assert native[i] == (want.score, want.exact, want.indices)
+
+    monkeypatch.setattr(ttb, "_FORCE_NUMPY", True)
+    got = ttb.batched_match_indices(eng, rows)
+    assert all(got[i] is None for i in greedy)
+    assert sum(r is not None for r in got) >= 32
+    assert [r for i, r in enumerate(got) if i not in greedy] == [
+        r for i, r in enumerate(native) if i not in greedy]
+    assert ttb.batched_match_indices(xl_eng, xl_rows)[200] is None
     for needle, corpus, unicode, must in (("إن", rows, True, greedy),
                                           ("deadbeef", xl_rows, False,
                                            [200])):
-        dev = Matcher(needle, device="cpu").match_list_indices(corpus)
-        want = JMatcher(needle).match_list_indices(corpus)
-        oracle = JMatcher(needle, use_device=False).match_list_indices(corpus)
-        assert [_row(m) for m in dev] == [_row(m) for m in want]
-        assert [_row(m) for m in dev] == [_row(m) for m in oracle]
-        served = {m.index for m in dev}
-        assert set(must) <= served and len(dev) >= 32
-
-
+        for force in (True, False):
+            monkeypatch.setattr(ttb, "_FORCE_NUMPY", force)
+            dev = Matcher(needle, device="cpu").match_list_indices(corpus)
+            want = JMatcher(needle).match_list_indices(corpus)
+            oracle = JMatcher(needle,
+                              use_device=False).match_list_indices(corpus)
+            assert [_row(m) for m in dev] == [_row(m) for m in want]
+            assert [_row(m) for m in dev] == [_row(m) for m in oracle]
+            served = {m.index for m in dev}
+            assert set(must) <= served and len(dev) >= 32

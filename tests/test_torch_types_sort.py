@@ -58,7 +58,8 @@ def test_match_record_round_trips():
     assert ttypes._rebuild_match(17, 3, True, 9) == m
     assert Match(5, 1) < Match(5, 2) < Match(4, 0)
     assert m.sort_key() == jmatch.sort_key()
-    assert ttypes.build_matches is None and ttypes.PY_MATCH is Match
+    assert ttypes.PY_MATCH is not Match and callable(ttypes.build_matches)
+    assert type(m).__module__ == "frizbee_tpu_torch.native.fastmatch"
     mi = MatchIndices(score=4, index=1, exact=False, indices=[5, 3])
     jmi = jtypes.MatchIndices(score=4, index=1, exact=False, indices=[5, 3])
     assert mi.to_dict() == jmi.to_dict()
