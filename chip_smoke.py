@@ -98,6 +98,18 @@ build seconds and the OpenMP thread count), then:
    of fuzzy T=0/T=1 and multi batches (Q=32) over the 1M rows plus XL
    rows, and of fuzzy and multi batches (Q=16) over the Arabic rows
    plus greedy rows;
+   parallel phase: mesh-sharded serving (``frizbee_tpu_torch/parallel.py``)
+   on the card, each result equal to single-device serving:
+   ``match_topk_batch_sharded`` on ``make_mesh(1)`` and on four shards of
+   the one card for the fuzzy batch (Q=32), a full-syntax batch (Q=8),
+   the four sort strategies (Q=2) and the Arabic fuzzy batch (Q=16),
+   each timed beside single-device; ``match_corpus_sharded`` at 4 shards
+   (fuzzy T=0, T=1); greedy and XL rows over a 20k-row codepoint corpus;
+   a world of one over NCCL; two gloo ranks in subprocesses on the card
+   over a 100k-row corpus (paths ``parallel`` and ``parallel_unicode``,
+   whose ``match_units`` launches join the kernels line; the 4-shard
+   fuzzy, full-syntax, Arabic and greedy/XL batches' launches are
+   captured in that run for the timing phase);
 4. timing phase: the launches of one more batch of each path, captured
    (``_build.CAPTURE``) and replayed per kernel — held bit-equal to its
    plain version on the same arguments, then timed (CUDA events, warmed
@@ -122,10 +134,14 @@ build seconds and the OpenMP thread count), then:
    kernel is then held bit-equal to its plain version on that probe's
    inputs and timed beside its bound and plain version (the row gather
    beside ``torch.index_select``);
-6. profile phase: torch.profiler over blocking fuzzy batches, ASCII and
-   unicode, and multi-pattern ones (wall time, device busy time, top
-   kernels and host operations) and cProfile over one ASCII batch; and
-   over cached single-query calls of "deadbeef" and the broad needle;
+6. profile phase: ``torch.profiler`` over blocking fuzzy batches, ASCII
+   and unicode, and multi-pattern ones, each call inside
+   ``profiling.annotate`` (the span asserted among the events; wall
+   time, device busy time, top kernels and host operations; the fuzzy
+   batch's through ``profiling.trace``, its Chrome trace kept in
+   ``chiprun_out/traces/``) and cProfile
+   over one ASCII batch; and over cached single-query calls of
+   "deadbeef" and the broad needle;
 7. card-versus-CPU phase: at 20k rows, Q=8, the (Q, 1+k, 2) serving
    arrays and the decoded top-k on the card equal the CPU's for fuzzy
    T=0 and T=1, literal, T=4 and long-needle batches, the multi-pattern
@@ -153,6 +169,7 @@ fails. Details (per-phase seconds, ptxas reports) go to
 ``chiprun_out/chip_smoke_detail.json``.
 """
 
+import glob
 import json
 import os
 import subprocess
@@ -1771,6 +1788,302 @@ def native_phase(hay, uhay, detail):
     detail["native"] = out
 
 
+PARALLEL_SHARDS = 4
+PARALLEL_TIMED = 3  # profiling.device_time iterations a batch and mesh
+PARALLEL_GREEDY_BASE = 20_000  # (c): partial-match rows before the greedy
+PARALLEL_GREEDY_ROWS = 256  # and XL rows
+PARALLEL_XL_ROWS = 64
+PARALLEL_GLOO_ROWS = 100_000  # (e): each rank's corpus
+PARALLEL_GLOO_Q = 8
+PARALLEL_GLOO_TIMEOUT = 240
+# (a)'s batches whose launches at PARALLEL_SHARDS shards are captured for
+# the timing phase (with (c)'s), held there to the plain version
+PARALLEL_CAPTURED = ("fuzzy", "full_syntax", "unicode_fuzzy")
+
+
+def _full_syntax_batch():
+    """The Q=8 full-syntax batch (as the reference's parallel tests):
+    fuzzy T=1, a negation veto, the three literal modes, a multi-pattern
+    sum, fuzzy T=2 and the empty query (the host copy path)."""
+    from frizbee_tpu_torch import Config, Matcher
+
+    cfg = Config(max_typos=1)
+    return [Matcher("dead", cfg), Matcher.from_query("dead !beef", cfg),
+            Matcher.from_query("'dead", cfg), Matcher.from_query("^dead", cfg),
+            Matcher.from_query("beef$", cfg),
+            Matcher.from_query("dead beef", cfg),
+            Matcher("dead", Config(max_typos=2)), Matcher("", cfg)]
+
+
+def _topk_equal(label, got, want):
+    assert len(got) == len(want), label
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g[0] == w[0], f"{label}: query {i} count {g[0]} != {w[0]}"
+        for a, b in zip(g[1:], w[1:]):
+            assert np.array_equal(np.asarray(a), np.asarray(b)), (
+                f"{label}: query {i} rows differ from single-device serving")
+
+
+def _gloo_rank(rank, world, init, rows):
+    """One rank of the parallel phase's gloo world (a process of its own,
+    driving the card as ``cuda:(rank % device_count)``): a corpus made
+    from the same seed in every rank, the fuzzy and full-syntax batches
+    through ``match_topk_batch_sharded`` and fuzzy "deadbeef" through
+    ``match_corpus_sharded``, each equal to this rank's single-device
+    serving; then the fuzzy batch timed. Prints one ``PARALLEL_GLOO_OK``
+    line of JSON; tears the group down also on failure."""
+    import torch.distributed as dist
+
+    from frizbee_tpu_torch import (Config, Matcher, datagen, match_topk_batch,
+                                   pack_corpus, profiling)
+    from frizbee_tpu_torch.engine import make_engine
+    from frizbee_tpu_torch.parallel import (initialize_distributed,
+                                            match_corpus_sharded,
+                                            match_topk_batch_sharded)
+
+    rank, world, rows = int(rank), int(world), int(rows)
+    mesh = initialize_distributed(backend="gloo", init_method=init,
+                                  world_size=world, rank=rank, device="cuda")
+    try:
+        hay = datagen.partial_match_corpus(median_length=MEDIAN_LEN,
+                                           num_samples=rows)
+        corpus = pack_corpus(hay)
+        cfg = Config()
+        queries = _queries(PARALLEL_GLOO_Q)
+        out = {"rank": rank, "device": str(mesh.devices[0]),
+               "backend": dist.get_backend()}
+        for label, qs in (("fuzzy", queries),
+                          ("full_syntax", _full_syntax_batch())):
+            want = match_topk_batch(qs, corpus, cfg, k=TOP_K)
+            got = match_topk_batch_sharded(qs, corpus, mesh, cfg, k=TOP_K)
+            _topk_equal(f"gloo rank {rank} {label}", got, want)
+            out[f"{label}_counts"] = [int(r[0]) for r in got]
+        got = match_corpus_sharded(corpus, make_engine("deadbeef", cfg),
+                                   mesh, k=TOP_K)
+        want = Matcher("deadbeef", cfg).match_arrays(corpus)
+        for a, b in zip(got, want):
+            assert np.array_equal(a, b[:TOP_K]), f"gloo rank {rank} corpus"
+        out["corpus_rows_returned"] = len(got[0])
+        out["fuzzy_batch_ms"] = 1e3 * profiling.device_time(
+            match_topk_batch_sharded, queries, corpus, mesh, cfg, k=TOP_K,
+            iters=PARALLEL_TIMED)
+        print("PARALLEL_GLOO_OK " + json.dumps(out), flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _gloo_world(detail_out):
+    """(e): two ranks over gloo, each a subprocess on the card, a file
+    rendezvous in a temporary directory; fails unless both exit 0 with
+    their OK lines inside PARALLEL_GLOO_TIMEOUT seconds."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        init = "file://" + os.path.join(tmp, "rendezvous")
+        code = ("import sys, chip_smoke; "
+                "sys.exit(chip_smoke._gloo_rank(*sys.argv[1:]))")
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", code, str(r), "2", init,
+             str(PARALLEL_GLOO_ROWS)],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for r in range(2)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(
+                    timeout=max(1.0, PARALLEL_GLOO_TIMEOUT
+                                - (time.perf_counter() - t0)))[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+    ranks = []
+    for p, o in zip(procs, outs):
+        lines = [x for x in o.splitlines() if x.startswith("PARALLEL_GLOO_OK")]
+        assert p.returncode == 0 and lines, (
+            f"gloo rank exited {p.returncode}:\n{o[-3000:]}")
+        ranks.append(json.loads(lines[0].split(" ", 1)[1]))
+    detail_out["gloo"] = {"rows": PARALLEL_GLOO_ROWS,
+                          "queries": PARALLEL_GLOO_Q,
+                          "seconds": time.perf_counter() - t0,
+                          "ranks": ranks}
+
+
+def parallel_phase(corpus, ucorpus, serving, detail):
+    """Mesh-sharded serving (``frizbee_tpu_torch/parallel.py``) on the
+    card, every result bit-equal to single-device serving:
+
+    (a) single controller: ``match_topk_batch_sharded`` on ``make_mesh(1)``
+        and on ``make_mesh(4, device="cuda")`` (four shards on the one
+        card), k=TOP_K, equal to ``match_topk_batch`` on the same corpus,
+        for the Q=32 fuzzy batch, the Q=8 full-syntax batch, the four
+        sort strategies at Q=2 and the Q=16 Arabic fuzzy batch; each
+        timed with ``profiling.device_time`` beside single-device;
+    (b) ``match_corpus_sharded`` at 4 shards, fuzzy T=0 and T=1, equal to
+        the first k of ``Matcher.match_arrays``;
+    (c) PARALLEL_GREEDY_BASE partial-match rows, PARALLEL_GREEDY_ROWS
+        ``_greedy_rows`` and PARALLEL_XL_ROWS ``datagen.xl_heavy_corpus``
+        rows as a codepoint corpus: a Q=8 batch (four "deadbeef"
+        permutations and four eight-codepoint Arabic needles, T=1, under
+        ``UnicodeMatching.ALWAYS``) at 4 shards, equal to single-device,
+        some greedy row served;
+    (d) a world of one over NCCL in this process
+        (``initialize_distributed(backend="nccl")``, a file rendezvous),
+        the fuzzy batch equal to (a)'s, timed; the group torn down;
+    (e) two ranks over gloo, each a subprocess on the card
+        (:func:`_gloo_world`).
+
+    The sharded calls of (a)-(d) are the paths ``parallel`` (ASCII rows:
+    ``match_units`` in int16 lanes) and ``parallel_unicode`` (codepoint
+    rows: int32), each launch counter set to 0 just before each call and
+    added up just after; no other kernel may launch there. Returns, per
+    path, the launches (``_build.CAPTURE``) of its PARALLEL_CAPTURED
+    batches at PARALLEL_SHARDS shards and of (c), and their queries."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from frizbee_tpu_torch import (Config, Matcher, SortStrategy,
+                                   UnicodeMatching, datagen,
+                                   match_topk_batch, pack_corpus, profiling)
+    from frizbee_tpu_torch.engine import make_engine
+    from frizbee_tpu_torch.ops import _build
+    from frizbee_tpu_torch.parallel import (initialize_distributed,
+                                            make_mesh, match_corpus_sharded,
+                                            match_topk_batch_sharded)
+
+    torch.cuda.reset_peak_memory_stats()
+    launches = {"parallel": {k: 0 for k in _build.LAUNCHES},
+                "parallel_unicode": {k: 0 for k in _build.LAUNCHES}}
+    captured = {"parallel": ([], []), "parallel_unicode": ([], [])}
+
+    def sharded(path, fn, *args, capture=None, **kw):
+        _reset_counters()
+        _build.CAPTURE = None if capture is None else []
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        if capture is not None:
+            captured[path][0].extend(_build.CAPTURE)
+            captured[path][1].extend(capture)
+        _build.CAPTURE = None
+        for k, v in _build.LAUNCHES.items():
+            launches[path][k] += v
+        return out
+
+    def ms(fn, *args, **kw):
+        return 1e3 * profiling.device_time(fn, *args, iters=PARALLEL_TIMED,
+                                           **kw)
+
+    out = {"shards": PARALLEL_SHARDS, "top_k": TOP_K, "batches": {}}
+    meshes = {"1": make_mesh(1),
+              str(PARALLEL_SHARDS): make_mesh(PARALLEL_SHARDS, device="cuda")}
+    batches = [("fuzzy", corpus, _queries(Q), Config()),
+               ("full_syntax", corpus, _full_syntax_batch(), Config())]
+    batches += [(f"sort_{s.name.lower()}", corpus, _queries(2),
+                 Config(sort=s)) for s in SortStrategy]
+    batches.append(("unicode_fuzzy", ucorpus, _unicode_queries(UQ),
+                    Config()))
+    fuzzy_want = None
+    for label, c, queries, cfg in batches:
+        path = "parallel_unicode" if c.unicode else "parallel"
+        want = match_topk_batch(queries, c, cfg, k=TOP_K)
+        rec = {"queries": len(queries),
+               "counts": [int(r[0]) for r in want],
+               "single_ms": ms(match_topk_batch, queries, c, cfg, k=TOP_K)}
+        for name, mesh in meshes.items():
+            got = sharded(path, match_topk_batch_sharded, queries, c, mesh,
+                          cfg, k=TOP_K,
+                          capture=(queries if name == str(PARALLEL_SHARDS)
+                                   and label in PARALLEL_CAPTURED else None))
+            _topk_equal(f"parallel {label} at {name} shards", got, want)
+            rec[f"shards_{name}_ms"] = ms(match_topk_batch_sharded, queries,
+                                          c, mesh, cfg, k=TOP_K)
+        out["batches"][label] = rec
+        if label == "fuzzy":
+            fuzzy_want = want
+        print(f"parallel phase, {label}: " + json.dumps(
+            {k: v for k, v in rec.items() if k != "counts"}), flush=True)
+
+    mesh = meshes[str(PARALLEL_SHARDS)]
+    for typos in (0, 1):
+        cfg = Config(max_typos=typos)
+        t0 = time.perf_counter()
+        got = sharded("parallel", match_corpus_sharded, corpus,
+                      make_engine("deadbeef", cfg), mesh, k=TOP_K)
+        sharded_ms = (time.perf_counter() - t0) * 1e3
+        want = Matcher("deadbeef", cfg).match_arrays(corpus)
+        for a, b in zip(got, want):
+            assert np.array_equal(a, b[:TOP_K]), (
+                f"parallel match_corpus_sharded T={typos}")
+        out[f"match_corpus_t{typos}"] = {"rows_returned": len(got[0]),
+                                         "matches": len(want[0]),
+                                         "first_call_ms": sharded_ms}
+        print(f"parallel phase, match_corpus_sharded T={typos}: "
+              + json.dumps(out[f"match_corpus_t{typos}"]), flush=True)
+
+    hay = (datagen.partial_match_corpus(median_length=MEDIAN_LEN,
+                                        num_samples=PARALLEL_GREEDY_BASE)
+           + _greedy_rows(PARALLEL_GREEDY_ROWS)
+           + datagen.xl_heavy_corpus(num_samples=PARALLEL_XL_ROWS, seed=7))
+    gcorpus = pack_corpus(hay, unicode=True)
+    gcfg = Config(max_typos=1, unicode=UnicodeMatching.ALWAYS)
+    queries = _queries(4) + _unicode_queries(4, kind=4)
+    want = match_topk_batch(queries, gcorpus, gcfg, k=TOP_K)
+    got = sharded("parallel_unicode", match_topk_batch_sharded, queries,
+                  gcorpus, mesh, gcfg, k=TOP_K, capture=queries)
+    _topk_equal("parallel greedy/XL", got, want)
+    lo, hi = PARALLEL_GREEDY_BASE, PARALLEL_GREEDY_BASE + PARALLEL_GREEDY_ROWS
+    greedy_served = sum(int(((r[1] >= lo) & (r[1] < hi)).sum()) for r in got)
+    assert greedy_served > 0, "parallel greedy/XL: no greedy row served"
+    out["greedy_xl"] = {"rows": len(hay), "xl_rows": len(gcorpus.xl_indices),
+                        "counts": [int(r[0]) for r in got],
+                        "greedy_rows_served": greedy_served}
+    print("parallel phase, greedy/XL: " + json.dumps(out["greedy_xl"]),
+          flush=True)
+    del gcorpus, hay
+
+    with tempfile.TemporaryDirectory() as tmp:
+        nccl = initialize_distributed(
+            backend="nccl", init_method="file://" + os.path.join(tmp, "rdv"),
+            world_size=1, rank=0, device="cuda")
+        try:
+            queries = _queries(Q)
+            got = sharded("parallel", match_topk_batch_sharded, queries,
+                          corpus, nccl, Config(), k=TOP_K)
+            _topk_equal("parallel nccl world of one", got, fuzzy_want)
+            out["nccl_world_of_one"] = {
+                "backend": dist.get_backend(),
+                "fuzzy_batch_ms": ms(match_topk_batch_sharded, queries,
+                                     corpus, nccl, Config(), k=TOP_K)}
+        finally:
+            dist.destroy_process_group()
+    print("parallel phase, NCCL world of one: "
+          + json.dumps(out["nccl_world_of_one"]), flush=True)
+
+    _gloo_world(out)
+    print("parallel phase, gloo two ranks: " + json.dumps(
+        {"seconds": out["gloo"]["seconds"],
+         "fuzzy_batch_ms": [r["fuzzy_batch_ms"] for r in out["gloo"]["ranks"]],
+         "devices": [r["device"] for r in out["gloo"]["ranks"]]}),
+        flush=True)
+
+    out["peak_device_memory_bytes"] = torch.cuda.max_memory_allocated()
+    for path, counts in launches.items():
+        name = "match_units" if path == "parallel_unicode" else \
+            "match_units_i16"
+        assert counts[name] > 0, (path, counts)
+        others = {k: v for k, v in counts.items() if k != name and v}
+        assert not others, (f"{path}: the sharded body launched "
+                            f"{others}")
+        serving[path] = {"launches": counts}
+    out["launches"] = launches
+    detail["parallel"] = out
+    return captured
+
+
 # the generic pipelines at 1M rows: (label, corpus key, queries, config
 # keywords, the ops.batch.GENERIC_ROUTES entry every group must take, the
 # launch counters the path must raise, timed blocking batches after the
@@ -2030,22 +2343,42 @@ def single_profile_phase(corpora, detail):
                  5, detail, {"query": q})
 
 
-def _profile(label, fn, reps, detail, extra):
-    """torch.profiler over ``reps`` blocking calls of ``fn``: wall time,
-    device busy time and idle share a call, peak device memory, and the
-    top device kernels and host operations. Returns the detail entry."""
-    from torch.profiler import ProfilerActivity, profile
+def _profile(label, fn, reps, detail, extra, keep_trace=False):
+    """torch.profiler over ``reps`` blocking calls of ``fn``, each inside
+    ``profiling.annotate``: wall time, device busy time and idle share a
+    call, peak device memory, and the top device kernels and host
+    operations; the annotation must appear among the profiler's events.
+    With ``keep_trace`` the profiler is ``profiling.trace``, whose Chrome
+    trace stays under ``chiprun_out/traces/`` (its path and size
+    printed). Returns the detail entry."""
+    from torch.profiler import ProfilerActivity
 
+    from frizbee_tpu_torch import profiling
+
+    span = f"{label}_call"
+    trace_dir = os.path.join(OUT_DIR, "traces")
     torch.cuda.reset_peak_memory_stats()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with (profiling.trace(label, log_dir=trace_dir) if keep_trace
+          else torch.profiler.profile(activities=[
+              ProfilerActivity.CPU, ProfilerActivity.CUDA])) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
-            fn()
+            with profiling.annotate(span):
+                fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) / reps * 1e3
+    trace_file = trace_bytes = None
+    if keep_trace:
+        trace_file = max(glob.glob(os.path.join(trace_dir, f"{label}-*.json")),
+                         key=os.path.getmtime)
+        trace_bytes = os.path.getsize(trace_file)
     peak = torch.cuda.max_memory_allocated()
     events = prof.key_averages()
+    spans = [e for e in events if e.key == span]
+    assert spans and spans[0].count >= reps, (
+        f"{label}: the annotation {span!r} is not among the profiler's "
+        "events")
+    events = [e for e in events if e.key != span]
 
     def device_us(e):
         return getattr(e, "device_time_total",
@@ -2067,6 +2400,8 @@ def _profile(label, fn, reps, detail, extra):
         "device_busy_ms_per_batch": busy_ms,
         "device_idle_share": 1 - busy_ms / wall_ms,
         "peak_device_memory_bytes": peak,
+        "trace": trace_file and os.path.relpath(trace_file, ROOT),
+        "trace_bytes": trace_bytes,
         "top_device_ms_per_batch": [
             [e.key[:80], device_us(e) / reps / 1e3, e.count // reps]
             for e in dev_ops[:10]
@@ -2083,6 +2418,9 @@ def _profile(label, fn, reps, detail, extra):
                             "device_idle_share")
     }) + " top device: " + json.dumps(out["top_device_ms_per_batch"][:5]),
         flush=True)
+    if keep_trace:
+        print(f"profile phase, {label}: trace {out['trace']}, "
+              f"{trace_bytes} bytes", flush=True)
     return out
 
 
@@ -2094,7 +2432,8 @@ def profile_phase(label, corpus, queries, detail, host_profile=False):
 
     out = _profile(
         label, lambda: match_topk_batch(queries, corpus, Config(), k=TOP_K),
-        3, detail, {"batch_queries": len(queries)})
+        3, detail, {"batch_queries": len(queries)},
+        keep_trace=label == "fuzzy")
     if host_profile:
         # host-side candidates: cProfile over one more batch (it slows
         # Python calls, so only the shares are read from it)
@@ -2368,7 +2707,9 @@ KERNELS = (
     # counts add those of the indices phase's paths; fuzzy_int16 drives the fuzzy batch's colstream
     # launches with int16 lanes, typo_int32 and long_needle_int32 those
     # batches' row-major launches with int32 lanes, contract the contract
-    # phase)
+    # phase, parallel and parallel_unicode the parallel phase's sharded
+    # serving, whose PARALLEL_CAPTURED batches at 4 shards and greedy/XL
+    # batch are the ones captured)
     ("colstream_fuzzy", "colstream_fuzzy",
      "frizbee_tpu_torch/csrc/colstream_fuzzy.cu",
      "frizbee_tpu/ops/colstream.py:954", ("fuzzy", "multi", "single")),
@@ -2389,7 +2730,8 @@ KERNELS = (
     ("match_units_i16", "match_units_i16",
      "frizbee_tpu_torch/csrc/match_units.cu",
      "frizbee_tpu/ops/kernels.py:632",
-     ("typo", "long_needle", "single", "index_sort", "multi_long")),
+     ("typo", "long_needle", "single", "index_sort", "multi_long",
+      "parallel")),
     ("colstream_fuzzy_i16", "colstream_fuzzy_i16",
      "frizbee_tpu_torch/csrc/colstream_fuzzy.cu",
      "frizbee_tpu/ops/colstream.py:954", ("fuzzy_int16",)),
@@ -2406,7 +2748,8 @@ KERNELS = (
     ("match_units_unicode", "match_units",
      "frizbee_tpu_torch/csrc/match_units.cu",
      "frizbee_tpu/ops/kernels.py:632",
-     ("unicode_typo", "single_unicode", "index_sort_unicode")),
+     ("unicode_typo", "single_unicode", "index_sort_unicode",
+      "parallel_unicode")),
 )
 
 
@@ -2504,7 +2847,7 @@ def ab_phase(calls, detail):
     return out
 
 
-def timing_phase(paths, single, gpaths, serving, errs, detail):
+def timing_phase(paths, single, gpaths, pcalls, serving, errs, detail):
     """Each kernel's time at its serving shapes: the launches of one batch
     of each path it runs on, captured and replayed, beside their bound,
     their plain version and, for the row gather, ``torch.index_select``.
@@ -2516,7 +2859,8 @@ def timing_phase(paths, single, gpaths, serving, errs, detail):
     ``single`` holds the single-query paths' (path, [(corpus, query,
     config)]): one cached ``match_arrays`` call of each is captured.
     ``gpaths`` holds the generic phase's paths: one batch of each that
-    launches a kernel is captured."""
+    launches a kernel is captured. ``pcalls`` holds the parallel phase's
+    paths' captured launches and their queries."""
     calls = {label: _capture(c, queries, cfg)
              for label, (c, queries, cfg, _k) in paths.items()}
     paths_q = {label: p[1] for label, p in paths.items()}
@@ -2527,6 +2871,8 @@ def timing_phase(paths, single, gpaths, serving, errs, detail):
         if kernels:
             calls[label] = _capture(c, queries, cfg)
             paths_q[label] = queries
+    for label, (c, queries) in pcalls.items():
+        calls[label], paths_q[label] = c, queries
     for path, name, lanes in (("fuzzy", "colstream_fuzzy", "int16"),
                               ("typo", "match_units", "int32"),
                               ("long_needle", "match_units", "int32")):
@@ -3054,12 +3400,24 @@ def native_build():
 
     native.get_fastmatch()
     threads = native.omp_threads()
-    model = "unknown"
+    # the first processor's /proc/cpuinfo fields; where the host gives
+    # no model name (or "unknown"), its vendor, family, model and
+    # stepping name the CPU
+    fields = {}
     with open("/proc/cpuinfo") as fh:
         for line in fh:
-            if line.startswith("model name"):
-                model = line.split(":", 1)[1].strip()
-                break
+            if not line.strip():
+                if fields:
+                    break
+                continue
+            key, _, val = line.partition(":")
+            fields.setdefault(key.strip(), val.strip())
+    model = fields.get("model name", "unknown")
+    if model in ("", "unknown"):
+        model = " ".join(
+            f"{k} {fields[k]}" for k in ("vendor_id", "cpu family", "model",
+                                         "stepping") if k in fields
+        ) or "not reported"
     return {
         "g++": subprocess.run(["g++", "--version"], capture_output=True,
                               text=True).stdout.splitlines()[0],
@@ -3171,7 +3529,12 @@ def main():
     native_phase(hay, uhay, detail)
     phases["native"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    entries = timing_phase(paths, single, gpaths, serving, errs, detail)
+    pcalls = parallel_phase(corpus, ucorpus, serving, detail)
+    phases["parallel"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    entries = timing_phase(paths, single, gpaths, pcalls, serving, errs,
+                           detail)
+    del pcalls
     entries.append(contract_entry)
     phases["timing"] = time.perf_counter() - t0
     t0 = time.perf_counter()

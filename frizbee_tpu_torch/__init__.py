@@ -9,7 +9,9 @@ answers single queries (``Matcher(q).match_arrays`` / ``match_list`` /
 ``match_iter_indices`` and the one-shot ``match_list_indices`` and
 ``fuzzy_match_indices``, whose traceback runs on the host) and batches
 of queries (``match_topk_batch`` / ``match_topk_batch_async`` /
-``match_arrays_batch``). The device kernels
+``match_arrays_batch``), also over a corpus sharded on a device mesh
+(``match_topk_batch_sharded``; ``parallel.py`` on ``torch.distributed``,
+``profiling.py`` for traces and timing). The device kernels
 of that path — the column-stream fuzzy and literal matches, the row-major
 match and the whole-row gather — are hand-written CUDA for ``sm_90a``
 (``csrc/``); everything else is plain PyTorch. Entry points run on the
@@ -43,6 +45,7 @@ from .matcher import (
     match_topk_batch,
     match_topk_batch_async,
 )
+from .parallel import match_topk_batch_sharded
 from .pattern import Pattern, PatternConfig
 from .sort import sort_matches
 from .types import Match, MatchIndices, MatchList
@@ -72,6 +75,7 @@ __all__ = [
     "match_list_parallel",
     "match_topk_batch",
     "match_topk_batch_async",
+    "match_topk_batch_sharded",
     "pack_corpus",
     "sort_matches",
 ]

@@ -273,13 +273,19 @@ class Matcher:
 
     def _fused_device_args(self, corpus: Corpus):
         """(bits8, statics, use_kernel) for the batch: per-bucket presence
-        planes, the pattern statics (typos, no_prefilter, negated,
-        scoring, mode, needle bytes), and whether the kernels take the
-        query: every bucket width a divisor or multiple of 128 up to
-        1024, every needle of at most 64 units and every clamped typo
-        budget at most 8 (the reference's gate). Raises ValueError for a
-        bucket wider than 4095 units: end_col travels in a 14-bit meta
-        field, which would clamp it."""
+        planes, then :meth:`_fused_statics`."""
+        statics, use_kernel = self._fused_statics(corpus)
+        bits8 = tuple(b.device_presence_bits() for b in corpus.buckets)
+        return bits8, statics, use_kernel
+
+    def _fused_statics(self, corpus: Corpus):
+        """(statics, use_kernel): the pattern statics (typos,
+        no_prefilter, negated, scoring, mode, needle bytes), and whether
+        the kernels take the query: every bucket width a divisor or
+        multiple of 128 up to 1024, every needle of at most 64 units and
+        every clamped typo budget at most 8 (the reference's gate).
+        Raises ValueError for a bucket wider than 4095 units: end_col
+        travels in a 14-bit meta field, which would clamp it."""
         if any(b.width * 4 > 0x3FFF for b in corpus.buckets):
             raise ValueError(
                 "bucket width exceeds the 14-bit end_col meta field (max "
@@ -300,8 +306,7 @@ class Matcher:
                 for cp in self._compiled
             )
         )
-        bits8 = tuple(b.device_presence_bits() for b in corpus.buckets)
-        return bits8, self._statics(), use_kernel
+        return self._statics(), use_kernel
 
     def _fused_prepare(self, corpus: Corpus, full_window: bool) -> tuple:
         """Everything a Q=1 launch needs that depends only on (corpus,
@@ -1185,7 +1190,10 @@ def _collect_batch_groups(pending, n_queries) -> List[Optional[tuple]]:
     return results
 
 
-def _resolve_batch(queries, corpus, config):
+def _resolve_batch(queries, corpus, config, **pack_kw):
+    """(matchers, Corpus) of a batch: each query compiled, and a corpus
+    given as strings packed (``pack_kw`` to ``pack_corpus``, e.g. the
+    device)."""
     matchers = [
         q if isinstance(q, Matcher) else Matcher.from_query(q, config)
         for q in queries
@@ -1194,7 +1202,7 @@ def _resolve_batch(queries, corpus, config):
         # codepoint units when any needle respects unicode
         unicode = any(cp.engine.unicode for m in matchers
                       for cp in m._compiled)
-        corpus = pack_corpus(corpus, unicode=unicode)
+        corpus = pack_corpus(corpus, unicode=unicode, **pack_kw)
     return matchers, corpus
 
 

@@ -220,7 +220,8 @@ def test_port_imports_no_jax_and_no_reference():
                 "oracle/greedy.py", "oracle/literal.py",
                 "probes/__init__.py",
                 "probes/broad_topk.py", "probes/transposed.py",
-                "probes/colstream_bisect.py"):
+                "probes/colstream_bisect.py", "parallel.py",
+                "profiling.py"):
         assert os.path.join("frizbee_tpu_torch", rel) in scanned
     for path in files:
         with open(path) as fh:
