@@ -5,7 +5,13 @@
 Builds the package's CUDA kernels from ``frizbee_tpu_torch/csrc`` (one
 ``nvcc`` per source, all at once) and its native host library and
 extension from ``frizbee_tpu_torch/native`` (printing the compilers, the
-build seconds and the OpenMP thread count), then:
+build seconds and the OpenMP thread count), then runs the phases below.
+Three pieces of work run beside them, each in a process of its own on
+the same card (``_Side``), and are joined before any phase that times
+the card or the host: the Arabic corpus's generation (beside the builds,
+the byte corpora and the ASCII kernel phase), the kernel phase's checks at the template, tile
+and pairing boundaries (beside the rest of the kernel phase), and the
+card-versus-CPU phase 7 (beside phase 1). The phases:
 
 1. kernel phase: each kernel against its plain PyTorch version on the
    card, bit-equal, at the shapes of the 1M-row corpus — the column-stream
@@ -116,7 +122,8 @@ build seconds and the OpenMP thread count), then:
    up, queued behind a device sleep so host launch overhead leaves no
    gaps) beside the bound this run's data needs, its plain version and,
    for the row gather (ASCII and unicode paths apart, and per path),
-   ``torch.index_select``; the fuzzy batch's colstream launches driven
+   ``torch.index_select`` (a kernel of several paths has its plain
+   version run once a launch, per path, and its plain time summed); the fuzzy batch's colstream launches driven
    once more with ``int16_lanes=True`` and the typo and long-needle
    batches' row-major launches with int32 lanes (paths of their own);
    and, on the same captured launches in 10 alternating rounds,
@@ -133,7 +140,12 @@ build seconds and the OpenMP thread count), then:
    colstream kernel at 2048 rows, then timed at 1M rows. Each probe
    kernel is then held bit-equal to its plain version on that probe's
    inputs and timed beside its bound and plain version (the row gather
-   beside ``torch.index_select``);
+   beside ``torch.index_select``), and at the shapes the ring design
+   makes risky (``_probe_edge_checks``); then the ring designs of the
+   transposed and bisect kernels against their first designs (the ``v1``
+   C entry points) on the probes' own timed launches, in AB_ROUNDS
+   alternating rounds (``probe_ab_phase``), with the ptxas report and
+   the static SASS opcode mix of both designs;
 6. profile phase: ``torch.profiler`` over blocking fuzzy batches, ASCII
    and unicode, and multi-pattern ones, each call inside
    ``profiling.annotate`` (the span asserted among the events; wall
@@ -142,7 +154,8 @@ build seconds and the OpenMP thread count), then:
    ``chiprun_out/traces/``) and cProfile
    over one ASCII batch; and over cached single-query calls of
    "deadbeef" and the broad needle;
-7. card-versus-CPU phase: at 20k rows, Q=8, the (Q, 1+k, 2) serving
+7. card-versus-CPU phase (beside phase 1, with SIDE_CPU_THREADS torch
+   threads): at 20k rows, Q=8, the (Q, 1+k, 2) serving
    arrays and the decoded top-k on the card equal the CPU's for fuzzy
    T=0 and T=1, literal, T=4 and long-needle batches, the multi-pattern
    groups at T=0 and T=1 with an all-negated query, for Arabic and
@@ -169,11 +182,15 @@ fails. Details (per-phase seconds, ptxas reports) go to
 ``chiprun_out/chip_smoke_detail.json``.
 """
 
+import ctypes
 import glob
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
+import threading
 import time
 from collections import deque
 
@@ -325,6 +342,8 @@ TILE_BOUNDARY_LIT_N = (1, 2, 16)
 WIDE_SCORING = dict(match_score=4000)
 # rounds of the int16-against-int32 A/B on the captured launches
 AB_ROUNDS = 10
+# the kernel library that builds while the phases before the probes run
+LATE_BUILD = "probe_colstream_bisect"
 
 
 def _queries(q, base="deadbeef"):
@@ -438,8 +457,11 @@ def _flags(blk_bits, needles_q, T):
     ).contiguous()
 
 
-def kernel_phase(corpus, detail):
-    """Each kernel against its plain version on the card, bit-equal."""
+def kernel_phase(corpus, detail, boundaries):
+    """Each kernel against its plain version on the card, bit-equal. The
+    checks at the template, tile and pairing boundaries run beside this in
+    a process of their own (``_side_kernel_boundaries``); ``boundaries()``
+    joins it and returns its counts."""
     from frizbee_tpu_torch.ops import _build
     from frizbee_tpu_torch.ops import colstream as cs
     from frizbee_tpu_torch.ops.kernels import DEFAULT_SCORING
@@ -450,6 +472,8 @@ def kernel_phase(corpus, detail):
     nq = torch.from_numpy(_needles(_queries(Q))).to(dev)
     errs = {entry[0]: 0.0 for entry in KERNELS}
     checks = 0
+    seconds = {}
+    t0 = time.perf_counter()
     for b in corpus.buckets:
         cpT, nuT, idxT, blk, _ctxT = b.device_arrays_colstream()
         scal = pack_needle_scalars(nq, b.size)
@@ -478,15 +502,27 @@ def kernel_phase(corpus, detail):
                             f"int16_lanes={i16}")
                         checks += 1
                         del got, want
+    seconds["colstream_fuzzy"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     gather_shapes = _gather_shapes(corpus)
     rg = _row_gather_checks(dev, errs, gather_shapes)
+    seconds["row_gather"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     lit = _literal_kernel_checks(corpus, errs)
+    seconds["colstream_literal"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     rm = _rowmajor_kernel_checks(corpus, errs)
-    rmx = _rowmajor_boundary_checks(dev, errs)
-    tbx = _tile_boundary_checks(dev, errs)
-    px = _pairing_checks(dev, errs)
+    seconds["match_units"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    side = boundaries()
+    seconds["boundaries_wait"] = time.perf_counter() - t0
+    detail["kernel_phase_seconds"] = seconds
+    for name, err in side.pop("errs").items():
+        errs[name] = max(errs.get(name, 0.0), err)
+    rmx, tbx, px = (side["checks"][k] for k in BOUNDARY_CHECKS)
     checks += rg + lit + rm + rmx + tbx + px
     detail["kernel_checks"] = checks
+    detail["kernel_boundary_checks"] = side
     print(f"kernel phase: {checks} kernel-vs-plain checks bit-equal "
           f"(colstream fuzzy Q={Q} x {len(corpus.buckets)} buckets x "
           f"T=0,1,none x flags x key-emit; colstream literal {lit}: "
@@ -2639,12 +2675,14 @@ def _contract_work(args, _kw, out):
     return float(sum(o.numel() for o in out)), float(read), float(written)
 
 
-def _replay(entry, name, calls, errs):
+def _replay(entry, name, calls, errs, plain_ms=None):
     """Time the captured launches ``calls`` ((args, kwargs) of the
     wrapper) of one serving batch on the kernel, on its plain version and
     on the library call where there is one; the kernel's results are held
-    bit-equal to the plain version's. Returns the timing entry's numbers
-    and the work this run's data needs."""
+    bit-equal to the plain version's. Given ``plain_ms`` (the plain
+    version's times on parts of ``calls`` that were already held equal,
+    summed), the plain version does not run again. Returns the timing
+    entry's numbers and the work this run's data needs."""
     from frizbee_tpu_torch.ops import colstream as cs
     from frizbee_tpu_torch.ops import contract as ct
     from frizbee_tpu_torch.ops import kernels as km
@@ -2680,14 +2718,16 @@ def _replay(entry, name, calls, errs):
         return [fn(*a, **kw) for a, kw in calls]
 
     got = run(kernel)
-    plain_ms, want = _time_once_ms(lambda: run(plain))
-    for g, w in zip(got, want):
-        _check_equal(errs, entry, g, w, "serving shapes")
+    if plain_ms is None:
+        plain_ms, want = _time_once_ms(lambda: run(plain))
+        for g, w in zip(got, want):
+            _check_equal(errs, entry, g, w, "serving shapes")
+        del want
     ops = in_bytes = out_bytes = 0.0
     for (a, kw), out in zip(calls, got):
         o, i, w = work(a, kw, out)
         ops, in_bytes, out_bytes = ops + o, in_bytes + i, out_bytes + w
-    del got, want
+    del got
     bound_ms, bound_by = _bound(in_bytes, out_bytes, ops)
     return {
         "ms": device_ms(lambda: run(kernel)),
@@ -2890,12 +2930,18 @@ def timing_phase(paths, single, gpaths, pcalls, serving, errs, detail):
             continue  # its entry comes from the contract phase
         per_path = {p: [c for k, c in calls[p] if k == name] for p in paths}
         assert any(per_path.values()), f"{entry}: no launch captured"
-        nums, work = _replay(entry, name, sum(per_path.values(), []), errs)
-        if len(paths) > 1:
-            work["per_path"] = {
-                p: _replay(entry, name, c, errs)[0]
-                for p, c in per_path.items() if c
-            }
+        # a kernel of several paths: each path's launches held equal and
+        # timed, then all of them timed together, the plain version's time
+        # the sum of its per-path runs (each launch runs it once)
+        each = ({p: _replay(entry, name, c, errs)[0]
+                 for p, c in per_path.items() if c}
+                if len(paths) > 1 else None)
+        nums, work = _replay(
+            entry, name, sum(per_path.values(), []), errs,
+            plain_ms=None if each is None else sum(
+                x["plain_ms"] for x in each.values()))
+        if each is not None:
+            work["per_path"] = each
         work["per"] = "one batch of each of " + ", ".join(
             f"{p} ({'Q=1 x ' if p in SINGLE_PATHS else 'Q='}"
             f"{len(paths_q[p])})" for p in paths)
@@ -3051,9 +3097,12 @@ def probes_phase(dev, errs, detail):
                         "bisect_stage_launches": dict(stage_launches)}
 
     entries = []
+    ab_cases = {}
 
     def entry(name, kernel, calls, source, replaces, n_launches):
         errs.setdefault(name, 0.0)
+        if kernel != "row_gather":
+            ab_cases[name] = (kernel, calls)
         nums, work = _replay(name, kernel, calls, errs)
         detail.setdefault("timing", {})[name] = {**nums, **work}
         print(f"probes phase: {name} " + json.dumps(detail["timing"][name]),
@@ -3090,7 +3139,284 @@ def probes_phase(dev, errs, detail):
           "frizbee_tpu_torch/csrc/row_gather.cu",
           "benchmarks/probe_broad_topk.py:93",
           launches["broad_topk"]["row_gather"])
+    _probe_edge_checks(dev, errs, detail)
+    probe_ab_phase(ab_cases, detail)
+    _probe_build_reports(detail)
     return entries
+
+
+# the transposed kernel's edge shapes: (n, W, rows, units in [lo, hi),
+# needle units outside the hit table's [0, 256)): needles of 1 and 16
+# units, widths that are no multiple of the ring's 8-column chunk (24 is
+# three chunks; 13 and 20 end in a partial one), one 4096-row block (8
+# tiles of 512 rows), and units and needles outside the table (its
+# computed path) against a mixed needle
+PROBE_TRANSPOSED_EDGES = (
+    (1, 64, 8192, 97, 123, False), (16, 64, 8192, 97, 123, False),
+    (8, 24, 8192, 97, 123, False), (8, 13, 8192, 97, 123, False),
+    (8, 128, 4096, 97, 123, False), (5, 20, 8192, -300, 400, True),
+    (16, 9, 4096, -3, 300, False),
+)
+# the bisect stages' edge inputs: (n, W, rows, units in [lo, hi), unit
+# counts in [lo, hi], needle units outside the table): the reference's
+# shape and units at n = 16; bytes 32-126 (upper case, digits and
+# delimiters, so stage B takes every bonus class) at n = 16; and units,
+# needles and counts outside their ranges at a width of a partial chunk
+PROBE_BISECT_EDGES = (
+    (16, 64, 2048, 97, 103, 0, 64, False),
+    (16, 64, 2048, 32, 127, 0, 64, False),
+    (5, 20, 2048, -300, 400, -2, 23, True),
+)
+
+
+def _probe_edge_checks(dev, errs, detail):
+    """Each redesigned probe kernel held bit-equal to its plain version at
+    the shapes its ring and tables make risky (PROBE_TRANSPOSED_EDGES,
+    PROBE_BISECT_EDGES), inputs from a seed; every bisect stage at each.
+    Mismatches fold into the kernels line's max_abs_err."""
+    from frizbee_tpu_torch.ops.kernels import pack_needle_scalars
+    from frizbee_tpu_torch.probes import colstream_bisect as pb
+    from frizbee_tpu_torch.probes import transposed as pt
+
+    rng = np.random.default_rng(15)
+    cases = []
+    errs.setdefault("probe_transposed", 0.0)
+    for stage in pb.STAGES:
+        errs.setdefault(f"probe_bisect_{stage}", 0.0)
+    for n, W, B, lo, hi, big in PROBE_TRANSPOSED_EDGES:
+        hay = rng.integers(lo, hi, (B, W)).astype(np.int32)
+        needle = rng.integers(97, 103, n).astype(np.int32)
+        if big:
+            needle[0], needle[-1] = 300, -2
+            hay[:64] = 300
+        cpT = pt.to_blocks(torch.from_numpy(hay).to(dev))
+        scal = pt.needle_scalars(needle, B, dev)
+        got = pt.transposed_best(cpT, scal, W=W, n=n)
+        want = pt.transposed_best_plain(cpT, scal, W=W, n=n)
+        _check_equal(errs, "probe_transposed", got, want,
+                     f"edge n={n} W={W} rows={B}")
+        cases.append({"kernel": "probe_transposed", "n": n, "W": W,
+                      "rows": B, "best_max": int(want.max())})
+    for n, W, B, lo, hi, nlo, nhi, big in PROBE_BISECT_EDGES:
+        cp = rng.integers(lo, hi, (B, W)).astype(np.int32)
+        nu = rng.integers(nlo, nhi + 1, B).astype(np.int32)
+        needle = rng.integers(97, 103, n).astype(np.int32)
+        if big:
+            needle[1] = 300
+            cp[:64, :5] = 300
+        cp[5, :min(n, W)], nu[5] = needle[:W], n  # an exact row
+        scal = pack_needle_scalars(
+            torch.from_numpy(np.concatenate([needle, needle - 32])), B)
+        cp_t = torch.from_numpy(cp).to(dev)
+        cpT = (cp_t.reshape(B // pb.GROUP_ROWS, pb.SUBL, 128, W)
+               .permute(0, 3, 1, 2).reshape(-1, pb.SUBL, 128).contiguous())
+        nuT = torch.from_numpy(nu).to(dev).reshape(-1, 128)
+        scal = scal.to(dev)
+        for stage in pb.STAGES:
+            got = pb.bisect_stage(stage, cpT, nuT, scal, W=W, n=n)
+            want = pb.bisect_stage_plain(stage, cpT, nuT, scal, W=W, n=n)
+            _check_equal(errs, f"probe_bisect_{stage}", got, want,
+                         f"edge n={n} W={W} rows={B}")
+        cases.append({"kernel": "probe_colstream_bisect", "n": n, "W": W,
+                      "rows": B, "units": [lo, hi], "stages": len(pb.STAGES)})
+    torch.cuda.synchronize()
+    detail.setdefault("probes", {})["edge_checks"] = cases
+    print(f"probes phase: {len(cases)} edge inputs bit-equal "
+          f"({sum(c.get('stages', 1) for c in cases)} launches)", flush=True)
+
+
+# the C entry points of the probe kernels' first designs, which only the
+# A/B below calls
+PROBE_V1_ENTRIES = {"probe_transposed": "probe_transposed_v1_launch",
+                    "probe_colstream_bisect": "probe_colstream_bisect_v1_launch"}
+
+
+def _probe_v1(kernel, args, kw):
+    """The first design of probe kernel ``kernel`` on its wrapper's
+    arguments: the same output, from the ``v1`` C entry point (never
+    counted in ``_build.LAUNCHES``)."""
+    from frizbee_tpu_torch.ops import _build
+    from frizbee_tpu_torch.probes import colstream_bisect as pb
+
+    fn = getattr(_build.library(kernel), PROBE_V1_ENTRIES[kernel])
+    fn.argtypes, fn.restype = _build.SIGNATURES[kernel][1], ctypes.c_int
+    W, n = kw["W"], kw["n"]
+    if kernel == "probe_transposed":
+        cpT, scal = args
+        nB = cpT.shape[0] // W
+        out = torch.empty((nB * 32, 128), dtype=torch.int32,
+                          device=cpT.device)
+        call = (_build.ptr(cpT), _build.ptr(scal), _build.ptr(out), nB, W, n)
+    else:
+        stage, cpT, nuT, scal = args
+        nG = cpT.shape[0] // W
+        out = torch.empty((5, nG * pb.SUBL, 128), dtype=torch.int32,
+                          device=cpT.device)
+        call = (_build.ptr(cpT), _build.ptr(nuT), _build.ptr(scal),
+                _build.ptr(out), nG, W, n, pb.STAGES.index(stage))
+    with torch.cuda.device(cpT.device):
+        rc = fn(*call, _build.stream(cpT))
+    if rc != 0:
+        raise RuntimeError(f"{kernel} v1 launch failed: CUDA error {rc}")
+    return out
+
+
+def probe_ab_phase(cases, detail):
+    """The ring design of each redesigned probe kernel against its first
+    design on the probes phase's own timed launches (``cases``: entry ->
+    (kernel, [(args, kwargs)])): both held bit-equal first, then timed in
+    AB_ROUNDS rounds that alternate which goes first. Medians, the share
+    of rounds the ring design was faster, and the bound both share."""
+    from frizbee_tpu_torch.probes import colstream_bisect as pb
+    from frizbee_tpu_torch.probes import device_ms
+    from frizbee_tpu_torch.probes import transposed as pt
+
+    wrappers = {"probe_transposed": (pt.transposed_best, _transposed_work),
+                "probe_colstream_bisect": (pb.bisect_stage, _bisect_work)}
+    out = {}
+    for label, (kernel, calls) in cases.items():
+        wrapper, work = wrappers[kernel]
+        designs = {"ring": lambda: [wrapper(*a, **kw) for a, kw in calls],
+                   "v1": lambda: [_probe_v1(kernel, a, kw) for a, kw in calls]}
+        new, old = designs["ring"](), designs["v1"]()
+        torch.cuda.synchronize()
+        for x, y in zip(new, old):
+            assert torch.equal(x, y), f"{label}: ring design != first design"
+        ops = in_b = out_b = 0.0
+        for (a, kw), res in zip(calls, new):
+            o, i, w = work(a, kw, res)
+            ops, in_b, out_b = ops + o, in_b + i, out_b + w
+        del new, old
+        bound_ms, bound_by = _bound(in_b, out_b, ops)
+        ms = {"v1": [], "ring": []}
+        for r in range(AB_ROUNDS):
+            for v in (("v1", "ring") if r % 2 == 0 else ("ring", "v1")):
+                ms[v].append(device_ms(designs[v]))
+        med = {v: float(np.median(t)) for v, t in ms.items()}
+        out[label] = {
+            "launches": len(calls), "ms": ms, "median_ms": med,
+            "ring_won_share": float(np.mean(
+                np.array(ms["ring"]) < np.array(ms["v1"]))),
+            "ring_over_v1": med["ring"] / med["v1"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_share": {v: bound_ms / m for v, m in med.items()},
+        }
+        print(f"probe ring/v1 A/B, {label}: " + json.dumps(
+            {k: v for k, v in out[label].items() if k != "ms"}), flush=True)
+    detail["probe_ab"] = out
+    return out
+
+
+# kernels whose ptxas report and static SASS mix the probes phase keeps:
+# the ring designs at n 8 and 16 (stage id first for the bisect), the PR
+# 7 designs at n 8
+PROBE_REPORT_KERNELS = re.compile(
+    r"(probe_transposed_ring_kernel|probe_transposed_kernel|"
+    r"probe_colstream_bisect_ring_kernel|probe_colstream_bisect_kernel)"
+    r"ILi(\d+)E(?:Li(\d+)E)?")
+# SASS opcodes by the pipe that runs them (Hopper): DPX (VIADDMNMX,
+# VIMNMX3, VIMNMX) and PRMT, which share one pipe of 64 lanes an SM a
+# clock (pipe_rates.py), the rest of the integer ALU, the FMA pipe's
+# integer forms, shared and global memory (UBLKCP: a TMA bulk copy), and
+# the rest (branches, barriers and mbarrier waits, moves of special
+# registers)
+SASS_PIPES = (
+    ("dpx_prmt", ("VIADDMNMX", "VIMNMX3", "VIMNMX", "VIBMNMX", "PRMT")),
+    ("alu", ("IADD3", "LOP3", "ISETP", "SEL", "SHF", "IMNMX", "VIADD",
+             "LEA", "IABS", "FLO", "POPC", "BREV", "PLOP3", "P2R", "R2P",
+             "SGXT", "BMSK", "ICMP", "VABSDIFF", "VABSDIFF4", "LOP")),
+    ("fma", ("IMAD", "FFMA", "FADD", "FMUL", "IDP", "IMUL")),
+    ("shared", ("LDS", "STS", "LDSM", "ATOMS")),
+    ("global", ("LDG", "STG", "LDGSTS", "UBLKCP", "LD", "ST", "RED",
+                "ATOMG", "LDGDEPBAR", "DEPBAR")),
+)
+
+
+def _probe_name(m):
+    """('transposed'|'bisect', design, stage or None, n) of a report
+    kernel's mangled name match."""
+    fn, a, b = m.group(1), int(m.group(2)), m.group(3)
+    design = "ring" if "ring" in fn else "v1"
+    if "transposed" in fn:
+        return "transposed", design, None, a
+    return "bisect", design, a, int(b)
+
+
+def _probe_report_key(m):
+    """The report key of a mangled name match, or None for a kernel the
+    reports skip (the ring designs are kept at n 8 and 16, the first
+    designs at n 8)."""
+    if m is None:
+        return None
+    kind, design, stage, n = _probe_name(m)
+    if n not in ((8, 16) if design == "ring" else (8,)):
+        return None
+    from frizbee_tpu_torch.probes import colstream_bisect as pb
+    what = "" if stage is None else pb.STAGES[stage] + " "
+    return f"{kind} {design} {what}n={n}"
+
+
+def _probe_build_reports(detail):
+    """The ptxas report (registers, spill bytes, shared memory) of the
+    probe kernels' ring designs at n 8 and 16 and first designs at n 8,
+    from the build's log, and the static SASS opcode mix of each
+    (``cuobjdump -sass`` of the built library, opcodes counted by pipe)."""
+    from frizbee_tpu_torch.ops import _build
+
+    ptxas = {}
+    for lib in ("probe_transposed", "probe_colstream_bisect"):
+        log = detail.get("build", {}).get(lib, {}).get("ptxas", "")
+        cur = None
+        for line in log.splitlines():
+            m = re.search(r"(?:Compiling entry function|Function properties "
+                          r"for) '?(\S+?)'?(?: for|$)", line)
+            if m:
+                cur = _probe_report_key(
+                    PROBE_REPORT_KERNELS.search(m.group(1)))
+                continue
+            if cur is None:
+                continue
+            rec = ptxas.setdefault(cur, {})
+            for field, pat in (("spill_stores", r"(\d+) bytes spill stores"),
+                               ("spill_loads", r"(\d+) bytes spill loads"),
+                               ("registers", r"Used (\d+) registers"),
+                               ("smem_static", r"(\d+) bytes smem")):
+                m = re.search(pat, line)
+                if m:
+                    rec[field] = int(m.group(1))
+    sass = {}
+    cuobjdump = (shutil.which("cuobjdump")
+                 or "/usr/local/cuda/bin/cuobjdump")
+    for lib in ("probe_transposed", "probe_colstream_bisect"):
+        if not os.path.exists(cuobjdump):
+            sass["error"] = "cuobjdump not found"
+            break
+        text = subprocess.run([cuobjdump, "-sass", _build._lib_path(lib)],
+                              capture_output=True, text=True).stdout
+        cur = None
+        for line in text.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                cur = _probe_report_key(
+                    PROBE_REPORT_KERNELS.search(m.group(1)))
+                continue
+            m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                         r"([A-Z][A-Z0-9_]*)", line)
+            if cur is None or not m:
+                continue
+            op = m.group(1)
+            pipe = next((p for p, ops in SASS_PIPES if op in ops), "other")
+            rec = sass.setdefault(cur, {"total": 0, "pipes": {},
+                                        "opcodes": {}})
+            rec["total"] += 1
+            rec["pipes"][pipe] = rec["pipes"].get(pipe, 0) + 1
+            rec["opcodes"][op] = rec["opcodes"].get(op, 0) + 1
+    detail.setdefault("probes", {})["ptxas"] = ptxas
+    detail["probes"]["sass"] = sass
+    print("probes phase, ptxas: " + json.dumps(ptxas), flush=True)
+    print("probes phase, SASS pipes: " + json.dumps(
+        {k: v["pipes"] if isinstance(v, dict) else v
+         for k, v in sass.items()}), flush=True)
 
 
 def _greedy_rows(n, seed=7):
@@ -3389,6 +3715,111 @@ def single_cpu_parity_phase(detail):
           f"device memory {base} -> {packed} -> {after} bytes", flush=True)
 
 
+# Work that runs beside the main phases, each in a process of its own on
+# the same card: the Arabic corpus's generation, the kernels' boundary
+# checks (small shapes whose plain versions are bound by the host's
+# launches) and the card-versus-CPU phases (bound by the port's CPU
+# path). Each is joined before any phase that times the card or the host.
+SIDE_TIMEOUT = 900  # seconds from a side process's start to its join
+SIDE_CPU_THREADS = 4  # torch and OpenMP threads of the card-vs-CPU process
+# the kernel phase's boundary checks, in the order of its summary line
+BOUNDARY_CHECKS = ("match_units", "tile", "pairing")
+CPU_PARITY_PHASES = ("cpu_parity", "single_cpu_parity", "generic_cpu_parity")
+
+
+class _Side:
+    """``chip_smoke.<name>(out_path)`` run with ``python -c`` from the
+    checkout's root, its output in a log. ``join`` echoes the log, raises
+    unless the process exited 0 within SIDE_TIMEOUT seconds of its start,
+    and returns the JSON the process wrote to ``out_path`` with the
+    seconds the caller waited; ``stop`` kills it if it still runs."""
+
+    def __init__(self, name, tmp, threads=None):
+        self.name = name
+        self.out = os.path.join(tmp, name + ".json")
+        self.log = open(os.path.join(tmp, name + ".log"), "w+",
+                        encoding="utf-8")
+        env = dict(os.environ)
+        if threads:
+            env["OMP_NUM_THREADS"] = str(threads)
+        code = (f"import sys, chip_smoke; "
+                f"sys.exit(chip_smoke.{name}(sys.argv[1]))")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", code, self.out], cwd=ROOT,
+            stdout=self.log, stderr=subprocess.STDOUT, env=env)
+
+    def join(self):
+        t0 = time.perf_counter()
+        try:
+            self.proc.wait(timeout=max(1.0, SIDE_TIMEOUT - (t0 - self.t0)))
+        except subprocess.TimeoutExpired:
+            self.stop()
+        self.log.seek(0)
+        text = self.log.read()
+        self.log.close()
+        if text:
+            print(text.rstrip("\n"), flush=True)
+        if self.proc.returncode != 0:
+            raise RuntimeError(
+                f"{self.name} exited {self.proc.returncode} after "
+                f"{time.perf_counter() - self.t0:.1f} s (limit {SIDE_TIMEOUT})")
+        with open(self.out, encoding="utf-8") as fh:
+            out = json.load(fh)
+        out["wait_seconds"] = time.perf_counter() - t0
+        return out
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def _write_json(out_path, obj):
+    with open(out_path, "w", encoding="utf-8") as fh:
+        json.dump(obj, fh, ensure_ascii=False)
+    return 0
+
+
+def _side_unicode_corpus(out_path):
+    """The 1M-row Arabic corpus (``_unicode_corpus(N_ROWS)``, the same rows
+    as in the main process) and the seconds its generation took."""
+    t0 = time.perf_counter()
+    rows = _unicode_corpus(N_ROWS)
+    return _write_json(out_path, {"seconds": time.perf_counter() - t0,
+                                  "rows": rows})
+
+
+def _side_kernel_boundaries(out_path):
+    """The kernel phase's checks at the row-major template boundaries, the
+    colstream tile boundaries and the pairing boundaries, on the card:
+    their counts, seconds and max_abs_err (a mismatch raises)."""
+    dev = torch.device("cuda")
+    errs = {entry[0]: 0.0 for entry in KERNELS}
+    checks, seconds = {}, {}
+    for label, fn in zip(BOUNDARY_CHECKS, (_rowmajor_boundary_checks,
+                                           _tile_boundary_checks,
+                                           _pairing_checks)):
+        t0 = time.perf_counter()
+        checks[label] = fn(dev, errs)
+        seconds[label] = time.perf_counter() - t0
+    return _write_json(out_path, {"checks": checks, "seconds": seconds,
+                                  "errs": errs})
+
+
+def _side_cpu_parity(out_path):
+    """The card-versus-CPU phases (CPU_PARITY_PHASES) with SIDE_CPU_THREADS
+    torch threads: their detail and each one's seconds."""
+    torch.set_num_threads(SIDE_CPU_THREADS)
+    detail, seconds = {}, {}
+    for name in CPU_PARITY_PHASES:
+        t0 = time.perf_counter()
+        globals()[name + "_phase"](detail)
+        seconds[name] = time.perf_counter() - t0
+    detail["phase_seconds"] = seconds
+    return _write_json(out_path, detail)
+
+
 def native_build():
     """Build (or find built) the native host library and the fastmatch
     extension: the compilers' versions, each build's seconds (absent when
@@ -3435,6 +3866,20 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    import tempfile
+
+    sides = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        try:
+            return _run(tmp, sides)
+        finally:
+            for side in sides.values():
+                side.stop()
+
+
+def _run(tmp, sides):
+    """Every phase in order; ``sides`` collects the side processes
+    started, which ``main`` stops if a phase raises."""
     from frizbee_tpu_torch import datagen, pack_corpus
     from frizbee_tpu_torch.ops import _build
 
@@ -3446,16 +3891,31 @@ def main():
     ).stdout.strip()
     detail = {"nvidia_smi": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda}
+    # the Arabic corpus generates beside the builds, the byte corpora and
+    # the kernel phase
+    sides["unicode"] = _Side("_side_unicode_corpus", tmp)
     t0 = time.perf_counter()
-    built = _build.build()
+    # the bisect probe's library (320 kernels, ~77 s of nvcc alone) builds
+    # beside everything up to the probes phase, its nvcc started with the
+    # others, before the native OpenMP pool exists
+    late = {}
+    late_build = threading.Thread(
+        target=lambda: late.update(_build.build([LATE_BUILD])))
+    late_build.start()
+    built = _build.build([k for k in _build.SIGNATURES if k != LATE_BUILD])
     build_s = time.perf_counter() - t0
     detail["build"] = {k: {"seconds": v["seconds"], "ptxas": v["log"]}
                        for k, v in built.items()}
     print(smi, flush=True)
     print(f"kernel build: {build_s:.1f} s ({len(built)} libraries, "
-          f"nvcc in parallel)", flush=True)
+          f"nvcc in parallel; {LATE_BUILD} building on)", flush=True)
     detail["native_build"] = native_build()
     print("native build: " + json.dumps(detail["native_build"]), flush=True)
+    # with the libraries built, the boundary checks and the card-vs-CPU
+    # phases start beside the corpora and the kernel phases
+    sides["boundaries"] = _Side("_side_kernel_boundaries", tmp)
+    sides["cpu_parity"] = _Side("_side_cpu_parity", tmp,
+                                threads=SIDE_CPU_THREADS)
 
     t0 = time.perf_counter()
     hay = datagen.partial_match_corpus(median_length=MEDIAN_LEN,
@@ -3483,9 +3943,19 @@ def main():
     print(f"long-needle corpus: {len(long_corpus)} rows, buckets "
           f"{detail['long_buckets']}, generated and packed in "
           f"{detail['long_pack_seconds']:.1f} s", flush=True)
+
+    phases = {}
     t0 = time.perf_counter()
-    uhay = _unicode_corpus(N_ROWS)
-    detail["unicode_generate_seconds"] = time.perf_counter() - t0
+    errs = kernel_phase(corpus, detail,
+                        lambda: sides.pop("boundaries").join())
+    phases["kernel"] = time.perf_counter() - t0
+    # the Arabic corpus, generated beside the builds and the kernel phase
+    got = sides.pop("unicode").join()
+    uhay = got["rows"]
+    detail["unicode_generate_seconds"] = got["seconds"]
+    detail["unicode_generate_wait_seconds"] = got["wait_seconds"]
+    del got
+    t0 = time.perf_counter()
     ucorpus = pack_corpus(uhay, unicode=True)
     for b in ucorpus.buckets:
         b.device_arrays_colstream()
@@ -3496,19 +3966,24 @@ def main():
     detail["unicode_buckets"] = [(b.width, b.size) for b in ucorpus.buckets]
     print(f"unicode corpus (Arabic): {len(ucorpus)} rows, buckets "
           f"{detail['unicode_buckets']}, generated in "
-          f"{detail['unicode_generate_seconds']:.1f} s, packed by "
-          f"{detail['unicode_pack_seconds']:.1f} s", flush=True)
-
-    phases = {}
-    t0 = time.perf_counter()
-    errs = kernel_phase(corpus, detail)
-    phases["kernel"] = time.perf_counter() - t0
+          f"{detail['unicode_generate_seconds']:.1f} s beside the builds "
+          f"and the kernel phase "
+          f"(waited {detail['unicode_generate_wait_seconds']:.1f} s), "
+          f"packed in {detail['unicode_pack_seconds']:.1f} s", flush=True)
     t0 = time.perf_counter()
     unicode_kernel_phase(ucorpus, errs, detail)
     phases["kernel_unicode"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     contract_entry = contract_phase(corpus.device, errs, detail)
     phases["contract"] = time.perf_counter() - t0
+    # the card-vs-CPU phases end before any phase that times
+    t0 = time.perf_counter()
+    got = sides.pop("cpu_parity").join()
+    detail["side_seconds"] = {
+        "cpu_parity": got.pop("phase_seconds"),
+        "boundaries": detail["kernel_boundary_checks"]["seconds"]}
+    detail.update(got)
+    phases["cpu_parity_wait"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     paths = _paths(corpus, long_corpus, ucorpus)
     serving = serving_phase(paths, detail)
@@ -3538,6 +4013,14 @@ def main():
     entries.append(contract_entry)
     phases["timing"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    late_build.join()
+    if LATE_BUILD not in late:
+        raise RuntimeError(f"{LATE_BUILD} did not build")
+    detail["build"][LATE_BUILD] = {
+        "seconds": late[LATE_BUILD]["seconds"],
+        "ptxas": late[LATE_BUILD]["log"]}
+    phases["late_build_wait"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     entries += probes_phase(corpus.device, errs, detail)
     phases["probes"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -3546,22 +4029,12 @@ def main():
     profile_phase("multi", corpus, _multi_queries(Q), detail)
     single_profile_phase(corpora, detail)
     phases["profile"] = time.perf_counter() - t0
-    del corpus, hay, long_corpus, long_hay, ucorpus, uhay, paths, corpora
-    del single, gpaths
-    t0 = time.perf_counter()
-    cpu_parity_phase(detail)
-    phases["cpu_parity"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    single_cpu_parity_phase(detail)
-    phases["single_cpu_parity"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    generic_cpu_parity_phase(detail)
-    phases["generic_cpu_parity"] = time.perf_counter() - t0
     detail["phase_seconds"] = phases
     detail["total_seconds"] = time.perf_counter() - t_start
     detail["kernels"] = entries
     print("phase seconds: " + json.dumps(
         {k: round(v, 3) for k, v in phases.items()})
+        + "; beside them: " + json.dumps(detail["side_seconds"])
         + f"; total {detail['total_seconds']:.3f} s", flush=True)
 
     os.makedirs(OUT_DIR, exist_ok=True)

@@ -11,8 +11,11 @@ Counterpart of ``benchmarks/probe_colstream_bisect.py`` (``run`` :41,
 (``run`` :35, ``pallas_call`` :36; ``make_stage(track_fstart, track_tail,
 out_carries)`` :57 in five combinations). There each stage bisected a TPU
 compiler crash; here each is a template instantiation of
-``csrc/probe_colstream_bisect.cu`` (one thread a row) that computes
-exactly what the reference's stage computes, and the stages split the
+``csrc/probe_colstream_bisect.cu`` that computes exactly what the
+reference's stage computes (a block streams the unit columns of 512 rows
+through a shared-memory ring, a thread walks two rows, each unit's needle
+hits one lookup of a table the block writes; :func:`ring_geometry`
+mirrors the launch), and the stages split the
 colstream kernel's cost: the SW pass alone (b), the prefilter pass alone
 (c), its advance chain alone (c2), and the window tracking (bisect2).
 
@@ -55,6 +58,7 @@ from ..ops.kernels import (
     pack_needle_scalars,
 )
 from . import emit, median_ms, resolve_device
+from .transposed import TABLE_UNITS, hit_words
 
 SUBL = 8
 GROUP_ROWS = SUBL * 128
@@ -82,6 +86,21 @@ PF_STAGES = {
     "none_outcarries": ("hit0", False, False, True),
     "both_outcarries": ("hit0", True, True, True),
 }
+# the kernel's launch geometry (csrc/probe_colstream_bisect.cu kThreads,
+# kTileRows, kChunkCols, kRingStages, kMinBlocks and the stages' tables:
+# stage A a hit
+# word set a unit, stage B one for each of 4 bonus classes and one of gap
+# costs plus 272 bytes of byte classes and 80 of bonus classes, the
+# prefilter stages a 32-bit hit mask a unit)
+RING_THREADS = 256
+RING_TILE_ROWS = 2 * RING_THREADS
+RING_CHUNK_COLS = 8  # stages A and B
+RING_MIN_BLOCKS = 3
+RING_PREFILTER_CHUNK_COLS = 16  # the prefilter stages
+RING_PREFILTER_MIN_BLOCKS = 2
+RING_STAGES = 3
+BONUS_CLASSES = 4
+CLASS_BYTES, CLASS_PAIR_BYTES = 272, 80
 # what the reference scripts print, in order ("full": the whole kernel)
 REFERENCE_ORDER = (
     "a_simple+outs", "b_full_sw", "c_pf_t0", "full", "c1_no_advance",
@@ -231,6 +250,29 @@ def _check_args(stage, n):
     if not 1 <= n <= MAX_N:
         raise ValueError(f"the bisect kernel holds needles of 1-{MAX_N} "
                          f"units, not {n}")
+
+
+def ring_geometry(nG: int, W: int, n: int, stage: str) -> dict:
+    """The kernel's launch for ``nG`` groups of W columns, an n-unit
+    needle and ``stage`` (chunks of 8 columns for stages A and B, 16 for
+    the prefilter stages): ``blocks`` of ``threads`` threads, each a tile of
+    ``tile_rows`` rows (2 a group; tile t holds rows t * tile_rows .. of
+    the launch, ``transposed.ring_rows``); a tile's ``chunks`` of
+    ``chunk_cols`` columns through a ring of ``stages`` slots; ``smem``
+    the bytes of shared memory a block takes (the ring and the stage's
+    tables, dynamic, and the needle's two halves, static)."""
+    _check_args(stage, n)
+    cols = (RING_CHUNK_COLS if stage in ("a_simple+outs", "b_full_sw")
+            else RING_PREFILTER_CHUNK_COLS)
+    ring = RING_STAGES * cols * RING_TILE_ROWS * 4
+    words = TABLE_UNITS * hit_words(n) * 4
+    tables = {"a_simple+outs": words,
+              "b_full_sw": ((BONUS_CLASSES + 1) * words + CLASS_BYTES
+                            + CLASS_PAIR_BYTES)}.get(stage, TABLE_UNITS * 4)
+    return {"blocks": nG * (GROUP_ROWS // RING_TILE_ROWS),
+            "threads": RING_THREADS, "tile_rows": RING_TILE_ROWS,
+            "chunk_cols": cols, "stages": RING_STAGES,
+            "chunks": -(-W // cols), "smem": ring + tables + 8 * n}
 
 
 def bisect_stage_plain(stage, cpT, nuT, scal, *, W: int, n: int):

@@ -15,7 +15,9 @@ max(prev[k] - 1, 0))``, ``best = max(best, cur)``, ``diag_in = prev[k]``
 (0 at k = 0), ``prev[k] = cur``; each row's best is the output. The
 reference's row maximum (``srow``/``left``) never reaches the output and
 is not computed. :func:`transposed_best` runs it as the CUDA kernel
-``csrc/probe_transposed.cu`` (one thread a row) on a CUDA tensor and as
+``csrc/probe_transposed.cu`` on a CUDA tensor (a block streams the unit
+columns of 512 rows through a shared-memory ring, a thread walks two rows
+in s16x2 halves; :func:`ring_geometry` mirrors its launch) and as
 :func:`transposed_best_plain` on a CPU tensor.
 
 Layout: the reference's unit-major blocks, (nB * W, 32, 128) int32, unit j
@@ -55,6 +57,49 @@ CHECK_SHAPE = (64, 2 * BLOCK_ROWS)  # (W, B)
 LINEARITY_SHAPE = (128, 131072)
 LINEARITY_K = (4, 16, 64)
 COMPARE_SHAPES = ((64, 262144), (128, 131072), (128, 1048576))
+
+# the kernel's launch geometry (csrc/probe_transposed.cu kThreads,
+# kTileRows, kChunkCols, kRingStages, kMinBlocks; csrc/column_ring.cuh
+# kTableUnits and HitWords)
+RING_THREADS = 256
+RING_TILE_ROWS = 2 * RING_THREADS
+RING_CHUNK_COLS = 8
+RING_STAGES = 4
+RING_MIN_BLOCKS = 3
+TABLE_UNITS = 257
+
+
+def hit_words(n: int) -> int:
+    """32-bit words of a unit's entry in the kernels' needle-hit table: a
+    byte a needle unit, 1, 2 or 4 words."""
+    return 1 if n <= 4 else 2 if n <= 8 else 4
+
+
+def ring_rows(tiles: int, tile_rows: int = RING_TILE_ROWS,
+              threads: int = RING_THREADS) -> np.ndarray:
+    """(tiles, threads, 2) int64: the two rows that each thread of each
+    block walks, as the kernels compute them: block t takes tile t, rows t
+    * tile_rows .. of the launch, and its thread i rows 2i and 2i + 1 of
+    it."""
+    t = np.arange(tiles, dtype=np.int64)[:, None, None]
+    return (t * tile_rows + 2 * np.arange(threads)[None, :, None]
+            + np.arange(2))
+
+
+def ring_geometry(n_blocks: int, W: int, n: int) -> dict:
+    """The kernel's launch for cpT of ``n_blocks`` layout blocks of W
+    columns and an n-unit needle: ``blocks`` of ``threads`` threads, each a
+    tile of ``tile_rows`` rows (8 a layout block); a tile's ``chunks`` of
+    ``chunk_cols`` columns through a ring of ``stages`` slots; ``smem``
+    the bytes of shared memory a block takes (the ring and the needle-hit
+    table, dynamic, and the needle, static)."""
+    _check_n(n)
+    ring = RING_STAGES * RING_CHUNK_COLS * RING_TILE_ROWS * 4
+    return {"blocks": n_blocks * (BLOCK_ROWS // RING_TILE_ROWS),
+            "threads": RING_THREADS, "tile_rows": RING_TILE_ROWS,
+            "chunk_cols": RING_CHUNK_COLS, "stages": RING_STAGES,
+            "chunks": -(-W // RING_CHUNK_COLS),
+            "smem": ring + TABLE_UNITS * hit_words(n) * 4 + 4 * n}
 
 
 def to_blocks(hay: torch.Tensor) -> torch.Tensor:

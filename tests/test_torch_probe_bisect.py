@@ -14,6 +14,7 @@ planes exactly."""
 import importlib.util
 import json
 import os
+import re
 
 import numpy as np
 import pytest
@@ -24,7 +25,14 @@ import jax.numpy as jnp
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+from frizbee_tpu_torch.ops.kernels import (
+    is_delim,
+    is_lower,
+    is_upper,
+    pack_needle_scalars,
+)
 from frizbee_tpu_torch.probes import colstream_bisect as tb
+from frizbee_tpu_torch.probes.transposed import ring_rows
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
@@ -208,3 +216,157 @@ def test_failed_check_ends_the_run(capsys):
     assert len(capsys.readouterr().out.splitlines()) == 2
     assert emit(iter([{"R": 64, "exact_equal": False}])) == 1
     assert emit(iter([{"correct": True, "mismatches": 0}])) == 0
+
+
+def _colstream(cp, nu, needle, flip):
+    B, W = cp.shape
+    cpT = (torch.from_numpy(cp).reshape(B // tb.GROUP_ROWS, tb.SUBL, 128, W)
+           .permute(0, 3, 1, 2).reshape(-1, tb.SUBL, 128).contiguous())
+    scal = pack_needle_scalars(
+        torch.from_numpy(np.concatenate([needle, flip])), B)
+    return cpT, torch.from_numpy(nu).reshape(-1, 128), scal
+
+
+def _bonus_rows(n=16, W=64, seed=3):
+    """Rows that take every bonus at n = 16: a needle of lower-to-upper
+    case steps and delimiters; row 0 the needle itself (a prefix hit,
+    exact case, nu = n), row 1 the needle repeated over W columns, row 2
+    its flipped case, the rest random units of the needle's, its flip's
+    and delimiters."""
+    needle = np.frombuffer(b"aBcD-eF_gHiJ.kLm", np.uint8).astype(np.int32)
+    assert len(needle) == n
+    flip = np.where((needle >= 97) & (needle <= 122), needle - 32,
+                    np.where((needle >= 65) & (needle <= 90), needle + 32,
+                             needle)).astype(np.int32)
+    rng = np.random.default_rng(seed)
+    pool = np.concatenate([needle, flip, np.frombuffer(b"-_. /", np.uint8)])
+    cp = rng.choice(pool, (tb.GROUP_ROWS, W)).astype(np.int32)
+    nu = rng.integers(0, W + 1, tb.GROUP_ROWS).astype(np.int32)
+    cp[0, :n], nu[0] = needle, n
+    cp[1], nu[1] = np.resize(needle, W), W
+    cp[2, :n], nu[2] = flip, n
+    return cp, nu, needle, flip
+
+
+def test_stage_b_int16_range():
+    """The kernel's stage B runs two rows in s16x2 halves and relies on
+    every cell staying within 36 n (12 a hit, up to 12 of bonus, 4 for an
+    exact one). On rows built to take every bonus (lower-to-upper steps,
+    delimiters, a prefix hit, exact case) at n = 16, every plane stays
+    well inside int16 and the score within 36 n; the exact row is exact
+    and outscores the needle's hits alone (its bonuses counted)."""
+    n, W = 16, 64
+    cp, nu, needle, flip = _bonus_rows(n, W)
+    cpT, nuT, scal = _colstream(cp, nu, needle, flip)
+    got = tb.bisect_stage_plain("b_full_sw", cpT, nuT, scal, W=W, n=n)
+    planes = got.reshape(5, -1)
+    assert int(planes.abs().max()) < 32767
+    assert int(planes[1].max()) <= 36 * n
+    assert int(planes[2, 0]) == 1 and int(planes[1, 0]) > 12 * n + 12
+
+
+def _bonus_class(prev, unit):
+    """The kernel's bonus class (bonus / 4) of a unit after prev (-1 before
+    column 0): 3 on the first column, else one each for a capitalisation
+    and a delimiter step."""
+    t = torch.tensor([prev, unit])
+    up, low, de = is_upper(t), is_lower(t), is_delim(t)
+    if prev < 0:
+        return 3
+    return int(bool(up[1] and low[0])) + int(bool(de[0] and not de[1]))
+
+
+BIAS = 64  # csrc/column_ring.cuh kBias: each 16-bit half holds a value + 64
+
+
+def _ring_stage_b(cp, nu, orig, flip):
+    """Stage B as the kernel computes it, in a row-at-a-time model: each
+    unit's operands from its bonus class's table entries (the diagonal
+    operand + 6: 18 + 4 class on a hit of either case, 4 more on an exact
+    one, 0 else; the gap cost + 5: 0 after a hit, 4 else), then, each
+    value + BIAS, t = max(diag_in + d - 6, h + l_k - 5, BIAS) and cur =
+    max(up_src + g_{k-1} - 5, t), l_k the previous column's g_k; every
+    value formed stays inside an unsigned 16-bit half. Returns the five
+    planes."""
+    B, W = cp.shape
+    n = len(orig)
+    out = np.zeros((5, B), np.int64)
+    for r in range(B):
+        h, l = [BIAS] * n, [4] * n
+        best = end = neq = 0
+        for j in range(W):
+            u, valid = int(cp[r, j]), j < nu[r]
+            cls = _bonus_class(int(cp[r, j - 1]) if j else -1, u)
+            ex = [valid and u == o for o in orig]
+            occ = [e or (valid and u == f) for e, f in zip(ex, flip)]
+            d = [18 + 4 * cls + 4 * e if o else 0 for e, o in zip(ex, occ)]
+            g = [0 if o else 4 for o in occ]
+            if j < n:
+                neq |= u != orig[j]
+            diag_in, up_src, g_up = BIAS, 0, 0
+            for k in range(n):
+                terms = [diag_in + d[k] - 6, h[k] + l[k] - 5]
+                if k:
+                    terms.append(up_src + g_up - 5)
+                assert 0 <= min(terms) and max(terms) < 1 << 16
+                cur = max(*terms, BIAS)
+                diag_in, h[k], l[k], up_src, g_up = h[k], cur, g[k], cur, g[k]
+            if valid and h[-1] - BIAS > best:
+                best, end = h[-1] - BIAS, j
+        out[:, r] = [1, best, int(nu[r] == n and neq == 0),
+                     end if best > 0 else 0, 0]
+    return out
+
+
+def test_ring_stage_b_model():
+    """The kernel's rewritten stage-B cell and bonus classes (table
+    operands, no compare, packed adds and 3-input max) against the plain
+    version on the
+    bonus rows' first 96 rows."""
+    n, W = 16, 24
+    cp, nu, needle, flip = _bonus_rows(n, W)
+    nu = np.minimum(nu, W)
+    cpT, nuT, scal = _colstream(cp, nu, needle, flip)
+    want = tb.bisect_stage_plain("b_full_sw", cpT, nuT, scal, W=W, n=n)
+    got = _ring_stage_b(cp[:96], nu[:96], needle.tolist(), flip.tolist())
+    np.testing.assert_array_equal(got, want.reshape(5, -1)[:, :96].numpy())
+
+
+def _source_constants(name):
+    path = os.path.join(ROOT, "frizbee_tpu_torch", "csrc", name)
+    with open(path) as fh:
+        text = fh.read()
+    return dict(re.findall(r"constexpr int (k\w+) = ([^;]+);", text))
+
+
+def test_ring_geometry_mirrors_source():
+    """``ring_geometry``'s constants are the kernel source's."""
+    src = _source_constants("probe_colstream_bisect.cu")
+    assert int(src["kThreads"]) == tb.RING_THREADS
+    assert src["kTileRows"].startswith("2 * kThreads")
+    assert tb.RING_TILE_ROWS == 2 * tb.RING_THREADS
+    assert int(src["kChunkCols"]) == tb.RING_CHUNK_COLS
+    assert int(src["kRingStages"]) == tb.RING_STAGES
+    assert int(src["kMinBlocks"]) == tb.RING_MIN_BLOCKS
+    assert int(src["kPrefilterChunkCols"]) == tb.RING_PREFILTER_CHUNK_COLS
+    assert int(src["kPrefilterMinBlocks"]) == tb.RING_PREFILTER_MIN_BLOCKS
+    assert int(src["kBonusClasses"]) == tb.BONUS_CLASSES
+    assert int(src["kClassBytes"]) == tb.CLASS_BYTES
+    assert int(src["kClassPairBytes"]) == tb.CLASS_PAIR_BYTES
+
+
+@pytest.mark.parametrize("groups", [2, 1024])
+def test_ring_geometry(groups):
+    """At the reference's 2048 rows and the 1M-row timing shape: every row
+    is walked by exactly one thread half, a block's shared memory fits the
+    card's 227 KB for every stage and n, and 1M rows fill the 132 SMs."""
+    geo = tb.ring_geometry(groups, tb.W, tb.N, "b_full_sw")
+    rows = ring_rows(geo["blocks"], tb.RING_TILE_ROWS, tb.RING_THREADS)
+    assert np.array_equal(np.sort(rows.reshape(-1)),
+                          np.arange(groups * tb.GROUP_ROWS))
+    for stage in tb.STAGES:
+        for n in range(1, 17):
+            assert tb.ring_geometry(groups, tb.W, n, stage)["smem"] <= (
+                227 * 1024)
+    if groups == 1024:
+        assert geo["blocks"] >= 132

@@ -12,6 +12,7 @@ under that name first. Zero tolerance."""
 import importlib.util
 import json
 import os
+import re
 import sys
 
 import numpy as np
@@ -20,6 +21,7 @@ import torch
 
 import jax.numpy as jnp
 
+from frizbee_tpu_torch.ops.kernels import pack_needle_scalars
 from frizbee_tpu_torch.probes import transposed as tt
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -155,3 +157,111 @@ def test_probe_records_on_cpu(capsys):
                              "speedup", "current_rows_per_s",
                              "transposed_rows_per_s"}
     assert lines[3]["current_ms"] is None
+
+
+def test_int16_range_worst_case():
+    """The kernel walks two rows in s16x2 halves and relies on every cell
+    staying within 12 n. A one-unit needle repeated to n = 16 against rows
+    of that unit at W = 1024 reaches exactly 12 n = 192 and never more;
+    random rows over the same unit and one other never pass 12 n."""
+    n, W = 16, 1024
+    needle = np.full(n, 97, np.int32)
+    hay = np.full((tt.BLOCK_ROWS, W), 97, np.int8)
+    rng = np.random.default_rng(16)
+    hay[1:] = rng.choice(np.array([97, 98], np.int8), (tt.BLOCK_ROWS - 1, W))
+    best = tt.transposed_best_plain(
+        tt.to_blocks(torch.from_numpy(hay)), _scalars(needle, tt.BLOCK_ROWS),
+        W=W, n=n).reshape(-1)
+    assert int(best[0]) == 12 * n
+    assert int(best.max()) == 12 * n and int(best.min()) >= 0
+
+
+def _source_constants(name):
+    path = os.path.join(ROOT, "frizbee_tpu_torch", "csrc", name)
+    with open(path) as fh:
+        text = fh.read()
+    return {k: v for k, v in re.findall(r"constexpr int (k\w+) = ([^;]+);",
+                                        text)}
+
+
+def test_ring_geometry_mirrors_source():
+    """``ring_geometry``'s constants are the kernel source's."""
+    src = _source_constants("probe_transposed.cu")
+    assert int(src["kThreads"]) == tt.RING_THREADS
+    assert src["kTileRows"].startswith("2 * kThreads")
+    assert tt.RING_TILE_ROWS == 2 * tt.RING_THREADS
+    assert int(src["kChunkCols"]) == tt.RING_CHUNK_COLS
+    assert int(src["kRingStages"]) == tt.RING_STAGES
+    assert int(src["kMinBlocks"]) == tt.RING_MIN_BLOCKS
+    ring = _source_constants("column_ring.cuh")
+    assert int(ring["kNoUnit"]) + 1 == tt.TABLE_UNITS
+    assert [tt.hit_words(n) for n in range(1, 17)] == [1] * 4 + [2] * 4 + [4] * 8
+
+
+@pytest.mark.parametrize("W, B", [tt.CHECK_SHAPE, tt.LINEARITY_SHAPE,
+                                  *tt.COMPARE_SHAPES, (24, 4096)])
+def test_ring_geometry(W, B):
+    """At the check, linearity, compare and edge shapes: every row is
+    walked by exactly one thread half, a block's shared memory fits the
+    card's 227 KB at every n, and the linearity check's 131,072 rows fill
+    the 132 SMs."""
+    n_blocks = B // tt.BLOCK_ROWS
+    geo = tt.ring_geometry(n_blocks, W, tt.N)
+    rows = tt.ring_rows(geo["blocks"])
+    assert rows.shape[1] == geo["threads"]
+    assert np.array_equal(np.sort(rows.reshape(-1)), np.arange(B))
+    assert geo["chunks"] * geo["chunk_cols"] >= W > (
+        geo["chunks"] - 1) * geo["chunk_cols"]
+    for n in range(1, 17):
+        assert tt.ring_geometry(n_blocks, W, n)["smem"] <= 227 * 1024
+    if B == tt.LINEARITY_SHAPE[1]:
+        assert geo["blocks"] >= 132
+
+
+BIAS = 64  # csrc/column_ring.cuh kBias: each 16-bit half holds a value + 64
+
+
+def _ring_cells(hay, needle):
+    """The kernel's cells in a vectorised numpy model: each unit's needle
+    operand from its table entry (its diagonal operand + 6: 18 on a hit, 0
+    else), then, each value + BIAS, cur = max(diag_in + d - 6, prev - 1,
+    BIAS), best over every cell; every value the walk forms stays inside
+    an unsigned 16-bit half. Returns each row's best."""
+    B, W = hay.shape
+    n = len(needle)
+    table = np.where(np.arange(257)[:, None] == needle[None, :], 18, 0)
+    idx = np.where((hay >= 0) & (hay < 256), hay, 256)
+    d = table[idx]  # (B, W, n)
+    outside = (idx == 256) & np.isin(hay, needle)
+    d[outside] = np.where(hay[outside][:, None] == needle[None, :], 18, 0)
+    prev = np.full((B, n), BIAS, np.int64)
+    best = np.full(B, BIAS, np.int64)
+    for j in range(W):
+        diag_in = np.concatenate([np.full((B, 1), BIAS, np.int64),
+                                  prev[:, :-1]], 1)
+        diag = diag_in + d[:, j] - 6
+        assert diag.min() >= 0 and (prev - 1).min() >= 0
+        prev = np.maximum(np.maximum(diag, prev - 1), BIAS)
+        assert prev.max() <= 12 * n + BIAS < 1 << 16
+        best = np.maximum(best, prev.max(1))
+    return best - BIAS
+
+
+@pytest.mark.parametrize("n, lo, hi", [(8, 97, 103), (16, 97, 99),
+                                       (3, -300, 400)])
+def test_ring_cell_model(n, lo, hi):
+    """The kernel's rewritten cell (a table operand, two packed adds and a
+    3-input max, no compare) against the plain version, units inside and outside the
+    table's [0, 256), a needle unit outside it in the last case."""
+    rng = np.random.default_rng(n)
+    W = 20
+    hay = rng.integers(lo, hi, (tt.BLOCK_ROWS, W)).astype(np.int32)
+    needle = rng.integers(97, 100, n).astype(np.int32)
+    if lo < 0:
+        needle[0] = 300
+        hay[:32] = 300
+    scal = pack_needle_scalars(
+        torch.from_numpy(np.concatenate([needle, needle])), tt.BLOCK_ROWS)
+    want = tt.transposed_best_plain(tt.to_blocks(torch.from_numpy(hay)),
+                                    scal, W=W, n=n).reshape(-1).numpy()
+    np.testing.assert_array_equal(_ring_cells(hay, needle), want)
