@@ -36,7 +36,9 @@ card-versus-CPU phase 7 (beside phase 1). The phases:
    length mod 4, a full doubled queue, a 1-column window paired with a
    W-column one, matched rows all in one half of a tile's length order,
    an empty row beside a full one, a matched half beside a rejected
-   one); the lane contract kernel against its plain model; the
+   one); the lane contract kernel against its plain model at 40 rows
+   (the timed launch) and at 1, 33 and 97 rows, then timed beside an
+   empty kernel on its grid (its launch floor); the
    row gather at 128-, 256-, 384- and 2048-word rows, 1, 7 and the capped
    finalize's or broad tournament's rows; and the unicode variant of each
    match kernel
@@ -175,10 +177,17 @@ card-versus-CPU phase 7 (beside phase 1). The phases:
    back at its level before a pack once the corpus a Matcher's dispatch
    cache held is dropped.
 
+A watchdog (``_Watchdog``) gives every phase, side process and the late
+build thread a budget (PHASE_BUDGETS, SIDE_TIMEOUT, LATE_BUILD_BUDGET):
+at WATCH_SHARE of it, it prints every thread's Python stack and the
+tasks' /proc states (a side process prints its own into its log); at the
+whole budget it prints them again, kills the side processes and ends the
+run with exit code 1.
+
 Prints the card's name and power limit first, one JSON ``kernels`` line
 before the last, and ``{"ok": true, "device": {...}}`` last. Exits
 non-zero, printing no result, when there is no CUDA device or any phase
-fails. Details (per-phase seconds, ptxas reports) go to
+fails or overruns its budget. Details (per-phase seconds, ptxas reports) go to
 ``chiprun_out/chip_smoke_detail.json``.
 """
 
@@ -2961,17 +2970,71 @@ def timing_phase(paths, single, gpaths, pcalls, serving, errs, detail):
     return entries
 
 
+# the row counts the contract kernel is held to its model at: the timed
+# default 40 and counts that a warp a (row, lane type), eight warps a
+# block, splits unevenly (tests/test_torch_lane_contract.py holds the model
+# to the reference at the same counts)
+CONTRACT_ROWS = (1, 33, 40, 97)
+CONTRACT_SEED = 1
+
+
+def _contract_mismatches(got, want, ins):
+    """Per output that differs: the count, the columns and the first rows'
+    inputs, kernel values and model values."""
+    mism = {}
+    for name, g, w, x in zip(("units", "pairs", "keys", "words", "rows"),
+                             got, want, ins):
+        bad = g != w
+        if bad.any():
+            if name == "rows":  # (2, R, ROW_OUT): rows of both lane types
+                bad, g, w = (t.transpose(0, 1) for t in (bad, g, w))
+            rows = bad.reshape(bad.shape[0], -1).any(dim=1).nonzero()[:8, 0]
+            mism[name] = {
+                "count": int(bad.sum()),
+                "columns": (bad.reshape(bad.shape[0], -1).any(dim=0)
+                            .nonzero()[:, 0].tolist())[:64],
+                "inputs": x[rows].tolist(), "got": g[rows].tolist(),
+                "want": w[rows].tolist()}
+    return mism
+
+
+def _ptxas_kernels(log):
+    """Per kernel of an nvcc ``-Xptxas=-v`` log: registers, spill bytes
+    and static shared memory bytes."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\S+?)'?(?: for|$)", line)
+        if m:
+            cur = m.group(1)
+            continue
+        if cur is None:
+            continue
+        for field, pat in (("spill_stores", r"(\d+) bytes spill stores"),
+                           ("spill_loads", r"(\d+) bytes spill loads"),
+                           ("registers", r"Used (\d+) registers"),
+                           ("smem_static", r"(\d+) bytes smem")):
+            m = re.search(pat, line)
+            if m:
+                out.setdefault(cur, {})[field] = int(m.group(1))
+    return out
+
+
 def contract_phase(dev, errs, detail):
     """The lane contract kernel on its own path: every launch counter set
-    to 0, one launch over ``contract.contract_inputs``, the counters read;
-    its outputs held bit-equal to ``contract.contract_plain`` (a mismatch
-    names the outputs, rows and values that differ), then timed. Returns
-    its ``kernels`` entry."""
+    to 0, one launch over ``contract.contract_inputs`` (CONTRACT_SEED, 40
+    rows), the counters read; its outputs held bit-equal to
+    ``contract.contract_plain`` (a mismatch names the outputs, rows and
+    values that differ), then at the other row counts of CONTRACT_ROWS;
+    then timed beside an empty kernel on the launch's grid
+    (``lane_contract_empty_launch``, the floor any design of it pays), with
+    the kernel's ptxas report. Returns its ``kernels`` entry."""
     from frizbee_tpu_torch.ops import _build
     from frizbee_tpu_torch.ops import contract as ct
     from frizbee_tpu_torch.ops.kernels import DEFAULT_SCORING
+    from frizbee_tpu_torch.probes import device_ms
 
-    ins = ct.contract_inputs(seed=1, device=dev)
+    ins = ct.contract_inputs(seed=CONTRACT_SEED, device=dev)
     for k in _build.LAUNCHES:
         _build.LAUNCHES[k] = 0
     got = ct.lane_contract(*ins, DEFAULT_SCORING)
@@ -2979,31 +3042,50 @@ def contract_phase(dev, errs, detail):
     launches = dict(_build.LAUNCHES)
     want = ct.contract_plain(*ins, DEFAULT_SCORING)
     mism = {}
-    for name, g, w, x in zip(("units", "pairs", "keys", "words", "rows"),
-                             got, want, ins):
-        bad = g != w
-        if bad.any():
-            rows = bad.reshape(bad.shape[0], -1).any(dim=1).nonzero()[:8, 0]
-            mism[name] = {
-                "count": int(bad.sum()),
-                "columns": (bad.reshape(bad.shape[0], -1).any(dim=0)
-                            .nonzero()[:, 0].tolist()),
-                "inputs": x[rows].tolist(), "got": g[rows].tolist(),
-                "want": w[rows].tolist()}
+    checks = {ins[4].shape[0]: (got, want, ins)}
+    for n in CONTRACT_ROWS:
+        if n not in checks:
+            ins_n = ct.contract_inputs(seed=CONTRACT_SEED, device=dev,
+                                       n_rows=n)
+            checks[n] = (ct.lane_contract(*ins_n, DEFAULT_SCORING),
+                         ct.contract_plain(*ins_n, DEFAULT_SCORING), ins_n)
+    for n, (g, w, x) in checks.items():
+        m = _contract_mismatches(g, w, x)
+        if m:
+            mism[f"rows{n}"] = m
     detail["contract"] = {"launches": launches["lane_contract"],
                           "mismatches": mism,
+                          "row_counts": sorted(checks),
                           "sizes": [int(t.shape[0]) for t in ins]}
     if mism:
         print("contract phase: MISMATCH " + json.dumps(mism), flush=True)
-    _check_equal(errs, "lane_contract", got, want, "contract")
+    for n, (g, w, _x) in checks.items():
+        _check_equal(errs, "lane_contract", g, w, f"contract, {n} rows")
+    del checks
     assert launches["lane_contract"] == 1, launches
     nums, work = _replay("lane_contract", "lane_contract",
                          [(ins, dict(scoring=DEFAULT_SCORING))], errs)
-    detail.setdefault("timing", {})["lane_contract"] = {**nums, **work}
+    empty = _build.library("lane_contract").lane_contract_empty_launch
+    empty.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    empty.restype = ctypes.c_int
+    counts = [int(t.shape[0]) for t in ins[:5]]
+
+    def launch_empty():
+        rc = empty(*counts, _build.stream(ins[0]))
+        if rc:
+            raise RuntimeError(f"lane_contract_empty launch failed: {rc}")
+
+    floor_ms = device_ms(launch_empty)
+    ptxas = _ptxas_kernels(detail.get("build", {}).get(
+        "lane_contract", {}).get("ptxas", ""))
+    detail.setdefault("timing", {})["lane_contract"] = {
+        **nums, **work, "empty_launch_ms": floor_ms, "ptxas": ptxas}
     print(f"contract phase: lane_contract bit-equal to its plain model on "
-          f"{detail['contract']['sizes'][:5]} units, byte pairs, keys, "
-          f"s16x2 words and rows (int32 and int16 walks) "
-          + json.dumps(nums), flush=True)
+          f"{detail['contract']['sizes'][:4]} units, byte pairs, keys and "
+          f"s16x2 words and {sorted(detail['contract']['row_counts'])} "
+          f"rows (int32 and int16 walks) "
+          + json.dumps({**nums, "empty_launch_ms": floor_ms})
+          + "; ptxas " + json.dumps(ptxas), flush=True)
     return {"name": "lane_contract", "route": "cuda",
             "source": "frizbee_tpu_torch/csrc/lane_contract.cu",
             "replaces": "tests/test_kernel_contract.py:52",
@@ -3366,24 +3448,10 @@ def _probe_build_reports(detail):
     ptxas = {}
     for lib in ("probe_transposed", "probe_colstream_bisect"):
         log = detail.get("build", {}).get(lib, {}).get("ptxas", "")
-        cur = None
-        for line in log.splitlines():
-            m = re.search(r"(?:Compiling entry function|Function properties "
-                          r"for) '?(\S+?)'?(?: for|$)", line)
-            if m:
-                cur = _probe_report_key(
-                    PROBE_REPORT_KERNELS.search(m.group(1)))
-                continue
-            if cur is None:
-                continue
-            rec = ptxas.setdefault(cur, {})
-            for field, pat in (("spill_stores", r"(\d+) bytes spill stores"),
-                               ("spill_loads", r"(\d+) bytes spill loads"),
-                               ("registers", r"Used (\d+) registers"),
-                               ("smem_static", r"(\d+) bytes smem")):
-                m = re.search(pat, line)
-                if m:
-                    rec[field] = int(m.group(1))
+        for name, rec in _ptxas_kernels(log).items():
+            key = _probe_report_key(PROBE_REPORT_KERNELS.search(name))
+            if key is not None:
+                ptxas.setdefault(key, {}).update(rec)
     sass = {}
     cuobjdump = (shutil.which("cuobjdump")
                  or "/usr/local/cuda/bin/cuobjdump")
@@ -3715,12 +3783,164 @@ def single_cpu_parity_phase(detail):
           f"device memory {base} -> {packed} -> {after} bytes", flush=True)
 
 
+# The watchdog: every phase of the main process, every side process and
+# the late build thread has a budget in seconds. At WATCH_SHARE of it a
+# watchdog thread prints every thread's Python stack (faulthandler) and,
+# from /proc, each task's state and CPU ticks in this process, its child
+# processes and the side processes; at the whole budget it prints them
+# again and ends the run: the side processes' logs are echoed and the
+# processes killed, exit 1, no result line. The dumps come from a Python
+# thread, which holds the GIL while it dumps, so no thread moves under it
+# (faulthandler.dump_traceback_later's C timer, which dumps without the
+# GIL, segfaulted a process on the card's machine). A stall that holds the
+# GIL is left to the run's own time limit.
+WATCH_SHARE = 0.5
+# at least three times each phase's longest time in the runs PERF.md
+# records (kernel 271 s, indices 108, timing 69-109), never under 120 s
+PHASE_BUDGETS = {
+    "build": 300, "corpora": 300, "kernel": 800, "unicode_corpus": 300,
+    "kernel_unicode": 300,
+    "contract": 120, "cpu_parity_wait": 400, "serving": 300, "single": 300,
+    "indices": 400, "generic": 300, "native": 300, "parallel": 300,
+    "timing": 400, "late_build_wait": 300, "probes": 300, "profile": 300,
+}
+LATE_BUILD_BUDGET = 400  # the bisect library's nvcc, beside the phases
+
+
+def _proc_read(path):
+    """The text of a /proc file, or None where it cannot be read."""
+    try:
+        with open(path) as fh:
+            return fh.read().strip()
+    except OSError:
+        return None
+
+
+def _task_states(pid, indent="  "):
+    """Lines on process ``pid`` from /proc: a line per task (its name,
+    state and user and system CPU ticks), then each child process's
+    (``task/*/children``), indented below it."""
+    try:
+        tids = sorted(os.listdir(f"/proc/{pid}/task"), key=int)
+    except OSError as e:
+        return [f"{indent}{e.strerror}"]
+    lines = []
+    children = []
+    for tid in tids:
+        base = f"/proc/{pid}/task/{tid}"
+        stat = _proc_read(f"{base}/stat")
+        if stat is None:  # the task ended
+            continue
+        f = stat[stat.rindex(")") + 2:].split()
+        lines.append(f"{indent}  task {tid} "
+                     f"{stat[stat.index('(') + 1:stat.rindex(')')]} {f[0]} "
+                     f"utime {f[11]} stime {f[12]}")
+        children += (_proc_read(f"{base}/children") or "").split()
+    for child in children:
+        lines.append(f"{indent}process {child}:")
+        lines += _task_states(int(child), indent + "  ")
+    return lines
+
+
+class _Watchdog:
+    """A daemon thread over watched items, each a label, a budget in
+    seconds and, for a side process or thread, an ``alive`` test (it is
+    dropped once that fails) and the process id. At WATCH_SHARE of an
+    item's budget it prints the stacks and task states; at the whole
+    budget it prints them again and the overrun, calls ``on_fail`` and
+    ends the process with exit code 1 (a main thread that ``on_fail``
+    wakes may end it first, also with exit code 1)."""
+
+    def __init__(self, on_fail=None):
+        self._items = {}
+        self._lock = threading.Lock()
+        self._on_fail = on_fail
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, name="watchdog",
+                                        daemon=True)
+        self._thread.start()
+
+    def add(self, label, budget, alive=None, pid=None):
+        with self._lock:
+            self._items[label] = [time.perf_counter(), budget, alive, pid,
+                                  False]
+
+    def drop(self, label):
+        with self._lock:
+            self._items.pop(label, None)
+
+    def watch(self, label, budget):
+        """A context manager that watches its body as ``label``."""
+        import contextlib
+
+        @contextlib.contextmanager
+        def body():
+            self.add(label, budget)
+            try:
+                yield
+            finally:
+                self.drop(label)
+        return body()
+
+    def close(self):
+        self._stop.set()
+        self._thread.join()
+
+    def dump(self, why):
+        """Every thread's stack, then the task states of this process and
+        of every watched process."""
+        import faulthandler
+
+        with self._lock:
+            pids = [item[3] for item in self._items.values()
+                    if item[3] is not None]
+        sys.stdout.flush()
+        print(f"watchdog: {why}; every thread's stack:", flush=True)
+        faulthandler.dump_traceback(file=sys.stdout, all_threads=True)
+        for pid in (os.getpid(), *pids):
+            print(f"watchdog: tasks of process {pid}:\n"
+                  + "\n".join(_task_states(pid)), flush=True)
+
+    def _loop(self):
+        while not self._stop.wait(1.0):
+            now = time.perf_counter()
+            with self._lock:
+                items = list(self._items.items())
+            for label, item in items:
+                t0, budget, alive, _, shared = item
+                if alive is not None and not alive():
+                    self.drop(label)
+                    continue
+                if now - t0 >= budget:
+                    self.dump(f"{label} overran its budget of {budget} s")
+                    print(f"chip_smoke: {label} still running after "
+                          f"{now - t0:.1f} s, past its budget of {budget} "
+                          f"s", file=sys.stderr, flush=True)
+                    if self._on_fail is not None:
+                        self._on_fail()
+                    os._exit(1)
+                if not shared and now - t0 >= WATCH_SHARE * budget:
+                    item[4] = True
+                    self.dump(f"{label} still running at {now - t0:.1f} s "
+                              f"of its budget of {budget} s")
+
+
+def _die_with_parent():
+    """Have the kernel kill this process when the thread that started it
+    ends (PR_SET_PDEATHSIG), so a side process never outlives a run that
+    ended without stopping it (at the run's time limit, say)."""
+    import signal
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    libc.prctl(1, signal.SIGKILL, 0, 0, 0)  # PR_SET_PDEATHSIG
+
+
 # Work that runs beside the main phases, each in a process of its own on
 # the same card: the Arabic corpus's generation, the kernels' boundary
 # checks (small shapes whose plain versions are bound by the host's
 # launches) and the card-versus-CPU phases (bound by the port's CPU
 # path). Each is joined before any phase that times the card or the host.
-SIDE_TIMEOUT = 900  # seconds from a side process's start to its join
+SIDE_TIMEOUT = 900  # seconds from a side process's start to its exit
 SIDE_CPU_THREADS = 4  # torch and OpenMP threads of the card-vs-CPU process
 # the kernel phase's boundary checks, in the order of its summary line
 BOUNDARY_CHECKS = ("match_units", "tile", "pairing")
@@ -3729,12 +3949,18 @@ CPU_PARITY_PHASES = ("cpu_parity", "single_cpu_parity", "generic_cpu_parity")
 
 class _Side:
     """``chip_smoke.<name>(out_path)`` run with ``python -c`` from the
-    checkout's root, its output in a log. ``join`` echoes the log, raises
-    unless the process exited 0 within SIDE_TIMEOUT seconds of its start,
-    and returns the JSON the process wrote to ``out_path`` with the
-    seconds the caller waited; ``stop`` kills it if it still runs."""
+    checkout's root (through ``_side_main``), its output in a log, watched
+    by ``watchdog`` with SIDE_TIMEOUT as its budget (the watchdog ends the
+    run if it is still running then). ``join`` waits for it, echoes the
+    log, raises unless the process exited 0, and returns the JSON the
+    process wrote to ``out_path`` with the seconds the caller waited;
+    ``stop`` kills it if it still runs."""
 
-    def __init__(self, name, tmp, threads=None):
+    # the process's program, run as ``python -c CODE out_path``
+    CODE = ("import sys, chip_smoke; "
+            "sys.exit(chip_smoke._side_main({name!r}, sys.argv[1]))")
+
+    def __init__(self, name, tmp, watchdog, threads=None):
         self.name = name
         self.out = os.path.join(tmp, name + ".json")
         self.log = open(os.path.join(tmp, name + ".log"), "w+",
@@ -3742,28 +3968,37 @@ class _Side:
         env = dict(os.environ)
         if threads:
             env["OMP_NUM_THREADS"] = str(threads)
-        code = (f"import sys, chip_smoke; "
-                f"sys.exit(chip_smoke.{name}(sys.argv[1]))")
+        code = self.CODE.format(name=name)
         self.t0 = time.perf_counter()
         self.proc = subprocess.Popen(
             [sys.executable, "-c", code, self.out], cwd=ROOT,
             stdout=self.log, stderr=subprocess.STDOUT, env=env)
+        self.watchdog = watchdog
+        watchdog.add(f"side process {name}", SIDE_TIMEOUT,
+                     alive=lambda: self.proc.poll() is None,
+                     pid=self.proc.pid)
 
-    def join(self):
-        t0 = time.perf_counter()
-        try:
-            self.proc.wait(timeout=max(1.0, SIDE_TIMEOUT - (t0 - self.t0)))
-        except subprocess.TimeoutExpired:
-            self.stop()
+    def echo(self):
+        """Print the log and close it: the watchdog's ``on_fail`` and
+        ``join`` may both echo a side, and only the first prints."""
+        if self.log.closed:
+            return
+        self.log.flush()
         self.log.seek(0)
         text = self.log.read()
         self.log.close()
         if text:
             print(text.rstrip("\n"), flush=True)
+
+    def join(self):
+        t0 = time.perf_counter()
+        self.proc.wait()
+        self.watchdog.drop(f"side process {self.name}")
+        self.echo()
         if self.proc.returncode != 0:
             raise RuntimeError(
                 f"{self.name} exited {self.proc.returncode} after "
-                f"{time.perf_counter() - self.t0:.1f} s (limit {SIDE_TIMEOUT})")
+                f"{time.perf_counter() - self.t0:.1f} s")
         with open(self.out, encoding="utf-8") as fh:
             out = json.load(fh)
         out["wait_seconds"] = time.perf_counter() - t0
@@ -3773,6 +4008,38 @@ class _Side:
         if self.proc.poll() is None:
             self.proc.kill()
             self.proc.wait()
+
+
+class _Sides(dict):
+    """The side processes started and not yet joined, by name: each stays
+    here until its join returns, so a watchdog's ``on_fail`` (``stop``
+    with ``echo``) echoes the log of the one being joined too."""
+
+    def join(self, name):
+        try:
+            return self[name].join()
+        finally:
+            del self[name]
+
+    def stop(self, echo=False):
+        for side in list(self.values()):
+            if echo:
+                side.echo()
+            side.stop()
+
+
+def _side_main(name, out_path):
+    """A side process's body: ``name``(out_path) under a watchdog of its
+    own, which prints the side's stacks into its log at WATCH_SHARE of
+    SIDE_TIMEOUT (the main process's watchdog ends the side at the whole
+    budget, before this one would)."""
+    _die_with_parent()
+    watchdog = _Watchdog()
+    try:
+        with watchdog.watch(name, SIDE_TIMEOUT + 60):
+            return globals()[name](out_path)
+    finally:
+        watchdog.close()
 
 
 def _write_json(out_path, obj):
@@ -3868,22 +4135,34 @@ def main():
         return 1
     import tempfile
 
-    sides = {}
+    sides = _Sides()
+    watchdog = _Watchdog(on_fail=lambda: sides.stop(echo=True))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         try:
-            return _run(tmp, sides)
+            return _run(tmp, sides, watchdog)
         finally:
-            for side in sides.values():
-                side.stop()
+            sides.stop()
 
 
-def _run(tmp, sides):
-    """Every phase in order; ``sides`` collects the side processes
-    started, which ``main`` stops if a phase raises."""
+def _run(tmp, sides, watchdog):
+    """Every phase in order, each watched by ``watchdog`` with its budget
+    (PHASE_BUDGETS); ``sides`` (a ``_Sides``) holds the side processes,
+    which ``main`` stops if a phase raises."""
+    import contextlib
+
     from frizbee_tpu_torch import datagen, pack_corpus
     from frizbee_tpu_torch.ops import _build
 
     t_start = time.perf_counter()
+    phases = {}
+
+    @contextlib.contextmanager
+    def phase(name):
+        t0 = time.perf_counter()
+        with watchdog.watch(f"phase {name}", PHASE_BUDGETS[name]):
+            yield
+        phases[name] = time.perf_counter() - t0
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -3893,142 +4172,139 @@ def _run(tmp, sides):
               "cuda": torch.version.cuda}
     # the Arabic corpus generates beside the builds, the byte corpora and
     # the kernel phase
-    sides["unicode"] = _Side("_side_unicode_corpus", tmp)
-    t0 = time.perf_counter()
+    sides["unicode"] = _Side("_side_unicode_corpus", tmp, watchdog)
     # the bisect probe's library (320 kernels, ~77 s of nvcc alone) builds
     # beside everything up to the probes phase, its nvcc started with the
     # others, before the native OpenMP pool exists
     late = {}
     late_build = threading.Thread(
-        target=lambda: late.update(_build.build([LATE_BUILD])))
+        target=lambda: late.update(_build.build([LATE_BUILD])),
+        name="late_build")
     late_build.start()
-    built = _build.build([k for k in _build.SIGNATURES if k != LATE_BUILD])
-    build_s = time.perf_counter() - t0
+    watchdog.add("late build thread", LATE_BUILD_BUDGET,
+                 alive=late_build.is_alive)
+    with phase("build"):
+        built = _build.build([k for k in _build.SIGNATURES
+                              if k != LATE_BUILD])
     detail["build"] = {k: {"seconds": v["seconds"], "ptxas": v["log"]}
                        for k, v in built.items()}
     print(smi, flush=True)
-    print(f"kernel build: {build_s:.1f} s ({len(built)} libraries, "
+    print(f"kernel build: {phases['build']:.1f} s ({len(built)} libraries, "
           f"nvcc in parallel; {LATE_BUILD} building on)", flush=True)
     detail["native_build"] = native_build()
     print("native build: " + json.dumps(detail["native_build"]), flush=True)
     # with the libraries built, the boundary checks and the card-vs-CPU
     # phases start beside the corpora and the kernel phases
-    sides["boundaries"] = _Side("_side_kernel_boundaries", tmp)
-    sides["cpu_parity"] = _Side("_side_cpu_parity", tmp,
+    sides["boundaries"] = _Side("_side_kernel_boundaries", tmp, watchdog)
+    sides["cpu_parity"] = _Side("_side_cpu_parity", tmp, watchdog,
                                 threads=SIDE_CPU_THREADS)
 
-    t0 = time.perf_counter()
-    hay = datagen.partial_match_corpus(median_length=MEDIAN_LEN,
-                                       num_samples=N_ROWS)
-    corpus = pack_corpus(hay)
-    for b in corpus.buckets:
-        b.device_arrays_colstream()
-        b.device_presence_bits()
-        b.device_arrays_ascii()
-    torch.cuda.synchronize()
-    detail["pack_seconds"] = time.perf_counter() - t0
-    detail["buckets"] = [(b.width, b.size) for b in corpus.buckets]
-    print(f"corpus: {len(corpus)} rows, buckets {detail['buckets']}, "
-          f"generated and packed in {detail['pack_seconds']:.1f} s",
-          flush=True)
-    t0 = time.perf_counter()
-    long_hay = _long_corpus(N_ROWS)
-    long_corpus = pack_corpus(long_hay)
-    for b in long_corpus.buckets:
-        b.device_presence_bits()
-        b.device_arrays_ascii()
-    torch.cuda.synchronize()
-    detail["long_pack_seconds"] = time.perf_counter() - t0
-    detail["long_buckets"] = [(b.width, b.size) for b in long_corpus.buckets]
-    print(f"long-needle corpus: {len(long_corpus)} rows, buckets "
-          f"{detail['long_buckets']}, generated and packed in "
-          f"{detail['long_pack_seconds']:.1f} s", flush=True)
+    with phase("corpora"):
+        t0 = time.perf_counter()
+        hay = datagen.partial_match_corpus(median_length=MEDIAN_LEN,
+                                           num_samples=N_ROWS)
+        corpus = pack_corpus(hay)
+        for b in corpus.buckets:
+            b.device_arrays_colstream()
+            b.device_presence_bits()
+            b.device_arrays_ascii()
+        torch.cuda.synchronize()
+        detail["pack_seconds"] = time.perf_counter() - t0
+        detail["buckets"] = [(b.width, b.size) for b in corpus.buckets]
+        print(f"corpus: {len(corpus)} rows, buckets {detail['buckets']}, "
+              f"generated and packed in {detail['pack_seconds']:.1f} s",
+              flush=True)
+        t0 = time.perf_counter()
+        long_hay = _long_corpus(N_ROWS)
+        long_corpus = pack_corpus(long_hay)
+        for b in long_corpus.buckets:
+            b.device_presence_bits()
+            b.device_arrays_ascii()
+        torch.cuda.synchronize()
+        detail["long_pack_seconds"] = time.perf_counter() - t0
+        detail["long_buckets"] = [(b.width, b.size)
+                                  for b in long_corpus.buckets]
+        print(f"long-needle corpus: {len(long_corpus)} rows, buckets "
+              f"{detail['long_buckets']}, generated and packed in "
+              f"{detail['long_pack_seconds']:.1f} s", flush=True)
 
-    phases = {}
-    t0 = time.perf_counter()
-    errs = kernel_phase(corpus, detail,
-                        lambda: sides.pop("boundaries").join())
-    phases["kernel"] = time.perf_counter() - t0
-    # the Arabic corpus, generated beside the builds and the kernel phase
-    got = sides.pop("unicode").join()
-    uhay = got["rows"]
-    detail["unicode_generate_seconds"] = got["seconds"]
-    detail["unicode_generate_wait_seconds"] = got["wait_seconds"]
-    del got
-    t0 = time.perf_counter()
-    ucorpus = pack_corpus(uhay, unicode=True)
-    for b in ucorpus.buckets:
-        b.device_arrays_colstream()
-        b.device_presence_bits()
-        b.device_arrays_units()
-    torch.cuda.synchronize()
-    detail["unicode_pack_seconds"] = time.perf_counter() - t0
-    detail["unicode_buckets"] = [(b.width, b.size) for b in ucorpus.buckets]
-    print(f"unicode corpus (Arabic): {len(ucorpus)} rows, buckets "
-          f"{detail['unicode_buckets']}, generated in "
-          f"{detail['unicode_generate_seconds']:.1f} s beside the builds "
-          f"and the kernel phase "
-          f"(waited {detail['unicode_generate_wait_seconds']:.1f} s), "
-          f"packed in {detail['unicode_pack_seconds']:.1f} s", flush=True)
-    t0 = time.perf_counter()
-    unicode_kernel_phase(ucorpus, errs, detail)
-    phases["kernel_unicode"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    contract_entry = contract_phase(corpus.device, errs, detail)
-    phases["contract"] = time.perf_counter() - t0
+    with phase("kernel"):
+        errs = kernel_phase(corpus, detail,
+                            lambda: sides.join("boundaries"))
+    with phase("unicode_corpus"):
+        # the Arabic corpus, generated beside the builds and the kernel
+        # phase
+        got = sides.join("unicode")
+        uhay = got["rows"]
+        detail["unicode_generate_seconds"] = got["seconds"]
+        detail["unicode_generate_wait_seconds"] = got["wait_seconds"]
+        del got
+        t0 = time.perf_counter()
+        ucorpus = pack_corpus(uhay, unicode=True)
+        for b in ucorpus.buckets:
+            b.device_arrays_colstream()
+            b.device_presence_bits()
+            b.device_arrays_units()
+        torch.cuda.synchronize()
+        detail["unicode_pack_seconds"] = time.perf_counter() - t0
+        detail["unicode_buckets"] = [(b.width, b.size)
+                                     for b in ucorpus.buckets]
+        print(f"unicode corpus (Arabic): {len(ucorpus)} rows, buckets "
+              f"{detail['unicode_buckets']}, generated in "
+              f"{detail['unicode_generate_seconds']:.1f} s beside the "
+              f"builds and the kernel phase "
+              f"(waited {detail['unicode_generate_wait_seconds']:.1f} s), "
+              f"packed in {detail['unicode_pack_seconds']:.1f} s",
+              flush=True)
+    with phase("kernel_unicode"):
+        unicode_kernel_phase(ucorpus, errs, detail)
+    with phase("contract"):
+        contract_entry = contract_phase(corpus.device, errs, detail)
     # the card-vs-CPU phases end before any phase that times
-    t0 = time.perf_counter()
-    got = sides.pop("cpu_parity").join()
-    detail["side_seconds"] = {
-        "cpu_parity": got.pop("phase_seconds"),
-        "boundaries": detail["kernel_boundary_checks"]["seconds"]}
-    detail.update(got)
-    phases["cpu_parity_wait"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    paths = _paths(corpus, long_corpus, ucorpus)
-    serving = serving_phase(paths, detail)
-    phases["serving"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
+    with phase("cpu_parity_wait"):
+        got = sides.join("cpu_parity")
+        detail["side_seconds"] = {
+            "cpu_parity": got.pop("phase_seconds"),
+            "boundaries": detail["kernel_boundary_checks"]["seconds"]}
+        detail.update(got)
+    with phase("serving"):
+        paths = _paths(corpus, long_corpus, ucorpus)
+        serving = serving_phase(paths, detail)
     corpora = {"ascii": corpus, "long": long_corpus, "arabic": ucorpus}
-    single, single_results = single_phase(corpora, hay, serving, detail)
-    phases["single"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    indices_phase(corpora, single_results, serving, detail)
-    del single_results
-    phases["indices"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    gpaths = _generic_paths(corpora, hay)
-    generic_phase(gpaths, serving, detail)
-    phases["generic"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    native_phase(hay, uhay, detail)
-    phases["native"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    pcalls = parallel_phase(corpus, ucorpus, serving, detail)
-    phases["parallel"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    entries = timing_phase(paths, single, gpaths, pcalls, serving, errs,
-                           detail)
-    del pcalls
-    entries.append(contract_entry)
-    phases["timing"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    late_build.join()
-    if LATE_BUILD not in late:
-        raise RuntimeError(f"{LATE_BUILD} did not build")
-    detail["build"][LATE_BUILD] = {
-        "seconds": late[LATE_BUILD]["seconds"],
-        "ptxas": late[LATE_BUILD]["log"]}
-    phases["late_build_wait"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    entries += probes_phase(corpus.device, errs, detail)
-    phases["probes"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    profile_phase("fuzzy", corpus, _queries(Q), detail, host_profile=True)
-    profile_phase("unicode_fuzzy", ucorpus, _unicode_queries(UQ), detail)
-    profile_phase("multi", corpus, _multi_queries(Q), detail)
-    single_profile_phase(corpora, detail)
-    phases["profile"] = time.perf_counter() - t0
+    with phase("single"):
+        single, single_results = single_phase(corpora, hay, serving, detail)
+    with phase("indices"):
+        indices_phase(corpora, single_results, serving, detail)
+        del single_results
+    with phase("generic"):
+        gpaths = _generic_paths(corpora, hay)
+        generic_phase(gpaths, serving, detail)
+    with phase("native"):
+        native_phase(hay, uhay, detail)
+    with phase("parallel"):
+        pcalls = parallel_phase(corpus, ucorpus, serving, detail)
+    with phase("timing"):
+        entries = timing_phase(paths, single, gpaths, pcalls, serving, errs,
+                               detail)
+        del pcalls
+        entries.append(contract_entry)
+    with phase("late_build_wait"):
+        late_build.join()
+        if LATE_BUILD not in late:
+            raise RuntimeError(f"{LATE_BUILD} did not build")
+        detail["build"][LATE_BUILD] = {
+            "seconds": late[LATE_BUILD]["seconds"],
+            "ptxas": late[LATE_BUILD]["log"]}
+    with phase("probes"):
+        entries += probes_phase(corpus.device, errs, detail)
+    with phase("profile"):
+        profile_phase("fuzzy", corpus, _queries(Q), detail,
+                      host_profile=True)
+        profile_phase("unicode_fuzzy", ucorpus, _unicode_queries(UQ),
+                      detail)
+        profile_phase("multi", corpus, _multi_queries(Q), detail)
+        single_profile_phase(corpora, detail)
+    watchdog.close()
     detail["phase_seconds"] = phases
     detail["total_seconds"] = time.perf_counter() - t_start
     detail["kernels"] = entries

@@ -11,11 +11,14 @@ lanes) and the op-lowering half of ``benchmarks/probe_colstream_int16.py``
 (which 16-bit vector operations a target lowers). The reference's
 cross-lane primitives (``_shift_right``, ``_cumsum_lanes``,
 ``_cummax_lanes``, ``_gather_lane``, ``_rmin``/``_rmax`` and
-``_unit_context``'s byte offsets) become the serial walk a thread makes
-along its row: the kernel walks rows of 128 lanes in int32 and int16
-arithmetic, and the model computes the same quantities with the port's
-row helpers (``ops/kernels.py``), which tests/test_torch_lane_contract.py
-holds against the reference's primitives on the CPU.
+``_unit_context``'s byte offsets) become a warp's walk along a row of
+128 lanes, four lanes a thread, in int32 and int16 arithmetic: shuffles
+for the shift and the gather, a serial walk over a thread's four lanes
+and a shuffle scan over the warp for the prefix sums and the running
+maximum, warp reductions for the minimum and maximum. The model computes
+the same quantities with the port's row helpers (``ops/kernels.py``),
+which tests/test_torch_lane_contract.py holds against the reference's
+primitives on the CPU.
 
 :func:`contract_inputs` makes the inputs from a seed: every byte and a
 boundary set of codepoints, every (first, last) byte pair, serving keys
@@ -78,10 +81,11 @@ def contract_inputs(seed: int = 0, device="cpu", n_random: int = 4096,
     (x, y) byte pair; random keys with end columns past the 14-bit field,
     scores at 0 and 0xFFFF, index widths 1-31 and padding indices; words
     whose low halves run over every pair of INT16_EDGES and random words,
-    with unit indices 0-63; rows of values in [-100, 30000) and at the
-    int16 edges, summands 0-4 and units (ASCII and multi-byte codepoints),
-    each with a (distance, fill) of SHIFTS, a gather lane, a unit count
-    in 0..128 (0 and 128 among them) and a codepoint flag."""
+    with unit indices 0-63; ``n_rows`` rows of values in [-100, 30000)
+    and at the int16 edges, summands 0-4 and units (ASCII and multi-byte
+    codepoints), each with a (distance, fill) of SHIFTS, a gather lane, a
+    unit count in 0..128 (0 and 128 the first two rows') and a codepoint
+    flag."""
     rng = np.random.default_rng(seed)
     units = np.concatenate([
         np.arange(256), np.array(CODEPOINT_EDGES),
@@ -129,7 +133,8 @@ def contract_inputs(seed: int = 0, device="cpu", n_random: int = 4096,
                      rng.choice(pool, (R, L))], 1)
     shift = np.array(SHIFTS)[np.arange(R) % len(SHIFTS)]
     nu = rng.integers(0, L + 1, R)
-    nu[:2] = (0, L)
+    if R >= 2:
+        nu[:2] = (0, L)
     row_args = np.stack([shift[:, 0], shift[:, 1], rng.integers(0, L, R), nu,
                          np.arange(R) // 2 % 2], 1)
 
@@ -299,6 +304,9 @@ def lane_contract(units, pairs, keys, words, rows, row_args, scoring):
         ("rows", rows, torch.int32, (R, ROW_IN, ROW_LANES)),
         ("row_args", row_args, torch.int32, (R, ROW_ARGS)),
     ))
+    if rows.data_ptr() % 16:
+        raise ValueError("rows: the kernel reads it in 16-byte words; want "
+                         "a 16-byte aligned address")
     units_out = torch.empty((N, UNIT_OUT), dtype=torch.int32, device=dev)
     pairs_out = torch.empty((P, PAIR_OUT), dtype=torch.int32, device=dev)
     keys_out = torch.empty((K,), dtype=torch.int64, device=dev)
