@@ -1,0 +1,22 @@
+"""Device time by kind of operation, from the traced window."""
+
+# the port's hand-written serving kernels (frizbee_tpu_torch/csrc), by
+# the name the profiler gives their launches
+HAND_KERNELS = ("colstream_fuzzy_kernel", "colstream_fuzzy_pairs_kernel",
+                "colstream_literal_kernel", "match_units_kernel",
+                "row_gather_kernel")
+
+
+def is_hand_kernel(name: str) -> bool:
+    return any(k in name for k in HAND_KERNELS)
+
+
+def device_ms_per_batch(run, hand: bool):
+    """Device ms a served batch in the hand kernels (``hand``) or in all
+    other device work, over the traced window."""
+    if run.trace is None or not run.served:
+        return None
+    w0, w1 = run.trace.window()
+    total = sum(min(b, w1) - max(a, w0) for name, a, b in run.trace.device
+                if b > w0 and a < w1 and is_hand_kernel(name) == hand)
+    return total / 1e6 / len(run.served)
