@@ -1834,7 +1834,7 @@ def native_phase(hay, uhay, detail):
 
 
 PARALLEL_SHARDS = 4
-PARALLEL_TIMED = 3  # profiling.device_time iterations a batch and mesh
+PARALLEL_TIMED = 3  # profiling.wall_time iterations a batch and mesh
 PARALLEL_GREEDY_BASE = 20_000  # (c): partial-match rows before the greedy
 PARALLEL_GREEDY_ROWS = 256  # and XL rows
 PARALLEL_XL_ROWS = 64
@@ -1909,7 +1909,7 @@ def _gloo_rank(rank, world, init, rows):
         for a, b in zip(got, want):
             assert np.array_equal(a, b[:TOP_K]), f"gloo rank {rank} corpus"
         out["corpus_rows_returned"] = len(got[0])
-        out["fuzzy_batch_ms"] = 1e3 * profiling.device_time(
+        out["fuzzy_batch_ms"] = 1e3 * profiling.wall_time(
             match_topk_batch_sharded, queries, corpus, mesh, cfg, k=TOP_K,
             iters=PARALLEL_TIMED)
         print("PARALLEL_GLOO_OK " + json.dumps(out), flush=True)
@@ -1966,7 +1966,7 @@ def parallel_phase(corpus, ucorpus, serving, detail):
         card), k=TOP_K, equal to ``match_topk_batch`` on the same corpus,
         for the Q=32 fuzzy batch, the Q=8 full-syntax batch, the four
         sort strategies at Q=2 and the Q=16 Arabic fuzzy batch; each
-        timed with ``profiling.device_time`` beside single-device;
+        timed with ``profiling.wall_time`` beside single-device;
     (b) ``match_corpus_sharded`` at 4 shards, fuzzy T=0 and T=1, equal to
         the first k of ``Matcher.match_arrays``;
     (c) PARALLEL_GREEDY_BASE partial-match rows, PARALLEL_GREEDY_ROWS
@@ -2019,8 +2019,8 @@ def parallel_phase(corpus, ucorpus, serving, detail):
         return out
 
     def ms(fn, *args, **kw):
-        return 1e3 * profiling.device_time(fn, *args, iters=PARALLEL_TIMED,
-                                           **kw)
+        return 1e3 * profiling.wall_time(fn, *args, iters=PARALLEL_TIMED,
+                                         **kw)
 
     out = {"shards": PARALLEL_SHARDS, "top_k": TOP_K, "batches": {}}
     meshes = {"1": make_mesh(1),

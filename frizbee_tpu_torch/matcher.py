@@ -47,6 +47,7 @@ does. ``use_device=False`` is the reference's host oracle.
 
 from __future__ import annotations
 
+import itertools
 import weakref
 from itertools import islice
 from typing import Iterable, Iterator, List, Optional, Sequence, Union
@@ -68,6 +69,7 @@ from .ops.colstream import FUZZY_MODE
 from .ops.fuzzy import SCORING_FIELDS
 from .ops.kernels import MAX_KERNEL_NEEDLE, MAX_KERNEL_TYPOS
 from .pattern import Pattern
+from .profiling import annotate
 from .sort import (
     k_merge_matches_by_index_asc,
     k_merge_matches_by_index_desc,
@@ -88,6 +90,18 @@ Q1_WINDOW_MIN = 65536
 # full split is not worth its extra work (module constant so tests can
 # force the split on small corpora)
 MIXED_FINALIZE_MIN_GROUPS = 512
+
+# Batched serving's counts (host integer adds, as ops/batch.py's route
+# dicts): batches and their queries, device passes (one a shape group),
+# the (group, query) pairs the finalize-cap chooser found alive among all
+# it counted (every pair is alive where no pattern's stage 1 narrows the
+# groups), and queries the per-query path served instead of a batch
+SERVING_COUNTS = {"batches": 0, "queries": 0, "groups": 0,
+                  "alive_pairs": 0, "cap_pairs": 0, "fallback_queries": 0}
+
+# serial numbers of match_topk_batch_async's batches, carried by each of
+# a batch's spans (profiling.annotate)
+_BATCH_SERIALS = itertools.count(1)
 
 
 class _CompiledPattern:
@@ -390,16 +404,7 @@ class Matcher:
             )[0]
         # only the head (count + the first fetch_rows rows) crosses to the
         # host; the rest of the window stays on the device
-        head = out[: 1 + min(self.fetch_rows, len(corpus))]
-        if out.is_cuda:
-            # the caching host allocator keeps the pinned block until the
-            # copy recorded on it completes, even if the handle is dropped
-            host = torch.empty(head.shape, dtype=head.dtype, pin_memory=True)
-            host.copy_(head, non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record(torch.cuda.current_stream(out.device))
-        else:
-            host, ready = head, None
+        host, ready = _copy_back(out[: 1 + min(self.fetch_rows, len(corpus))])
         return corpus, out, host, ready
 
     def _fused_collect(self, pending) -> tuple:
@@ -407,8 +412,7 @@ class Matcher:
         # one copy covers the count + the first fetch_rows matches; a
         # second copy only happens for very large result sets
         k = min(self.fetch_rows, len(corpus))
-        if ready is not None:
-            ready.synchronize()
+        _wait(ready)
         head = host.numpy()
         count = int(head[0, 0])
         if count > out.shape[0] - 1:
@@ -1036,6 +1040,12 @@ def _colstream_blocks_and_cap(corpus, statics, lens, needles_np, fetch_rows,
         if _pattern_s1_contributes(st, ln):
             t = 0 if st[4] != FUZZY_MODE else min(st[0], ln)
             entries.append((nd, t))
+    if not entries:
+        # no stage 1 narrows the groups: every (group, query) pair is alive
+        pairs = needles_np[0].shape[0] * sum(
+            b.host_blk_bits().shape[0] for b in corpus.buckets)
+        SERVING_COUNTS["alive_pairs"] += pairs
+        SERVING_COUNTS["cap_pairs"] += pairs
     res = _colstream_finalize_cap(corpus, entries, fetch_rows)
     if res is None:
         return True, None, None
@@ -1074,6 +1084,8 @@ def _colstream_finalize_cap(corpus, pattern_needles, fetch_rows):
             alive_tot += mask.sum(axis=0)
         else:  # a wider bucket counts as all alive, as the reference's
             alive_tot += n_g
+    SERVING_COUNTS["alive_pairs"] += int(alive_tot.sum())
+    SERVING_COUNTS["cap_pairs"] += n_gtot * Q
     min_blocks = min(-(-fetch_rows // GROUP_ROWS) + 1, n_gtot)
     if min_blocks >= -(-n_gtot // 2):
         return None
@@ -1098,6 +1110,7 @@ def _dispatch_batch_groups(
     corpus: Corpus,
     config: Config,
     fetch_rows: int,
+    serial: Optional[int] = None,
 ):
     """Group shape-uniform queries (same pattern count, per-pattern
     statics and needle lengths) and enqueue one batched device pass per
@@ -1105,22 +1118,27 @@ def _dispatch_batch_groups(
     Returns one (host_rows, ready_event, members) entry per group. Queries
     no group takes (empty, not fused-supported, or of a unit mode other
     than the corpus's) are in no entry: ``_collect_batch_groups`` leaves
-    them None for the per-query path."""
+    them None for the per-query path. ``serial`` numbers the batch's
+    spans."""
     groups = {}
     prepared = {}
-    for i, m in enumerate(matchers):
-        if not m._fused_supported():
-            continue
-        if m._compiled[0].engine.unicode != corpus.unicode:
-            # the needle's unit mode (reference: src/matcher/mod.rs
-            # respects_unicode) differs from the corpus packing: the
-            # per-query path repacks
-            continue
-        bits8, statics, use_kernel = m._fused_device_args(corpus)
-        hosts = tuple(cp.engine._host_needle() for cp in m._compiled)
-        lens = tuple(h[0].shape[0] for h in hosts)
-        groups.setdefault((statics, lens, use_kernel), []).append(i)
-        prepared[i] = (bits8, hosts)
+    with annotate("frizbee.group", serial):
+        for i, m in enumerate(matchers):
+            if not m._fused_supported():
+                continue
+            if m._compiled[0].engine.unicode != corpus.unicode:
+                # the needle's unit mode (reference: src/matcher/mod.rs
+                # respects_unicode) differs from the corpus packing: the
+                # per-query path repacks
+                continue
+            bits8, statics, use_kernel = m._fused_device_args(corpus)
+            hosts = tuple(cp.engine._host_needle() for cp in m._compiled)
+            lens = tuple(h[0].shape[0] for h in hosts)
+            groups.setdefault((statics, lens, use_kernel), []).append(i)
+            prepared[i] = (bits8, hosts)
+    SERVING_COUNTS["batches"] += 1
+    SERVING_COUNTS["queries"] += len(matchers)
+    SERVING_COUNTS["groups"] += len(groups)
 
     pending = []
     for (statics, lens, use_kernel), members in groups.items():
@@ -1128,76 +1146,97 @@ def _dispatch_batch_groups(
         n_pat = len(statics)
         fin_cap = None
         if use_kernel and config.sort.is_by_score:
-            needles_np = [
-                np.stack([np.concatenate(prepared[i][1][p][:2])
-                          for i in members])
-                for p in range(n_pat)
-            ]
-            _cs, fin_cap, perm = _colstream_blocks_and_cap(
-                corpus, statics, list(lens), needles_np,
-                min(fetch_rows, len(corpus)),
-                single=(n_pat == 1 and not statics[0][2]),
-            )
+            with annotate("frizbee.cap", serial):
+                needles_np = [
+                    np.stack([np.concatenate(prepared[i][1][p][:2])
+                              for i in members])
+                    for p in range(n_pat)
+                ]
+                _cs, fin_cap, perm = _colstream_blocks_and_cap(
+                    corpus, statics, list(lens), needles_np,
+                    min(fetch_rows, len(corpus)),
+                    single=(n_pat == 1 and not statics[0][2]),
+                )
             if perm is not None:
                 # mixed finalize: selective queries first; members follow
                 members = [members[j] for j in perm]
-        stacked = tuple(
-            tuple(
-                torch.from_numpy(
-                    np.stack([prepared[i][1][p][a] for i in members])
-                ).to(corpus.device)
-                for a in range(3)
+        with annotate("frizbee.upload", serial):
+            stacked = tuple(
+                tuple(
+                    torch.from_numpy(
+                        np.stack([prepared[i][1][p][a] for i in members])
+                    ).to(corpus.device)
+                    for a in range(3)
+                )
+                for p in range(n_pat)
             )
-            for p in range(n_pat)
-        )
-        out = fused_match_sorted_batch(
-            bits8,
-            stacked,
-            n=len(corpus),
-            pattern_statics=statics,
-            fetch_rows=min(fetch_rows, len(corpus)),
-            buckets=corpus.buckets,
-            finalize_cap=fin_cap,
-            sort_by_score=config.sort.is_by_score,
-            use_kernel=use_kernel,
-        )
-        if out.is_cuda:
-            host_rows = torch.empty(out.shape, dtype=out.dtype,
-                                    pin_memory=True)
-            host_rows.copy_(out, non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record(torch.cuda.current_stream(out.device))
-        else:
-            host_rows, ready = out, None
+        with annotate("frizbee.enqueue", serial):
+            out = fused_match_sorted_batch(
+                bits8,
+                stacked,
+                n=len(corpus),
+                pattern_statics=statics,
+                fetch_rows=min(fetch_rows, len(corpus)),
+                buckets=corpus.buckets,
+                finalize_cap=fin_cap,
+                sort_by_score=config.sort.is_by_score,
+                use_kernel=use_kernel,
+            )
+        host_rows, ready = _copy_back(out, serial)
         pending.append((host_rows, ready, members))
     return pending
 
 
-def _collect_batch_groups(pending, n_queries) -> List[Optional[tuple]]:
+def _copy_back(out, serial=None):
+    """(host tensor, ready event or None): ``out``'s copy to the host,
+    started behind the device work on a card (pinned, non-blocking, an
+    event recorded after it), ``out`` itself on the CPU."""
+    if not out.is_cuda:
+        return out, None
+    with annotate("frizbee.copy_back", serial):
+        # the caching host allocator keeps the pinned block until the
+        # copy recorded on it completes, even if the handle is dropped
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        host.copy_(out, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(out.device))
+    return host, ready
+
+
+def _wait(ready, serial=None) -> None:
+    """Block until a copy ``_copy_back`` started has landed."""
+    if ready is not None:
+        with annotate("frizbee.wait", serial):
+            ready.synchronize()
+
+
+def _collect_batch_groups(pending, n_queries,
+                          serial=None) -> List[Optional[tuple]]:
     """Wait for each group's copy, then decode per-query (count, index,
     score, exact, end_col, greedy) rows; None for queries no group
     took."""
     results: List[Optional[tuple]] = [None] * n_queries
     for host_rows, ready, members in pending:
-        if ready is not None:
-            ready.synchronize()
-        all_rows = host_rows.numpy()
-        for qi, i in enumerate(members):
-            block = all_rows[qi]
-            count = int(block[0, 0])
-            rows = block[1 : 1 + min(count, block.shape[0] - 1)]
-            results[i] = (count,) + Matcher._decode_rows(rows)
+        _wait(ready, serial)
+        with annotate("frizbee.decode", serial):
+            all_rows = host_rows.numpy()
+            for qi, i in enumerate(members):
+                block = all_rows[qi]
+                count = int(block[0, 0])
+                rows = block[1 : 1 + min(count, block.shape[0] - 1)]
+                results[i] = (count,) + Matcher._decode_rows(rows)
     return results
 
 
-def _resolve_batch(queries, corpus, config, **pack_kw):
+def _resolve_batch(queries, corpus, config, serial=None, **pack_kw):
     """(matchers, Corpus) of a batch: each query compiled, and a corpus
     given as strings packed (``pack_kw`` to ``pack_corpus``, e.g. the
     device)."""
-    matchers = [
-        q if isinstance(q, Matcher) else Matcher.from_query(q, config)
-        for q in queries
-    ]
+    with annotate("frizbee.compile", serial):
+        matchers = [
+            q if isinstance(q, Matcher) else Matcher.from_query(q, config)
+            for q in queries
+        ]
     if not isinstance(corpus, Corpus):
         # codepoint units when any needle respects unicode
         unicode = any(cp.engine.unicode for m in matchers
@@ -1263,6 +1302,7 @@ def match_arrays_batch(
         )
     for i in range(len(queries)):
         if results[i] is None:
+            SERVING_COUNTS["fallback_queries"] += 1
             results[i] = matchers[i].match_arrays(corpus)
     return results
 
@@ -1277,6 +1317,7 @@ def _finalize_topk(matchers, corpus, raw, k) -> List[tuple]:
         if r is not None and r[0] > len(r[1]) and corpus.greedy_risk():
             r = None
         if r is None:
+            SERVING_COUNTS["fallback_queries"] += 1
             index, score, exact, end_col = matchers[i].match_arrays(corpus)
             results[i] = (
                 len(index), index[:k], score[:k], exact[:k], end_col[:k]
@@ -1297,22 +1338,27 @@ def _finalize_topk(matchers, corpus, raw, k) -> List[tuple]:
 class BatchFuture:
     """An in-flight ``match_topk_batch_async`` result: the device work and
     the device->host copy proceed while the caller does other work,
-    typically dispatching the next batch."""
+    typically dispatching the next batch. ``serial`` is the batch's
+    number, carried by its spans."""
 
-    def __init__(self, matchers, corpus, k, pending):
+    def __init__(self, matchers, corpus, k, pending, serial):
         self._matchers = matchers
         self._corpus = corpus
         self._k = k
         self._pending = pending
         self._result = None
+        self.serial = serial
 
     def result(self) -> List[tuple]:
         """Block until ready; same return shape as ``match_topk_batch``."""
         if self._result is None:
-            raw = _collect_batch_groups(self._pending, len(self._matchers))
-            self._result = _finalize_topk(
-                self._matchers, self._corpus, raw, self._k
-            )
+            with annotate("frizbee.result", self.serial):
+                raw = _collect_batch_groups(
+                    self._pending, len(self._matchers), self.serial)
+                with annotate("frizbee.fixups", self.serial):
+                    self._result = _finalize_topk(
+                        self._matchers, self._corpus, raw, self._k
+                    )
             self._pending = None
         return self._result
 
@@ -1332,9 +1378,11 @@ def match_topk_batch_async(
             if len(futures) >= DEPTH:
                 consume(futures.popleft().result())
     """
-    config = config or Config()
-    matchers, corpus = _resolve_batch(queries, corpus, config)
-    pending = _dispatch_batch_groups(
-        matchers, corpus, config, min(k, len(corpus))
-    )
-    return BatchFuture(matchers, corpus, k, pending)
+    serial = next(_BATCH_SERIALS)
+    with annotate("frizbee.dispatch", serial):
+        config = config or Config()
+        matchers, corpus = _resolve_batch(queries, corpus, config, serial)
+        pending = _dispatch_batch_groups(
+            matchers, corpus, config, min(k, len(corpus)), serial
+        )
+        return BatchFuture(matchers, corpus, k, pending, serial)

@@ -3,9 +3,35 @@
 Counterpart of ``frizbee_tpu/profiling.py`` on ``torch.profiler``:
 ``trace`` writes a Chrome trace of the enclosed block (host operations,
 and the card's kernels and copies where there is a card) to a standard
-place, ``annotate`` names a region of it, and ``device_time`` is the
+place, ``annotate`` names a region of it, and ``wall_time`` is the
 host-clock median of blocking calls. ``probes.device_ms`` is the other
 clock: CUDA events around queued launches, the device's own time.
+
+The batched serving path (``matcher.py``) carries its own spans, one set
+a batch, each name followed by ``#<batch serial>``:
+
+- ``frizbee.dispatch``, all of ``match_topk_batch_async``, holding
+  ``frizbee.compile`` (the queries' Matcher builds), ``frizbee.group``
+  (grouping by shape) and, a shape group each, ``frizbee.cap`` (the
+  finalize-cap chooser), ``frizbee.upload`` (the needles to the card),
+  ``frizbee.enqueue`` (the device pass) and ``frizbee.copy_back`` (the
+  pinned copy of the result started);
+- ``frizbee.result``, all of ``BatchFuture.result()``, holding
+  ``frizbee.wait`` (a shape group's copy awaited), ``frizbee.decode``
+  (its rows decoded) and ``frizbee.fixups`` (the host fixups and any
+  per-query fallback).
+
+They cost a check of the profiler's state and nothing else while no
+profiler records. An operator gets them with the card's work beside them
+by serving inside ``trace``::
+
+    with profiling.trace("serve"):
+        for batch in batches:
+            match_topk_batch_async(batch, corpus).result()
+
+and opens the written file in Perfetto (https://ui.perfetto.dev).
+``matcher.SERVING_COUNTS`` counts the same path's batches, queries,
+device passes, stage-1 alive pairs and per-query fallbacks.
 """
 
 from __future__ import annotations
@@ -17,6 +43,11 @@ import time
 from typing import Iterator, Optional
 
 import torch
+from torch._C._profiler import _RecordFunctionFast
+
+# what annotate returns while no profiler records: entered and left
+# again by every span, it holds no state
+_NO_SPAN = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -46,11 +77,26 @@ def trace(name: str = "frizbee",
     print(f"[frizbee-tpu] trace written to {path}")
 
 
+def annotate(name: str, serial: Optional[int] = None):
+    """Named region inside a trace, ``<name>#<serial>`` where a serial is
+    given. While a profiler records it is a ``RecordFunction`` range on
+    the profiler's clock, which the card's events share, and an NVTX
+    range on the card; otherwise a shared no-op context (a check of the
+    profiler's state, nothing entered or allocated). The range is of
+    the function scope, as an operator's: a user-scope range would also
+    leave a copy on the card's timeline, spanning the device work
+    launched inside it, which a reader of device events would count as
+    busy time."""
+    if not torch.autograd._profiler_enabled():
+        return _NO_SPAN
+    if serial is not None:
+        name = f"{name}#{serial}"
+    return _recorded(name)
+
+
 @contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """Named region inside a trace (a ``record_function`` span, and an
-    NVTX range on the card)."""
-    with torch.profiler.record_function(name):
+def _recorded(name: str) -> Iterator[None]:
+    with _RecordFunctionFast(name):
         if torch.cuda.is_available():
             with torch.cuda.nvtx.range(name):
                 yield
@@ -73,7 +119,7 @@ def _sync_result(out, seen=None) -> None:
             _sync_result(x, seen)
 
 
-def device_time(fn, *args, iters: int = 10, **kwargs) -> float:
+def wall_time(fn, *args, iters: int = 10, **kwargs) -> float:
     """Median wall seconds per call of ``fn``, after one warm-up call.
     Each call waits for the devices of the tensors it returns, so this is
     a host clock around blocking calls (launch and host time included);

@@ -1,6 +1,6 @@
 """The port's profiling helpers (``frizbee_tpu_torch/profiling.py``) on
 the CPU: ``trace`` writes one Chrome trace holding an ``annotate`` span,
-``device_time`` is the median of ``iters`` blocking calls after one
+``wall_time`` is the median of ``iters`` blocking calls after one
 warm-up, and the module imports no JAX and nothing of ``frizbee_tpu``
 (a fresh process)."""
 
@@ -45,10 +45,10 @@ def test_device_time_median_of_blocking_calls():
         calls.append(scale)
         return (x * scale, [x + 1], {"y": x})
 
-    t = profiling.device_time(fn, torch.arange(8), iters=5, scale=3)
+    t = profiling.wall_time(fn, torch.arange(8), iters=5, scale=3)
     assert len(calls) == 6 and set(calls) == {3}
     assert t > 0
-    assert profiling.device_time(lambda: None, iters=1) > 0
+    assert profiling.wall_time(lambda: None, iters=1) > 0
 
 
 def test_profiling_imports_no_jax():
