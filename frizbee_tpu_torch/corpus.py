@@ -43,6 +43,9 @@ LANE_BUCKETS: Tuple[int, ...] = DEFAULT_BUCKETS
 # block layout matches frizbee_tpu's element for element.
 SUBL = 8
 GROUP_ROWS = SUBL * 128
+# The widest bucket whose groups the finalize-cap chooser counts (the
+# column-stream kernels' limit); a wider one counts as all alive.
+CAP_COUNT_MAX_WIDTH = 1024
 
 
 def resolve_device(device=None) -> torch.device:
@@ -359,16 +362,33 @@ class PackedBucket:
             torch.from_numpy(blk_bits).to(dev),
             None if ctxt is None else torch.from_numpy(ctxt).to(dev),
         )
-        # host copy: the dispatcher picks the static result-sort capacity
-        # from per-group alive counts before the batch runs
-        self._blk_bits_np = blk_bits
+        self._keep_host_planes(blk_bits)
         return self._device_colstream
+
+    def _keep_host_planes(self, blk_bits: np.ndarray) -> None:
+        """Keep the host copies of the group presence planes: the
+        dispatcher picks the static result-sort capacity from per-group
+        alive counts before the batch runs. The int8 planes, and for a
+        bucket the chooser counts a C-contiguous float32 copy (~1.5 KB a
+        group) that its ``sgemm`` reads as it is."""
+        self._blk_bits_np = blk_bits
+        self._blk_planes_f32 = (
+            np.ascontiguousarray(blk_bits, dtype=np.float32)
+            if self.width <= CAP_COUNT_MAX_WIDTH else None)
 
     def host_blk_bits(self) -> np.ndarray:
         """NumPy copy of the colstream group presence planes."""
         if not hasattr(self, "_blk_bits_np"):
             self.device_arrays_colstream()
         return self._blk_bits_np
+
+    def host_blk_planes(self) -> Optional[np.ndarray]:
+        """Float32 copy of :meth:`host_blk_bits` (cached), the cap
+        chooser's operand; None for a bucket wider than
+        ``CAP_COUNT_MAX_WIDTH``, which it counts as all alive."""
+        if not hasattr(self, "_blk_planes_f32"):
+            self.device_arrays_colstream()
+        return self._blk_planes_f32
 
 
 @dataclass

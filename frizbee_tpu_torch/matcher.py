@@ -1055,8 +1055,8 @@ def _colstream_blocks_and_cap(corpus, statics, lens, needles_np, fetch_rows,
 
 def _colstream_finalize_cap(corpus, pattern_needles, fetch_rows):
     """Static capped-sort group budget, chosen on the host from the
-    corpus's NumPy group presence planes x each pattern's need matrix
-    (the exact math of the device flags, so the cap is sound).
+    corpus's group presence planes x each pattern's need matrix (the
+    exact math of the device flags, so the cap is sound).
     ``pattern_needles`` is a list of (needles_np (Q, 2n), typos) pairs.
     Returns None (no capped tier) or ``(cap_blocks, n_sel, perm)``: the
     smallest of {1/4, 1/2} of the group count that every query's alive
@@ -1067,23 +1067,30 @@ def _colstream_finalize_cap(corpus, pattern_needles, fetch_rows):
 
     if not pattern_needles:
         return None
-    needs = [
-        (needle_need_matrix_np(nd), t) for nd, t in pattern_needles
-    ]
     Q = pattern_needles[0][0].shape[0]
+    n_pat = len(pattern_needles)
+    # every pattern's need columns side by side, (PLANES*128, P*Q) float32:
+    # one product a bucket
+    needs, floors = [], []
+    for nd, typos in pattern_needles:
+        need, tot = needle_need_matrix_np(nd)
+        needs.append(need)
+        floors.append(tot - typos)
+    need = np.concatenate(needs, axis=1).astype(np.float32)
+    floor = np.concatenate(floors)
     alive_tot = np.zeros(Q, np.int64)
     n_gtot = 0
     for b in corpus.buckets:
-        blk = b.host_blk_bits().astype(np.int32)  # (nG, PLANES*128)
-        n_g = blk.shape[0]
+        planes = b.host_blk_planes()  # (nG, PLANES*128) float32 or None
+        n_g = b.host_blk_bits().shape[0]
         n_gtot += n_g
-        if b.width <= 1024:  # colstream-served: real flags
-            mask = np.ones((n_g, Q), bool)
-            for (need, tot), typos in needs:
-                mask &= (blk @ need) >= (tot - typos)[None, :]
-            alive_tot += mask.sum(axis=0)
-        else:  # a wider bucket counts as all alive, as the reference's
+        if planes is None:
+            # a wider bucket counts as all alive, as the reference's
             alive_tot += n_g
+            continue
+        # float32 sums of 0/1 products are integers <= PLANES*128: exact
+        alive = (planes @ need >= floor).reshape(n_g, n_pat, Q).all(axis=1)
+        alive_tot += alive.sum(axis=0)
     SERVING_COUNTS["alive_pairs"] += int(alive_tot.sum())
     SERVING_COUNTS["cap_pairs"] += n_gtot * Q
     min_blocks = min(-(-fetch_rows // GROUP_ROWS) + 1, n_gtot)
@@ -1163,9 +1170,10 @@ def _dispatch_batch_groups(
         with annotate("frizbee.upload", serial):
             stacked = tuple(
                 tuple(
-                    torch.from_numpy(
-                        np.stack([prepared[i][1][p][a] for i in members])
-                    ).to(corpus.device)
+                    _upload(
+                        np.stack([prepared[i][1][p][a] for i in members]),
+                        corpus.device,
+                    )
                     for a in range(3)
                 )
                 for p in range(n_pat)
@@ -1185,6 +1193,18 @@ def _dispatch_batch_groups(
         host_rows, ready = _copy_back(out, serial)
         pending.append((host_rows, ready, members))
     return pending
+
+
+def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """``a`` on ``device``; to a card through a pinned copy, non-blocking:
+    a copy from pageable memory synchronizes the stream, so the host
+    would wait there for every batch already queued on the card."""
+    t = torch.from_numpy(a)
+    if device.type != "cuda":
+        return t.to(device)
+    # the caching host allocator keeps the pinned block until the copy
+    # recorded on it completes
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def _copy_back(out, serial=None):

@@ -53,19 +53,15 @@ def needle_need_matrix_np(needles_q: np.ndarray) -> tuple:
     needles_q = np.asarray(needles_q)
     Q, n2 = needles_q.shape
     n = n2 // 2
-    ob = needles_q[:, :n].copy()
-    fb = needles_q[:, n:].copy()
 
     def fold(v):
         upper = (v >= 0x41) & (v <= 0x5A)
         return np.where(upper, v + 0x20, v) & 127
 
-    ob, fb = fold(ob), fold(fb)
-    eq = ob == fb
-    counts = np.zeros((Q, 128), np.int32)
-    for q in range(Q):
-        vals = ob[q][eq[q]]
-        counts[q] = np.bincount(vals, minlength=128)[:128]
+    ob, fb = fold(needles_q[:, :n]), fold(needles_q[:, n:])
+    # one bincount over every query's needed fold-bits, offset q*128
+    keys = (np.arange(Q)[:, None] * 128 + ob)[ob == fb]
+    counts = np.bincount(keys, minlength=Q * 128).reshape(Q, 128)
     planes = [(counts > k).astype(np.int8) for k in range(PLANES)]
     need_q = np.concatenate(planes, axis=1)  # (Q, PLANES*128)
     tot = need_q.astype(np.int32).sum(axis=1)
