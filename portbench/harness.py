@@ -14,6 +14,12 @@ a corpus packed once (``pack_corpus``) answers batches of queries through
 closed loop that keeps ``depth`` batches in flight, cycling through the
 traffic's fixed set of batches; it stops dispatching once ``seconds``
 have passed and ends when the last batch in flight has answered.
+
+A workload on more than one chip serves through the single-controller
+mesh instead: ``parallel.make_mesh(chips)`` puts one shard of the corpus
+on each card, and every batch is one synchronous
+``parallel.match_topk_batch_sharded`` call, so one batch is in flight
+whatever the mix's ``depth``.
 """
 
 from __future__ import annotations
@@ -90,6 +96,10 @@ class Cell:
         mix.update(overrides.get("mix", {}))
         return cls(name, spec, wl, config, mix)
 
+    @property
+    def chips(self) -> int:
+        return int(self.workload["chips"])
+
     def metrics(self, trace: bool) -> List[dict]:
         """The metrics this cell reports in a run (end-to-end, or
         per-layer with ``trace``)."""
@@ -110,7 +120,9 @@ class Run:
     # per served batch: (batch index, submit time, dispatch seconds,
     # latency seconds)
     served: List[tuple] = field(default_factory=list)
+    # the fullest card's peak, and each card's
     peak_bytes: int = 0
+    card_peaks: List[int] = field(default_factory=list)
     trace: Optional[Trace] = None
     ref_corpus: object = None
     counters: Dict[str, dict] = field(default_factory=dict)
@@ -173,15 +185,33 @@ def port_config(fields: dict):
     return Config(**fields)
 
 
+class Done:
+    """An answered batch in the place of a ``BatchFuture``: ``result()``
+    hands back the answers, or raises what the call raised."""
+
+    def __init__(self, call: Callable):
+        try:
+            self._answers, self._error = call(), None
+        except Exception as exc:  # a batch that raises has failed
+            self._answers, self._error = None, exc
+
+    def result(self):
+        if self._error is not None:
+            raise self._error
+        return self._answers
+
+
 class Session:
     """A cell set up in this process: the packed corpus and the traffic,
-    warmed up; windows can then be served."""
+    warmed up; windows can then be served. On more than one chip the
+    corpus, packed on the first card, is served by a mesh of one shard
+    a card (on the CPU: that many shards on the one device)."""
 
     def __init__(self, cell: Cell, seed: int, device: str = "cuda",
                  t_start: Optional[float] = None):
         import torch
 
-        from frizbee_tpu_torch import pack_corpus
+        from frizbee_tpu_torch import pack_corpus, parallel
 
         self.device = device
         mix = cell.mix
@@ -203,12 +233,19 @@ class Session:
             mix["check_per_shape"], rng_for(seed, SAMPLE_STREAM))
         self.port_cfg = port_config(mix["config"])
         self.k = mix["k"]
+        self.mesh = None
         self.depth = mix["depth"]
+        if cell.chips > 1:
+            self.mesh = parallel.make_mesh(
+                cell.chips, device=None if device == "cuda" else device)
+            self.depth = 1  # each call returns its answers
         t = self._phase("traffic", t)
-        # warm-up: every batch of the set once, through the same loop
+        # warm-up: every batch of the set once, through the same loop (on
+        # a mesh this also moves each shard's rows to its card)
         self.serve(0.0, max_batches=len(self.batches))
         if device == "cuda":
-            torch.cuda.synchronize()
+            for dev in (self.mesh.devices if self.mesh else [None]):
+                torch.cuda.synchronize(dev)
         self._phase("warm_up", t)
         self.setup_s = time.time() - t_start if t_start is not None else None
 
@@ -223,7 +260,8 @@ class Session:
               fault: Optional[Callable] = None):
         """The closed loop; returns (window seconds, served records,
         batches that raised)."""
-        from frizbee_tpu_torch import match_topk_batch_async
+        from frizbee_tpu_torch import (match_topk_batch_async,
+                                       match_topk_batch_sharded)
 
         tracer = tracer or Tracer(False)
         inflight = deque()
@@ -259,8 +297,14 @@ class Session:
                     i += 1
                 with tracer.span("dispatch"):
                     ts = time.perf_counter()
-                    fut = match_topk_batch_async(
-                        self.batches[b], self.corpus, self.port_cfg, self.k)
+                    if self.mesh is None:
+                        fut = match_topk_batch_async(
+                            self.batches[b], self.corpus, self.port_cfg,
+                            self.k)
+                    else:
+                        fut = Done(lambda: match_topk_batch_sharded(
+                            self.batches[b], self.corpus, self.mesh,
+                            self.port_cfg, self.k))
                     dispatch_s = time.perf_counter() - ts
                 inflight.append((b, ts, dispatch_s, fut))
                 if len(inflight) >= self.depth:
@@ -271,10 +315,11 @@ class Session:
         return window_s, served, failed
 
     def release(self):
-        """Free the program's state (before the reference runs)."""
+        """Free the program's state (before the reference runs): the
+        corpus, and on a mesh the shard views it keeps."""
         import torch
 
-        self.corpus = None
+        self.corpus = self.mesh = None
         gc.collect()
         if self.device == "cuda":
             torch.cuda.empty_cache()
@@ -334,7 +379,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
         run.counters = counters_snapshot()
     run.attempted = len(run.served)
     if device == "cuda":
-        run.peak_bytes = int(torch.cuda.max_memory_allocated())
+        run.card_peaks = [int(torch.cuda.max_memory_allocated(i))
+                          for i in range(cell.chips)]
+        run.peak_bytes = max(run.card_peaks)
     banned = banned_modules()
     if banned:
         raise SystemExit(
@@ -374,14 +421,25 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
 
 
 def device_info(run: Run, device: str) -> dict:
+    """The result line's ``device``: the fullest card's peak and, traced,
+    the busy seconds averaged over the cell's cards (on more than one
+    card each card's peak and busy seconds besides)."""
     import torch
 
+    chips = run.cell.chips
     info = {"platform": "gpu" if device == "cuda" else device,
             "kind": (torch.cuda.get_device_name(0) if device == "cuda"
                      else device),
-            "count": 1, "memory_peak_bytes": run.peak_bytes}
+            "count": chips, "memory_peak_bytes": run.peak_bytes}
+    if chips > 1:
+        info["card_peak_bytes"] = run.card_peaks
     if run.trace is not None:
-        info["busy_s"] = run.trace.busy_s()
+        if chips > 1:
+            busy = run.trace.card_busy_s(chips)
+            info["busy_s"] = sum(busy) / chips
+            info["card_busy_s"] = busy
+        else:
+            info["busy_s"] = run.trace.busy_s()
         info["window_s"] = run.trace.window_s()
     return info
 

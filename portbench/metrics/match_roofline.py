@@ -13,8 +13,4 @@ def read(run):
     busy = run.trace.busy_s()
     if busy <= 0:
         return None
-    mix = run.cell.mix
-    bounds = roofline.batch_bounds(run.ref_corpus, run.batches,
-                                   mix["config"], mix["k"])
-    least = sum(bounds[b][0] for b, *_ in run.served)
-    return 100.0 * least / busy
+    return 100.0 * roofline.served_least_s(run) / busy

@@ -74,7 +74,8 @@ class ProgramTracer(Tracer):
         import torch
 
         base = super().result()
-        out = ProgramTrace(device=base.device, spans=base.spans)
+        out = ProgramTrace(device=base.device, spans=base.spans,
+                           cards=base.cards)
         cuda = torch.autograd.DeviceType.CUDA
         for e in self._prof.profiler.kineto_results.events():
             if e.device_type() == cuda:

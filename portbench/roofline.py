@@ -150,3 +150,13 @@ def batch_bounds(corpus: Corpus, batches: Sequence[Sequence[str]],
         ms, what = _bound(in_bytes, out_bytes, ops)
         out.append((ms / 1e3, what, in_bytes, out_bytes, ops))
     return out
+
+
+def served_least_s(run) -> float:
+    """The least time of every batch the run's window served, in
+    seconds (the bounds of the cell's fixed batches, summed as
+    served)."""
+    mix = run.cell.mix
+    bounds = batch_bounds(run.ref_corpus, run.batches, mix["config"],
+                          mix["k"])
+    return sum(bounds[b][0] for b, *_ in run.served)

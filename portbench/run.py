@@ -13,7 +13,8 @@ traced, the port's launch and route counters. Without a
 card, or with modules of JAX or of the JAX package loaded after the
 window or at any point up to the result line (the reference, the
 roofline and the metric readers run in between), it prints no result
-and exits non-zero.
+and exits non-zero. A cell on more than one card needs that many cards
+and reads each of them.
 """
 
 import argparse
@@ -47,7 +48,9 @@ def main(argv=None) -> int:
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}",
               file=sys.stderr)
         return 2
-    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.init()  # each card's allocator, before its peak is reset
+    for i in range(chips):
+        torch.cuda.reset_peak_memory_stats(i)
     t_start = harness.process_start_time() or T_START
     out, notes = harness.run_cell(cell, args.seed, args.seconds,
                                   bool(args.trace), t_start=t_start)
