@@ -33,6 +33,10 @@ src/smith_waterman/algo/ascii.rs and unicode.rs):
 4. A window that is the whole row and equals the needle byte for byte
    adds the exact-match bonus and sets ``exact``.
 
+A window of more than ``MAX_WINDOW_BYTES`` bytes (counted in bytes on
+either unit mode) skips step 3: saghen/frizbee's greedy matcher scores it
+(``greedy.py``), and step 4 applies as above.
+
 The up moves of one column form a max-plus scan down the needle rows,
 computed here with a cumulative maximum: H_i = max_k<=i (A_k - sum of the
 up costs k+1..i), A = max(diag, left).
@@ -40,31 +44,18 @@ up costs k+1..i), A = max(diag, left).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
+from .greedy import greedy_scan
 from .query import Atom
-from .units import Block
+from .units import U16_MAX, Block, is_delim, is_lower, is_upper
 
-U16_MAX = 0xFFFF
-# the DP's cap: longer windows take saghen/frizbee's greedy matcher, which
-# this reference does not carry (no configuration of the benchmark has
-# such rows)
+# the DP's cap (saghen/frizbee: MAX_HAYSTACK_LEN,
+# src/smith_waterman/algo/mod.rs:18): longer windows take the greedy
+# matcher
 MAX_WINDOW_BYTES = 1024
-
-
-def _is_upper(b):
-    return (b >= 0x41) & (b <= 0x5A)
-
-
-def _is_lower(b):
-    return (b >= 0x61) & (b <= 0x7A)
-
-
-def _is_delim(b):
-    alnum = _is_upper(b) | _is_lower(b) | ((b >= 0x30) & (b <= 0x39))
-    return (b >= 0) & (b <= 127) & ~alnum
 
 
 def _first_true(mask: torch.Tensor) -> torch.Tensor:
@@ -152,7 +143,7 @@ def fuzzy_window(blk: Block, atom: Atom, max_typos: Optional[int]):
         ok, start, end = _prefilter(blk, atom, int(max_typos))
         ok &= blk.n_bytes >= len(atom.needle) - int(max_typos)
     rows = torch.nonzero(ok).flatten()
-    sub = Block(*(getattr(blk, f)[rows] for f in Block.__dataclass_fields__))
+    sub = blk.select(rows)
     s, e = start[rows], end[rows].long()
     # the window starts a byte before its first match unit: a whole unit
     # of one byte, or the tail of a longer one (skipped, its last byte
@@ -175,26 +166,23 @@ def fuzzy_window(blk: Block, atom: Atom, max_typos: Optional[int]):
     return rows, sub, wf, wlen, ctx0, wstart_byte, end_byte
 
 
-def fuzzy_block(blk: Block, atom: Atom, max_typos: Optional[int], sc):
-    """(matched, score, exact, end_col) of every row of ``blk`` for one
-    fuzzy atom; ``sc`` is the scoring dict."""
-    R = blk.cp.shape[0]
-    dev = blk.cp.device
+def greedy_windows(windows: Callable, rows: torch.Tensor,
+                   wstart_byte: torch.Tensor, end_byte: torch.Tensor,
+                   atom: Atom, sc):
+    """The greedy matcher over the byte windows ``[wstart_byte,
+    end_byte)`` of the corpus rows ``rows``; ``windows(rows, start,
+    length)`` gives a padded matrix of their bytes."""
+    wlen = end_byte - wstart_byte
+    return greedy_scan(windows(rows, wstart_byte, wlen), wlen, atom, sc,
+                       wstart_byte == 0)
+
+
+def _smith_waterman(sub: Block, wf, wlen, ctx0, wstart_byte, atom: Atom,
+                    sc):
+    """(best score, its end_col) of each row of ``sub`` over its window
+    of ``wlen`` units from unit ``wf`` (step 3)."""
+    dev = sub.cp.device
     n = len(atom.orig)
-    matched = torch.zeros(R, dtype=torch.bool, device=dev)
-    score = torch.zeros(R, dtype=torch.int32, device=dev)
-    exact = torch.zeros(R, dtype=torch.bool, device=dev)
-    end_col = torch.zeros(R, dtype=torch.int32, device=dev)
-    if n == 0 or R == 0:
-        return matched, score, exact, end_col
-    rows, sub, wf, wlen, ctx0, wstart_byte, end_byte = fuzzy_window(
-        blk, atom, max_typos)
-    matched[rows] = True
-    if len(rows) == 0:
-        return matched, score, exact, end_col
-    if bool(((end_byte - wstart_byte) > MAX_WINDOW_BYTES).any()):
-        raise NotImplementedError(
-            "a window over the DP cap takes the greedy matcher")
     W = int(wlen.max())
     colw = torch.arange(max(W, 1), device=dev)[None, :]
     idx = wf[:, None] + colw
@@ -205,8 +193,8 @@ def fuzzy_block(blk: Block, atom: Atom, max_typos: Optional[int], sc):
     pb[:, 0] = ctx0
     bw = _gather(sub.byte_off, idx)
     include_prefix = wstart_byte == 0
-    bonus = (sc["capitalization_bonus"] * (_is_upper(fb) & _is_lower(pb))
-             + sc["delimiter_bonus"] * (_is_delim(pb) & ~_is_delim(fb)))
+    bonus = (sc["capitalization_bonus"] * (is_upper(fb) & is_lower(pb))
+             + sc["delimiter_bonus"] * (is_delim(pb) & ~is_delim(fb)))
     bonus[:, 0] += sc["prefix_bonus"] * include_prefix
     bonus = bonus.to(torch.int32)
 
@@ -218,7 +206,7 @@ def fuzzy_block(blk: Block, atom: Atom, max_typos: Optional[int], sc):
     ge = sc["gap_extend_penalty"]
     go = max(sc["gap_open_penalty"] - ge, 0)
     cb = sc["matching_case_bonus"]
-    Rs = len(rows)
+    Rs = len(wf)
     cpT, bonusT, validT = (x.T.contiguous() for x in (cpw, bonus, valid))
     H = torch.zeros((n, Rs), dtype=torch.int32, device=dev)
     hit_prev = torch.zeros((n, Rs), dtype=torch.bool, device=dev)
@@ -245,11 +233,50 @@ def fuzzy_block(blk: Block, atom: Atom, max_typos: Optional[int], sc):
         best_col = torch.where(better, c, best_col)
     ec = torch.where(best > 0, _gather(bw, best_col[:, None])[:, 0],
                      wstart_byte)
+    return best, ec
+
+
+def fuzzy_block(blk: Block, atom: Atom, max_typos: Optional[int], sc,
+                windows: Callable):
+    """(matched, score, exact, end_col) of every row of ``blk`` for one
+    fuzzy atom; ``sc`` is the scoring dict, ``windows`` the corpus's
+    byte windows (``Units.byte_windows``) for the greedy matcher."""
+    R = blk.cp.shape[0]
+    dev = blk.cp.device
+    n = len(atom.orig)
+    matched = torch.zeros(R, dtype=torch.bool, device=dev)
+    score = torch.zeros(R, dtype=torch.int32, device=dev)
+    exact = torch.zeros(R, dtype=torch.bool, device=dev)
+    end_col = torch.zeros(R, dtype=torch.int32, device=dev)
+    if n == 0 or R == 0:
+        return matched, score, exact, end_col
+    rows, sub, wf, wlen, ctx0, wstart_byte, end_byte = fuzzy_window(
+        blk, atom, max_typos)
+    matched[rows] = True
+    if len(rows) == 0:
+        return matched, score, exact, end_col
+    best = torch.zeros(len(rows), dtype=torch.int32, device=dev)
+    ec = torch.zeros(len(rows), dtype=torch.long, device=dev)
+    over = (end_byte - wstart_byte) > MAX_WINDOW_BYTES
+    dp = torch.nonzero(~over).flatten()
+    if len(dp):
+        dp_best, dp_ec = _smith_waterman(
+            sub.select(dp), wf[dp], wlen[dp], ctx0[dp], wstart_byte[dp],
+            atom, sc)
+        best[dp], ec[dp] = dp_best, dp_ec.long()
+    gr = torch.nonzero(over).flatten()
+    if len(gr):
+        ws = wstart_byte[gr]
+        scan = greedy_windows(windows, sub.rows[gr], ws, end_byte[gr], atom,
+                              sc)
+        best[gr] = scan.score.int()
+        ec[gr] = torch.where(scan.found, ws + scan.last, ws)
     include_exact = (wstart_byte == 0) & (end_byte == sub.n_bytes)
     same = (sub.n_units == n) & (sub.n_bytes == len(atom.needle_bytes))
     width = sub.cp.shape[1]
+    o = torch.tensor(atom.orig, dtype=torch.int32, device=dev)[None, :]
     if n <= width:
-        same &= (sub.cp[:, :n] == o.T).all(dim=1)
+        same &= (sub.cp[:, :n] == o).all(dim=1)
     else:
         same &= False
     ex_row = include_exact & same

@@ -17,8 +17,8 @@ from __future__ import annotations
 
 import torch
 
-from .fuzzy import U16_MAX, _is_delim, _is_lower, _is_upper
 from .query import EXACT, PREFIX, SUBSTRING, SUFFIX, Atom
+from .units import U16_MAX, is_delim, is_lower, is_upper
 
 
 def literal_block(byts: torch.Tensor, n_bytes: torch.Tensor, atom: Atom,
@@ -60,8 +60,8 @@ def literal_block(byts: torch.Tensor, n_bytes: torch.Tensor, atom: Atom,
         start0 = (pos + off) == 0
         bonus = torch.where(
             start0, sc["prefix_bonus"],
-            sc["capitalization_bonus"] * (_is_upper(first) & _is_lower(prev))
-            + sc["delimiter_bonus"] * (_is_delim(prev) & ~_is_delim(first)))
+            sc["capitalization_bonus"] * (is_upper(first) & is_lower(prev))
+            + sc["delimiter_bonus"] * (is_delim(prev) & ~is_delim(first)))
         total = total + (sc["match_score"]
                          + sc["matching_case_bonus"] * is_o.int()
                          + bonus).to(torch.int32)

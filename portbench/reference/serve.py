@@ -62,7 +62,8 @@ def atom_rows(corpus: Corpus, atom, max_typos: Optional[int], scoring):
     units = corpus.units(atom.unicode if atom.mode == FUZZY else False)
     for blk in units.blocks(BLOCK_CELLS):
         if atom.mode == FUZZY:
-            res = fuzzy_block(blk, atom, max_typos, scoring)
+            res = fuzzy_block(blk, atom, max_typos, scoring,
+                              units.byte_windows)
         else:
             res = literal_block(units.byte_block(blk.rows), blk.n_bytes,
                                 atom, scoring)

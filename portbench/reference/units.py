@@ -17,6 +17,22 @@ from typing import Iterator, Sequence
 import numpy as np
 import torch
 
+U16_MAX = 0xFFFF
+
+
+def is_upper(b):
+    return (b >= 0x41) & (b <= 0x5A)
+
+
+def is_lower(b):
+    return (b >= 0x61) & (b <= 0x7A)
+
+
+def is_delim(b):
+    """An ASCII byte that is not alphanumeric (-1, padding, is none)."""
+    alnum = is_upper(b) | is_lower(b) | ((b >= 0x30) & (b <= 0x39))
+    return (b >= 0) & (b <= 127) & ~alnum
+
 
 def _cp_byte_len(cp: torch.Tensor) -> torch.Tensor:
     return (1 + (cp >= 0x80).int() + (cp >= 0x800).int()
@@ -59,6 +75,11 @@ class Block:
     prev_last: torch.Tensor
     byte_off: torch.Tensor
     byte_len: torch.Tensor
+
+    def select(self, idx: torch.Tensor) -> "Block":
+        """The block of its rows ``idx``."""
+        return Block(*(getattr(self, f)[idx]
+                       for f in Block.__dataclass_fields__))
 
 
 class Units:
@@ -142,10 +163,16 @@ class Units:
 
     def byte_block(self, rows: torch.Tensor) -> torch.Tensor:
         """The rows' bytes as an (R, L) matrix padded with -1."""
-        nb = self.n_bytes[rows]
-        width = max(int(nb.max()), 1) if len(rows) else 1
+        return self.byte_windows(rows, torch.zeros_like(rows),
+                                 self.n_bytes[rows])
+
+    def byte_windows(self, rows: torch.Tensor, start: torch.Tensor,
+                     length: torch.Tensor) -> torch.Tensor:
+        """Each row's ``length`` bytes from byte ``start`` as an (R, L)
+        matrix padded with -1."""
+        width = max(int(length.max()), 1) if len(rows) else 1
         col = torch.arange(width, device=self.device)
-        valid = col[None, :] < nb[:, None]
-        idx = torch.where(valid, self._bstarts[rows][:, None] + col[None, :],
-                          0)
+        valid = col[None, :] < length[:, None]
+        idx = torch.where(valid, (self._bstarts[rows] + start)[:, None]
+                          + col[None, :], 0)
         return torch.where(valid, self._bytes[idx], -1)
